@@ -1,0 +1,105 @@
+"""Padded-batch data structures (counterpart of morig_tpu/core/batch.py).
+
+Meshes and point clouds are dense padded tensors with validity masks; edges
+are fixed-width neighbor tables whose slot 0 is the self loop and whose
+invalid slots point at their own row, so every gather stays in bounds.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshBatch:
+    """verts (B,V,3) f32, vert_mask (B,V) bool, tpl_nbr/geo_nbr (B,V,D)
+    int64, tpl_mask/geo_mask (B,V,D) bool."""
+
+    verts: torch.Tensor
+    vert_mask: torch.Tensor
+    tpl_nbr: torch.Tensor
+    tpl_mask: torch.Tensor
+    geo_nbr: torch.Tensor
+    geo_mask: torch.Tensor
+
+    def to(self, device) -> "MeshBatch":
+        return MeshBatch(*(getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(self)))
+
+    def repeat_interleave(self, n: int) -> "MeshBatch":
+        """Each entry repeated n times consecutively (the B*T keyframe axis)."""
+        return MeshBatch(*(getattr(self, f.name).repeat_interleave(n, dim=0)
+                           for f in dataclasses.fields(self)))
+
+
+@dataclasses.dataclass(frozen=True)
+class PointBatch:
+    """pts (B,P,3) f32, pts_mask (B,P) bool."""
+
+    pts: torch.Tensor
+    pts_mask: torch.Tensor
+
+    def to(self, device) -> "PointBatch":
+        return PointBatch(self.pts.to(device), self.pts_mask.to(device))
+
+
+def edges_to_neighbor_table(edges: np.ndarray, num_verts: int, max_degree: int,
+                            pad_to: int) -> tuple[np.ndarray, np.ndarray]:
+    """(E,2) undirected edge list -> (pad_to, max_degree) table + mask.
+
+    Slot 0 is the self loop; invalid slots point at the row's own vertex;
+    overflow neighbors beyond max_degree are dropped in sorted-pair order
+    (morig_tpu/core/batch.py:159)."""
+    nbr = np.tile(np.arange(pad_to, dtype=np.int32)[:, None], (1, max_degree))
+    mask = np.zeros((pad_to, max_degree), dtype=bool)
+    mask[:num_verts, 0] = True
+    fill = np.ones(pad_to, dtype=np.int32)
+    if edges.size:
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        both = np.concatenate([edges, edges[:, ::-1]], axis=0)
+        both = np.unique(both[both[:, 0] != both[:, 1]], axis=0)
+        for a, b in both:
+            if a < num_verts and b < num_verts and fill[a] < max_degree:
+                nbr[a, fill[a]] = b
+                mask[a, fill[a]] = True
+                fill[a] += 1
+    return nbr, mask
+
+
+def build_mesh(verts: np.ndarray, tpl_edges: np.ndarray, geo_edges: np.ndarray,
+               pad_verts: int, tpl_max_degree: int = 16,
+               geo_max_degree: int = 16) -> dict[str, np.ndarray]:
+    """Arrays of one unbatched mesh entry, padded to pad_verts rows."""
+    v = np.asarray(verts, dtype=np.float32)
+    nv = len(v)
+    if nv > pad_verts:
+        raise ValueError(f"{nv} vertices do not fit pad_verts={pad_verts}")
+    tpl_nbr, tpl_mask = edges_to_neighbor_table(tpl_edges, nv, tpl_max_degree, pad_verts)
+    geo_nbr, geo_mask = edges_to_neighbor_table(geo_edges, nv, geo_max_degree, pad_verts)
+    vert_mask = np.zeros(pad_verts, dtype=bool)
+    vert_mask[:nv] = True
+    return dict(
+        verts=np.pad(v, ((0, pad_verts - nv), (0, 0))),
+        vert_mask=vert_mask,
+        tpl_nbr=tpl_nbr, tpl_mask=tpl_mask,
+        geo_nbr=geo_nbr, geo_mask=geo_mask,
+    )
+
+
+def stack_meshes(entries: Sequence[dict], device="cpu") -> MeshBatch:
+    """Stack per-mesh dicts (all padded to the same V) into a MeshBatch."""
+    def stack(k, dtype):
+        return torch.as_tensor(np.stack([e[k] for e in entries]), dtype=dtype,
+                               device=device)
+
+    return MeshBatch(
+        verts=stack("verts", torch.float32),
+        vert_mask=stack("vert_mask", torch.bool),
+        tpl_nbr=stack("tpl_nbr", torch.int64),
+        tpl_mask=stack("tpl_mask", torch.bool),
+        geo_nbr=stack("geo_nbr", torch.int64),
+        geo_mask=stack("geo_mask", torch.bool),
+    )

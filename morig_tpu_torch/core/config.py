@@ -1,0 +1,37 @@
+"""The constants of the rig DAG — the part of morig_tpu/core/config.py's
+`Config` tree that `RigPredictor` reads, with the same names and defaults.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    nearest_bone: int = 5              # bones per vertex in the skin descriptor
+
+
+@dataclasses.dataclass(frozen=True)
+class JointExtractConfig:
+    bandwidth_quantile: float = 0.04
+    attn_threshold: float = 0.1
+    density_threshold: float = 0.02
+    attn_nms_threshold: float = 0.7
+    meanshift_max_iter: int = 30
+    bandwidth_sample_rows: int = 1024  # strided row sample of the bandwidth estimate
+
+
+@dataclasses.dataclass(frozen=True)
+class SkinPostConfig:
+    prune_ratio_rig: float = 0.35
+    post_filter_rings: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    joints: JointExtractConfig = dataclasses.field(default_factory=JointExtractConfig)
+    skin_post: SkinPostConfig = dataclasses.field(default_factory=SkinPostConfig)
+
+
+DEFAULT_CONFIG = Config()

@@ -1,0 +1,169 @@
+"""Skeleton structure and the host algorithms of rig assembly (numpy) —
+counterpart of the parts of morig_tpu/geometry/skeleton.py the rig DAG runs:
+`get_bones`, `prim_mst`, `rig_from_parents`, `assemble_skel_skin` and
+`remove_duplicate_joints`, with the `Rig` structure they share.
+
+These work on graphs of at most ~50 joints and stay on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Rig:
+    names: List[str]
+    pos: np.ndarray                       # (J, 3)
+    parents: np.ndarray                   # (J,) int, -1 for root
+    skins: Optional[np.ndarray] = None    # (V, J) or None
+
+    @property
+    def num_joints(self) -> int:
+        return len(self.names)
+
+    @property
+    def root_id(self) -> int:
+        return int(np.argwhere(self.parents < 0)[0, 0])
+
+    def children(self, j: int) -> np.ndarray:
+        return np.argwhere(self.parents == j).reshape(-1)
+
+    def levels(self) -> List[np.ndarray]:
+        """Topological levels, root first."""
+        out = [np.array([self.root_id])]
+        while True:
+            nxt = (np.concatenate([self.children(int(j)) for j in out[-1]])
+                   if len(out[-1]) else np.array([], int))
+            if len(nxt) == 0:
+                return out
+            out.append(nxt)
+
+
+def rig_from_parents(joints: np.ndarray, parents: np.ndarray,
+                     names: Optional[Sequence[str]] = None) -> Rig:
+    names = list(names) if names is not None else [f"joint_{i}" for i in range(len(joints))]
+    return Rig(names=names, pos=np.asarray(joints, float), parents=np.asarray(parents, int))
+
+
+def get_bones(rig: Rig):
+    """Bones in breadth-first order, with a zero-length leaf bone appended at
+    each childless joint (one leaf bone at the root of a single-joint rig).
+    Returns (bones (B,6), names [(parent, child)], isleaf (B,))."""
+    bones, names, isleaf = [], [], []
+    for level in rig.levels():
+        for j in level:
+            for c in rig.children(int(j)):
+                bones.append(np.concatenate([rig.pos[j], rig.pos[c]]))
+                names.append((rig.names[j], rig.names[c]))
+                isleaf.append(False)
+                if len(rig.children(int(c))) == 0:
+                    bones.append(np.concatenate([rig.pos[c], rig.pos[c]]))
+                    names.append((rig.names[c], rig.names[c] + "_leaf"))
+                    isleaf.append(True)
+    if not bones:
+        r = rig.root_id
+        bones.append(np.concatenate([rig.pos[r], rig.pos[r]]))
+        names.append((rig.names[r], rig.names[r] + "_leaf"))
+        isleaf.append(True)
+    return np.stack(bones), names, np.asarray(isleaf)
+
+
+def add_duplicate_joints(rig: Rig) -> Rig:
+    """Split branch points: each child of a multi-child joint gets its own
+    copy of the parent, moved 1% along the bone, so every chain is unary.
+    Skins are not carried."""
+    names = [rig.names[rig.root_id]]
+    pos = [rig.pos[rig.root_id]]
+    parents = [-1]
+    index = {rig.names[rig.root_id]: 0}
+    for level in rig.levels():
+        for j in level:
+            ch = rig.children(int(j))
+            if len(ch) > 1:
+                for d, c in enumerate(ch):
+                    dup = f"{rig.names[j]}_dup_{d}"
+                    pos.append(rig.pos[j] + 0.01 * (rig.pos[c] - rig.pos[j]))
+                    names.append(dup)
+                    parents.append(index[rig.names[j]])
+                    index[dup] = len(names) - 1
+                    pos.append(rig.pos[c])
+                    names.append(rig.names[c])
+                    parents.append(index[dup])
+                    index[rig.names[c]] = len(names) - 1
+            elif len(ch) == 1:
+                c = ch[0]
+                pos.append(rig.pos[c])
+                names.append(rig.names[c])
+                parents.append(index[rig.names[j]])
+                index[rig.names[c]] = len(names) - 1
+    return Rig(names=names, pos=np.stack(pos), parents=np.asarray(parents, int))
+
+
+def remove_duplicate_joints(rig: Rig) -> Rig:
+    """Inverse of add_duplicate_joints: collapse the "_dup" joints, folding
+    their skin columns into the parent."""
+    assert rig.skins is not None
+    keep_names = [rig.names[rig.root_id]]
+    keep_pos = [rig.pos[rig.root_id]]
+    keep_parents = [-1]
+    keep_skin = [rig.skins[:, rig.root_id].copy()]
+    index = {rig.names[rig.root_id]: 0}
+    stack = [rig.root_id]
+    while stack:
+        j = stack.pop(0)
+        for c in rig.children(int(j)):
+            if "_dup" in rig.names[c]:
+                keep_skin[index[rig.names[j]]] += rig.skins[:, c]
+                for gc in rig.children(int(c)):
+                    keep_names.append(rig.names[gc])
+                    keep_pos.append(rig.pos[gc])
+                    keep_parents.append(index[rig.names[j]])
+                    keep_skin.append(rig.skins[:, gc].copy())
+                    index[rig.names[gc]] = len(keep_names) - 1
+                    stack.append(int(gc))
+            else:
+                keep_names.append(rig.names[c])
+                keep_pos.append(rig.pos[c])
+                keep_parents.append(index[rig.names[j]])
+                keep_skin.append(rig.skins[:, c].copy())
+                index[rig.names[c]] = len(keep_names) - 1
+                stack.append(int(c))
+    return Rig(names=keep_names, pos=np.stack(keep_pos),
+               parents=np.asarray(keep_parents, int), skins=np.stack(keep_skin, axis=1))
+
+
+def assemble_skel_skin(skel: Rig, attachment: np.ndarray) -> Rig:
+    """Attach per-bone skin weights (V, bones of `skel`) to the rig with
+    duplicated branch joints: each bone's weight binds to its parent joint."""
+    bones_old, _, _ = get_bones(skel)
+    rig_new = add_duplicate_joints(skel)
+    bones_new, names_new, _ = get_bones(rig_new)
+    d = np.linalg.norm(bones_new[None] - bones_old[:, None], axis=-1)
+    mapping = d.argmin(1)                          # nearest new bone of each old one
+    idx = {n: i for i, n in enumerate(rig_new.names)}
+    skins = np.zeros((attachment.shape[0], rig_new.num_joints))
+    for b in range(attachment.shape[1]):
+        bind = idx[names_new[mapping[b]][0]]
+        skins[:, bind] += np.where(attachment[:, b] > 1e-5, attachment[:, b], 0.0)
+    rig_new.skins = skins
+    return rig_new
+
+
+def prim_mst(cost: np.ndarray, root: int) -> np.ndarray:
+    """Dense-graph Prim MST; returns the parent array with -1 at the root."""
+    n = cost.shape[0]
+    key = np.full(n, np.inf)
+    parent = np.full(n, -1, int)
+    in_tree = np.zeros(n, bool)
+    key[root] = 0.0
+    for _ in range(n):
+        u = int(np.argmin(np.where(in_tree, np.inf, key)))
+        in_tree[u] = True
+        upd = (~in_tree) & (cost[u] > 0) & (cost[u] < key)
+        key[upd] = cost[u][upd]
+        parent[upd] = u
+    parent[root] = -1
+    return parent

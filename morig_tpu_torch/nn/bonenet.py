@@ -1,0 +1,103 @@
+"""BoneNet (pairwise connectivity) and RootNet (root classification).
+Counterpart of morig_tpu/nn/bonenet.py; dropout is off at inference."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from morig_tpu_torch.core.batch import MeshBatch
+from morig_tpu_torch.kernels import neighbors as nbk
+from morig_tpu_torch.nn.gcu import GCU
+from morig_tpu_torch.nn.mlp import MLP, Dense, MLPHead, default_generator, init_parameters
+from morig_tpu_torch.nn.pointnet import FPModule, GlobalSAModule, SAModule
+
+
+class ShapeEncoder(nn.Module):
+    """3 x GCU + global-max shape code (out_channels 64 for BoneNet, 128 for
+    RootNet)."""
+
+    def __init__(self, out_channels: int = 64):
+        super().__init__()
+        self.gcu_1 = GCU(3, 64)
+        self.gcu_2 = GCU(64, 128)
+        self.gcu_3 = GCU(128, 256)
+        self.mlp_glb = MLP(448, [256, 64] if out_channels == 64 else [out_channels])
+
+    def forward(self, mesh: MeshBatch) -> torch.Tensor:
+        x1 = self.gcu_1(mesh.verts, mesh)
+        x2 = self.gcu_2(x1, mesh)
+        x3 = self.gcu_3(x2, mesh)
+        return nbk.masked_max(self.mlp_glb(torch.cat([x1, x2, x3], -1)), mesh.vert_mask, dim=1)
+
+
+class JointSetEncoder(nn.Module):
+    """Global joint-set code: SA stack over the joint cloud."""
+
+    def __init__(self):
+        super().__init__()
+        self.sa1 = SAModule(0, 0.4, [64, 64, 128])
+        self.sa2 = SAModule(128, 0.6, [128, 128, 256])
+        self.sa3 = GlobalSAModule(256, [256, 256, 512, 256, 128])
+
+    def forward(self, joints, joints_mask) -> torch.Tensor:
+        J = joints.shape[1]
+        x1, p1, m1 = self.sa1(None, joints, joints_mask, J)
+        x2, p2, m2 = self.sa2(x1, p1, m1, max(J // 3, 1))
+        return self.sa3(x2, p2, m2)
+
+
+class BoneNet(nn.Module):
+    """Pairwise connectivity logits (B,P,1) for joint pairs (B,P,2) with
+    pair attributes (B,P,2) = [distance, inside fraction]."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.shape_encoder = ShapeEncoder(64)
+        self.joint_encoder = JointSetEncoder()
+        self.expand_joint_feature = MLP(8, [32, 64, 128, 256])
+        self.mix_transform = MLP(64 + 128 + 256, [128, 64])
+        self.out = Dense(64, 1, zero_init=True)
+        init_parameters(self, default_generator(generator))
+
+    def forward(self, mesh: MeshBatch, joints, joints_mask, pairs, pair_attr):
+        B, P, _ = pairs.shape
+        shape_code = self.shape_encoder(mesh)
+        joint_code = self.joint_encoder(joints, joints_mask)
+        bsel = torch.arange(B, device=joints.device)[:, None]
+        pair_in = torch.cat([joints[bsel, pairs[..., 0]], joints[bsel, pairs[..., 1]],
+                             pair_attr], -1)
+        mixed = torch.cat([shape_code[:, None, :].expand(-1, P, -1),
+                           joint_code[:, None, :].expand(-1, P, -1),
+                           self.expand_joint_feature(pair_in)], -1)
+        return self.out(self.mix_transform(mixed))
+
+
+class RootNet(nn.Module):
+    """Per-joint root logits (B,J,1)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.shape_encoder = ShapeEncoder(128)
+        self.sa1 = SAModule(1, 0.4, [64, 64, 128])
+        self.sa2 = SAModule(128, 0.6, [128, 128, 256])
+        self.sa3 = GlobalSAModule(256, [256, 256, 512])
+        self.fp3 = FPModule(1, 512, 256, [256, 256])
+        self.fp2 = FPModule(3, 256, 128, [128, 128])
+        self.fp1 = FPModule(3, 128, 1, [128, 128])
+        self.back_layers = MLPHead(128 + 128, [200, 64], 1, zero_init=True)
+        init_parameters(self, default_generator(generator))
+
+    def forward(self, mesh: MeshBatch, joints, joints_mask):
+        J = joints.shape[1]
+        shape_code = self.shape_encoder(mesh)
+        x0 = joints[..., 0:1].abs()          # |x|: distance to the symmetry plane
+        x1, p1, m1 = self.sa1(x0, joints, joints_mask, J)
+        x2, p2, m2 = self.sa2(x1, p1, m1, max(J // 3, 1))
+        xg = self.sa3(x2, p2, m2)
+        f3, _, _ = self.fp3(xg, None, None, x2, p2, m2)
+        f2, _, _ = self.fp2(f3, p2, m2, x1, p1, m1)
+        f1, _, _ = self.fp1(f2, p1, m1, x0, joints, joints_mask)
+        per_joint = torch.cat([shape_code[:, None, :].expand(-1, J, -1), f1], -1)
+        return self.back_layers(per_joint)

@@ -1,0 +1,106 @@
+"""Graph convolution units over fixed-width neighbor tables — counterpart of
+morig_tpu/nn/gcu.py ("layer" norm mode, inference).
+
+The first edge layer is decomposed per vertex: W [x_i ; x_j - x_i] + b =
+(W1 - W2) x_i + W2 x_j + b, so `lin_self` holds (W1 - W2) with the bias and
+`lin_nbr` holds W2.  Both run as bf16 matmuls (the JAX package's bf16 edge
+messages at inference); the per-edge tail runs in kernel K1.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from morig_tpu_torch.core.batch import MeshBatch
+from morig_tpu_torch.kernels.edge_fused import fused_edge_mlp
+from morig_tpu_torch.nn.mlp import MLP, Dense, lecun_normal_
+
+
+class EdgeMLP(nn.Module):
+    """Edge message MLP [h1, h2] over [x_i, x_j - x_i] + masked max over the
+    table; returns (B,V,h2) fp32."""
+
+    def __init__(self, fin: int, channels: Sequence[int]):
+        super().__init__()
+        h1, h2 = channels
+        self.lin_self = Dense(fin, h1)
+        self.lin_nbr = Dense(fin, h1, bias=False)
+        self.dense_1_kernel = nn.Parameter(torch.empty(h1, h2))   # (in, out)
+        self.dense_1_bias = nn.Parameter(torch.empty(h2))
+        self.ln0_scale = nn.Parameter(torch.empty(h1))
+        self.ln0_bias = nn.Parameter(torch.empty(h1))
+        self.ln1_scale = nn.Parameter(torch.empty(h2))
+        self.ln1_bias = nn.Parameter(torch.empty(h2))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.dense_1_kernel, self.dense_1_kernel.shape[0], generator)
+        self.dense_1_bias.zero_()
+        self.ln0_scale.fill_(1.0)
+        self.ln0_bias.zero_()
+        self.ln1_scale.fill_(1.0)
+        self.ln1_bias.zero_()
+
+    def forward(self, x, nbr, nbr_mask):
+        a = self.lin_self(x, torch.bfloat16)
+        b = self.lin_nbr(x, torch.bfloat16)
+        return fused_edge_mlp(a, b, nbr, nbr_mask, self.dense_1_kernel,
+                              self.dense_1_bias, self.ln0_scale, self.ln0_bias,
+                              self.ln1_scale, self.ln1_bias)
+
+
+class EdgeConv(nn.Module):
+    """DGCNN-style conv: its one EdgeMLP is `nn_pos`."""
+
+    def __init__(self, fin: int, channels: Sequence[int]):
+        super().__init__()
+        self.nn_pos = EdgeMLP(fin, channels)
+
+    def forward(self, x, nbr, nbr_mask):
+        return self.nn_pos(x, nbr, nbr_mask)
+
+
+class GCU(nn.Module):
+    """Topology + geodesic EdgeConvs, concatenated, then a fuse MLP."""
+
+    def __init__(self, fin: int, out_channels: int):
+        super().__init__()
+        half = out_channels // 2
+        self.edge_conv_tpl = EdgeConv(fin, [half, half])
+        self.edge_conv_geo = EdgeConv(fin, [half, half])
+        self.mlp = MLP(2 * half, [out_channels])
+
+    def forward(self, x, mesh: MeshBatch):
+        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask)
+        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask)
+        return self.mlp(torch.cat([x_tpl, x_geo], -1))
+
+
+class EdgeConvMotion(nn.Module):
+    """Separate feature (`nn_x`) and position (`nn_pos`) edge MLPs."""
+
+    def __init__(self, pos_in: int, x_in: int, x_channels, pos_channels):
+        super().__init__()
+        self.nn_x = EdgeMLP(x_in, x_channels)
+        self.nn_pos = EdgeMLP(pos_in, pos_channels)
+
+    def forward(self, pos, x, nbr, nbr_mask):
+        return torch.cat([self.nn_x(x, nbr, nbr_mask), self.nn_pos(pos, nbr, nbr_mask)], -1)
+
+
+class GCUMotion(nn.Module):
+    """Motion-conditioned GCU: tpl + geo EdgeConvMotion pair + fuse MLP."""
+
+    def __init__(self, pos_in: int, x_in: int, out_channels: int, dim_pos_feat: int = 16):
+        super().__init__()
+        half = out_channels // 2
+        pc = [dim_pos_feat, dim_pos_feat]
+        self.edge_conv_tpl = EdgeConvMotion(pos_in, x_in, [half, half], pc)
+        self.edge_conv_geo = EdgeConvMotion(pos_in, x_in, [half, half], pc)
+        self.mlp = MLP(2 * (half + dim_pos_feat), [out_channels])
+
+    def forward(self, pos, x, mesh: MeshBatch):
+        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask)
+        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask)
+        return self.mlp(torch.cat([x_tpl, x_geo], -1))
