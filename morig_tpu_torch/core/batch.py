@@ -7,16 +7,21 @@ invalid slots point at their own row, so every gather stays in bounds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 
+_TENSORS = ("verts", "vert_mask", "tpl_nbr", "tpl_mask", "geo_nbr", "geo_mask")
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshBatch:
     """verts (B,V,3) f32, vert_mask (B,V) bool, tpl_nbr/geo_nbr (B,V,D)
-    int64, tpl_mask/geo_mask (B,V,D) bool."""
+    int64, tpl_mask/geo_mask (B,V,D) bool.  `edge_tile`: the vertex tile of
+    the windowed edge kernel K5 when every table is local at it
+    (nn/gcu.py `auto_select_edge_impl`), None for the full-table K1."""
 
     verts: torch.Tensor
     vert_mask: torch.Tensor
@@ -24,15 +29,15 @@ class MeshBatch:
     tpl_mask: torch.Tensor
     geo_nbr: torch.Tensor
     geo_mask: torch.Tensor
+    edge_tile: Optional[int] = None
 
     def to(self, device) -> "MeshBatch":
-        return MeshBatch(*(getattr(self, f.name).to(device)
-                           for f in dataclasses.fields(self)))
+        return dataclasses.replace(self, **{k: getattr(self, k).to(device) for k in _TENSORS})
 
     def repeat_interleave(self, n: int) -> "MeshBatch":
         """Each entry repeated n times consecutively (the B*T keyframe axis)."""
-        return MeshBatch(*(getattr(self, f.name).repeat_interleave(n, dim=0)
-                           for f in dataclasses.fields(self)))
+        return dataclasses.replace(self, **{k: getattr(self, k).repeat_interleave(n, dim=0)
+                                            for k in _TENSORS})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +94,8 @@ def build_mesh(verts: np.ndarray, tpl_edges: np.ndarray, geo_edges: np.ndarray,
     )
 
 
-def stack_meshes(entries: Sequence[dict], device="cpu") -> MeshBatch:
+def stack_meshes(entries: Sequence[dict], device="cpu",
+                 edge_tile: Optional[int] = None) -> MeshBatch:
     """Stack per-mesh dicts (all padded to the same V) into a MeshBatch."""
     def stack(k, dtype):
         return torch.as_tensor(np.stack([e[k] for e in entries]), dtype=dtype,
@@ -102,4 +108,5 @@ def stack_meshes(entries: Sequence[dict], device="cpu") -> MeshBatch:
         tpl_mask=stack("tpl_mask", torch.bool),
         geo_nbr=stack("geo_nbr", torch.int64),
         geo_mask=stack("geo_mask", torch.bool),
+        edge_tile=edge_tile,
     )

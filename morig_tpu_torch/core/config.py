@@ -25,6 +25,12 @@ class JointExtractConfig:
 class SkinPostConfig:
     prune_ratio_rig: float = 0.35
     post_filter_rings: int = 1
+    # volumetric skin distances (geometry/geodesic.py): strided min-plus
+    # anchors, line-of-sight samples per ray, rays per vertex (its nearest
+    # bones) once the padded bone axis is wider than that
+    geo_anchors: int = 512
+    geo_los_samples: int = 16
+    geo_candidates: int = 10
 
 
 @dataclasses.dataclass(frozen=True)

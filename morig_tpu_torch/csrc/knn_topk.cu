@@ -1,9 +1,12 @@
-// K2 — batched cosine top-k with row gather, for Hopper (sm_90a).
+// K2 and K4 — batched cosine top-k with and without row gather, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel morig_tpu/kernels/knn_fused.py `_fused_raw` with
+// K2 replaces the TPU kernel morig_tpu/kernels/knn_fused.py `_fused_raw` with
 // `values` (:109; body `_knn_gather_kernel` :65 -> `_knn_body` :71), reached
 // through `knn_batched` (:271) from nn/corrnet.py (vismask 1-NN) and
-// nn/deformnet.py (visible voting, invisible completion).  Per query row:
+// nn/deformnet.py (visible voting, invisible completion).  K4 replaces
+// `_fused_raw` without `values` (body `_knn_kernel` :61): the same kernel with
+// the gather compiled out (kGather = false).  Per query row:
 //
 //   score_j = <q, c_j> (bf16 operands, fp32 accumulation), -1e30 where
 //   cand_mask is false; the k largest in first-index-wins order; slots left
@@ -29,7 +32,7 @@ constexpr int kThreads = 128;
 constexpr int kTile = 64;            // candidates per shared-memory tile
 constexpr float kNeg = -1e30f;
 
-template <int KM, int C>
+template <int KM, int C, bool kGather>
 __global__ void __launch_bounds__(kThreads) knn_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cand,
     const unsigned char* __restrict__ mask, const float* __restrict__ values,
@@ -98,20 +101,21 @@ __global__ void __launch_bounds__(kThreads) knn_kernel(
     if (j >= k) break;
     idx_out[row * k + j] = ti[j];
     score_out[row * k + j] = ts[j];
+    if (!kGather) continue;
     const float* src = values + (static_cast<long long>(bi) * P + ti[j]) * Cv;
     float* dst = gathered + (row * k + j) * Cv;
     for (int c = 0; c < Cv; ++c) dst[c] = src[c];
   }
 }
 
-template <int KM>
+template <int KM, bool kGather>
 cudaError_t launch_c(const void* q, const void* cand, const void* mask,
                      const void* values, void* idx, void* score, void* gathered,
                      int B, int N, int P, int C, int Cv, int k, cudaStream_t s) {
   const dim3 grid((N + kThreads - 1) / kThreads, B);
   if (grid.x == 0 || B == 0) return cudaSuccess;
 #define MORIG_KNN_LAUNCH(CC)                                                      \
-  knn_kernel<KM, CC><<<grid, kThreads, 0, s>>>(                                   \
+  knn_kernel<KM, CC, kGather><<<grid, kThreads, 0, s>>>(                                   \
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(cand), \
       static_cast<const unsigned char*>(mask), static_cast<const float*>(values),  \
       static_cast<long long*>(idx), static_cast<float*>(score),                    \
@@ -133,8 +137,19 @@ extern "C" int knn_topk_gather(const void* q, const void* cand, const void* mask
                                int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k == 1)
-    return launch_c<1>(q, cand, mask, values, idx, score, gathered, B, N, P, C, Cv, k, s);
+    return launch_c<1, true>(q, cand, mask, values, idx, score, gathered, B, N, P, C, Cv, k, s);
   if (k >= 2 && k <= 8)
-    return launch_c<8>(q, cand, mask, values, idx, score, gathered, B, N, P, C, Cv, k, s);
+    return launch_c<8, true>(q, cand, mask, values, idx, score, gathered, B, N, P, C, Cv, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4: the same without values and gathered.
+extern "C" int knn_topk(const void* q, const void* cand, const void* mask, void* idx,
+                        void* score, int B, int N, int P, int C, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k == 1)
+    return launch_c<1, false>(q, cand, mask, nullptr, idx, score, nullptr, B, N, P, C, 0, k, s);
+  if (k >= 2 && k <= 8)
+    return launch_c<8, false>(q, cand, mask, nullptr, idx, score, nullptr, B, N, P, C, 0, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,8 +2,8 @@
 
 Device end (batched torch): bandwidth by geometric bisection (the JAX
 default "auto" estimate), weighted flat-kernel mean-shift with a per-sample
-convergence freeze, density counts, and `select_and_cluster` without voxels.
-Host end (numpy, copied as it is because the JAX module imports jax):
+convergence freeze, density counts, and `select_and_cluster` with or
+without voxel containment.  Host end (numpy, copied as it is because the JAX module imports jax):
 `nms_modes`, `flip_joints`, `nms_flip_host`.
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from morig_tpu_torch.geometry.voxel import inside_check
 from morig_tpu_torch.kernels.neighbors import pairwise_sqdist
 
 
@@ -65,11 +66,12 @@ def meanshift_cluster(pts, bandwidth, weights, mask, num_iter: int = 30,
 
 
 def select_and_cluster(shifted, attn, vert_mask, quantile: float = 0.04, num_iter: int = 30,
-                       attn_threshold: float = 0.1, sample_rows: int = 0):
-    """Device end of joint extraction, mirror-symmetrized, no voxels:
-    attention min-max over valid vertices, selection, reflection, bandwidth,
-    mean-shift and density counts.  Returns (moved (B,2V,3), bw (B,),
-    counts (B,2V), attn2 (B,2V), sel2 (B,2V))."""
+                       attn_threshold: float = 0.1, sample_rows: int = 0, vox=None):
+    """Device end of joint extraction, mirror-symmetrized: attention
+    min-max over valid vertices, selection (with `vox`, the voxel triple of
+    geometry/voxel.py, only shifted points inside their mesh's grid),
+    reflection, bandwidth, mean-shift and density counts.  Returns (moved
+    (B,2V,3), bw (B,), counts (B,2V), attn2 (B,2V), sel2 (B,2V))."""
     inf = torch.full((), float("inf"), device=attn.device)
     hi = torch.where(vert_mask, attn, -inf).max(1, keepdim=True).values
     lo = torch.where(vert_mask, attn, inf).min(1, keepdim=True).values
@@ -78,6 +80,8 @@ def select_and_cluster(shifted, attn, vert_mask, quantile: float = 0.04, num_ite
                       (attn - lo) / torch.where(spread > 1e-10, spread, torch.ones_like(spread)),
                       attn)
     sel = vert_mask & (a_n > attn_threshold)
+    if vox is not None:
+        sel = sel & inside_check(shifted, *vox)
     mirror = torch.tensor([-1.0, 1.0, 1.0], device=shifted.device)
     pts2 = torch.cat([shifted, shifted * mirror], 1)
     a2 = torch.cat([a_n, a_n], 1)

@@ -1,7 +1,8 @@
 """Skeleton structure and the host algorithms of rig assembly (numpy) —
 counterpart of the parts of morig_tpu/geometry/skeleton.py the rig DAG runs:
-`get_bones`, `prim_mst`, `rig_from_parents`, `assemble_skel_skin` and
-`remove_duplicate_joints`, with the `Rig` structure they share.
+`get_bones`, `prim_mst`, `increase_cost_for_outside_bone`,
+`rig_from_parents`, `assemble_skel_skin` and `remove_duplicate_joints`, with
+the `Rig` structure they share.
 
 These work on graphs of at most ~50 joints and stay on the host.
 """
@@ -167,3 +168,31 @@ def prim_mst(cost: np.ndarray, root: int) -> np.ndarray:
         parent[upd] = u
     parent[root] = -1
     return parent
+
+
+def increase_cost_for_outside_bone(cost: np.ndarray, joints: np.ndarray,
+                                   inside_frac_fn=None, tol: float = 2e-2,
+                                   frac: Optional[np.ndarray] = None) -> np.ndarray:
+    """Penalize candidate bones leaving the volume; halve cost between
+    middle-plane joints.  `inside_frac_fn(starts, ends)` returns the
+    in-volume sample fraction per segment; alternatively pass precomputed
+    `frac` per upper-triangle pair (row-major, the combinations/triu order)."""
+    J = len(joints)
+    ii, jj = np.triu_indices(J, k=1)
+    starts, ends = joints[ii], joints[jj]
+    if frac is None:
+        frac = np.asarray(inside_frac_fn(starts, ends))
+    else:
+        frac = np.asarray(frac)[: len(ii)]
+    seg_len = np.linalg.norm(ends - starts, axis=1)
+    num_samples = np.maximum(np.round(seg_len / 0.01), 1)
+    outside = (1.0 - frac) * num_samples
+    cost = cost.copy()
+    bad = outside > 1
+    cost[ii[bad], jj[bad]] = 2.0 * outside[bad]
+    cost[jj[bad], ii[bad]] = 2.0 * outside[bad]
+    mid = np.abs(joints[:, 0]) < tol
+    both_mid = mid[ii] & mid[jj]
+    cost[ii[both_mid], jj[both_mid]] *= 0.5
+    cost[jj[both_mid], ii[both_mid]] *= 0.5
+    return cost

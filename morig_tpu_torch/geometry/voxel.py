@@ -1,0 +1,104 @@
+"""Voxel grids: solid voxelization (host), containment and line of sight
+(device) — counterpart of morig_tpu/geometry/voxel.py.
+
+`Voxels` and `voxelize_mesh` are host copies (numpy; the flood fill runs in
+the repository's C++ code through `morig_tpu_torch.native`).  On the device
+a grid travels as the triple (grid (B,D,D,D) bool, translate (B,3) fp32,
+scale (B,) fp32), batched over meshes; containment is a direct
+`grid[b, x, y, z]` lookup.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from morig_tpu_torch import native
+
+
+@dataclasses.dataclass
+class Voxels:
+    data: np.ndarray          # (D, D, D) bool, x-major
+    translate: np.ndarray     # (3,)
+    scale: float
+    dims: int = 88
+
+
+def voxelize_mesh(verts: np.ndarray, faces: np.ndarray, dims: int = 88,
+                  pad: float = 0.02) -> Voxels:
+    """Solid voxelization: rasterize the surface by dense barycentric face
+    sampling (spacing at most half a cell, so the shell is watertight), then
+    flood-fill the outside from the boundary; shell + interior = solid."""
+    lo = verts.min(0) - pad
+    hi = verts.max(0) + pad
+    scale = float((hi - lo).max())
+    translate = lo
+
+    grid = np.zeros((dims, dims, dims), bool)
+    cell = scale / dims
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    edge = np.maximum(
+        np.linalg.norm(v1 - v0, axis=1),
+        np.maximum(np.linalg.norm(v2 - v0, axis=1), np.linalg.norm(v2 - v1, axis=1)),
+    )
+    n_per_face = np.clip(np.ceil(edge / cell * 2.0).astype(int) + 1, 2, 64)
+    pts = [verts]
+    for n in np.unique(n_per_face):
+        sel = n_per_face == n
+        i, j = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+        keep = (i + j) <= n
+        u = (i[keep] / n)[None, :, None]
+        w = (j[keep] / n)[None, :, None]
+        a, b, c = v0[sel][:, None], v1[sel][:, None], v2[sel][:, None]
+        pts.append((a + u * (b - a) + w * (c - a)).reshape(-1, 3))
+    pts = np.concatenate(pts, axis=0)
+    idx = np.clip(np.round((pts - translate) / scale * dims).astype(int), 0, dims - 1)
+    grid[idx[:, 0], idx[:, 1], idx[:, 2]] = True
+    return Voxels(data=native.solid_fill(grid), translate=translate.astype(np.float64),
+                  scale=scale, dims=dims)
+
+
+def vox_to_device(voxes: Sequence[Voxels], device) -> tuple:
+    """Stack grids of one `dims` into the device triple (grid (B,D,D,D)
+    bool, translate (B,3) fp32, scale (B,) fp32)."""
+    return (torch.as_tensor(np.stack([v.data for v in voxes]), dtype=torch.bool, device=device),
+            torch.as_tensor(np.stack([np.asarray(v.translate, np.float32) for v in voxes]),
+                            device=device),
+            torch.as_tensor(np.asarray([v.scale for v in voxes], np.float32), device=device))
+
+
+def inside_check(pts: torch.Tensor, grid: torch.Tensor, translate: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """pts (B,...,3) -> bool (B,...): inside mesh b's grid.  Cell index
+    round(((p - translate) / scale) * dims), halves to even, as the JAX
+    package computes it; outside the grid is outside."""
+    B, dims = grid.shape[0], grid.shape[1]
+    lead = pts.shape[:-1]
+    p = pts.reshape(B, -1, 3)
+    vc = torch.round((p - translate[:, None, :]) / scale[:, None, None] * dims).to(torch.int64)
+    in_bounds = ((vc >= 0) & (vc < dims)).all(-1)
+    vc = vc.clamp(0, dims - 1)
+    flat = ((torch.arange(B, device=pts.device)[:, None] * dims + vc[..., 0]) * dims
+            + vc[..., 1]) * dims + vc[..., 2]
+    return (in_bounds & grid.reshape(-1)[flat]).reshape(lead)
+
+
+def sample_params(num_samples: int) -> torch.Tensor:
+    """The JAX package's `jnp.linspace(0, 1, n)` in fp32, bit for bit: i times
+    the fp32 reciprocal of n - 1, then exactly 1.  (`torch.linspace` differs
+    from it in the last bit of some entries.)"""
+    step = torch.tensor(1.0 / (num_samples - 1), dtype=torch.float32)
+    t = torch.arange(num_samples - 1, dtype=torch.float32) * step
+    return torch.cat([t, torch.ones(1)])
+
+
+def segment_inside_fraction(starts: torch.Tensor, ends: torch.Tensor, grid: torch.Tensor,
+                            translate: torch.Tensor, scale: torch.Tensor,
+                            num_samples: int = 32) -> torch.Tensor:
+    """starts, ends (B,...,3) -> (B,...) fp32: the share of num_samples evenly
+    spaced points of each segment (both ends included) inside the grid."""
+    t = sample_params(num_samples).to(starts.device)
+    samples = starts[..., None, :] + t[:, None] * (ends - starts)[..., None, :]
+    return inside_check(samples, grid, translate, scale).float().mean(-1)

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All sources under `morig_tpu_torch/csrc/` are compiled by `nvcc` for sm_90a
-into one shared library with a plain C interface, loaded with ctypes (no
-PyTorch headers, so the build takes seconds).  The library lands in
+All sources under `morig_tpu_torch/csrc/` are compiled by `nvcc` for sm_90a,
+one process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so the build takes seconds).  The library lands in
 `build/morig_tpu_torch/` at the repository root, named by a hash of the
 sources, and is built at first use: nothing is compiled when a module is
 imported.  A host without `nvcc` gets a RuntimeError, never a substitute.
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "morig_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,8 +32,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D, H1, H2, stream
     "edge_mlp_forward": [_P] * 11 + [_I] * 5 + [_P],
+    # the same, then the vertex tile TV, stream
+    "edge_mlp_windowed_forward": [_P] * 11 + [_I] * 6 + [_P],
     # q, c, mask, values, idx, score, gathered, B, N, P, C, Cv, k, stream
     "knn_topk_gather": [_P] * 7 + [_I] * 6 + [_P],
+    # q, c, mask, idx, score, B, N, P, C, k, stream
+    "knn_topk": [_P] * 5 + [_I] * 5 + [_P],
     # values, idx, out, B, N, M, C, stream
     "gather_rows_forward": [_P] * 3 + [_I] * 4 + [_P],
 }
@@ -60,7 +65,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -75,16 +80,28 @@ def build(verbose: bool = False) -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    ptxas = ["-Xptxas=-v"] if verbose else []
+    procs = [subprocess.Popen([nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [(p.communicate(), p.returncode) for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr)
-    os.replace(tmp, out)
+    try:
+        for (_, err), rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{err}")
+        if verbose:
+            print("".join(err for (_, err), _ in logs))
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -1,4 +1,5 @@
-"""Fused EdgeMLP tail (kernel K1) — counterpart of morig_tpu/kernels/edge_fused.py.
+"""Fused EdgeMLP tail (kernels K1 and K5) — counterpart of
+morig_tpu/kernels/edge_fused.py.
 
 Per vertex v over its D table edges:
 
@@ -8,11 +9,16 @@ and 0 where no edge of v is valid.  a and b arrive rounded to bf16; the W2
 product takes bf16 operands with fp32 accumulation; both LayerNorms run in
 fp32 (eps 1e-6, variance E[x^2] - E[x]^2) over the true width.
 
-`fused_edge_mlp` launches the CUDA kernel (csrc/edge_mlp.cu) for a CUDA
-tensor and runs `edge_mlp_plain` for a CPU tensor.
+K1 (`fused_edge_mlp`) reads each neighbour row from the whole table; K5
+(`fused_edge_mlp_windowed`) reads it from its vertex tile's window of
+3 tiles, for meshes whose neighbours are local (`check_neighbor_locality`).
+Each launches its CUDA kernel (csrc/edge_mlp.cu) for a CUDA tensor and runs
+its plain version (`edge_mlp_plain`, `edge_mlp_windowed_plain`) for a CPU
+tensor.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from morig_tpu_torch.kernels import build as kb
@@ -31,13 +37,8 @@ def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torc
     return (h - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
 
 
-def edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
-    """Plain PyTorch version of K1.  a, b (B,V,H1) bf16; nbr (B,V,D) int64;
-    mask (B,V,D) bool; w2 (H1,H2); vectors fp32.  Returns (B,V,H2) fp32."""
-    a = a.float()
-    bsel = torch.arange(b.shape[0], device=b.device)[:, None, None]
-    gathered = b.float()[bsel, nbr]                            # (B,V,D,H1)
-    h = torch.relu(a[:, :, None, :] + gathered)
+def _edge_tail(a, gathered, mask, w2, b2, g1, be1, g2, be2):
+    h = torch.relu(a.float()[:, :, None, :] + gathered)
     h = layer_norm(h, g1, be1)
     h2 = torch.matmul(h.to(torch.bfloat16).float(), w2.to(torch.bfloat16).float()) + b2
     h2 = layer_norm(torch.relu(h2), g2, be2)
@@ -46,10 +47,62 @@ def edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
     return torch.where(mask.any(dim=2)[..., None], out, torch.zeros_like(out))
 
 
-def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
-    """K1.  Same arguments and result as `edge_mlp_plain`."""
-    if not a.is_cuda:
-        return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+def _gather(b, nbr):
+    bsel = torch.arange(b.shape[0], device=b.device)[:, None, None]
+    return b.float()[bsel, nbr]                                # (B,V,D,H1)
+
+
+def edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """Plain PyTorch version of K1.  a, b (B,V,H1) bf16; nbr (B,V,D) int64;
+    mask (B,V,D) bool; w2 (H1,H2); vectors fp32.  Returns (B,V,H2) fp32."""
+    return _edge_tail(a, _gather(b, nbr), mask, w2, b2, g1, be1, g2, be2)
+
+
+def _check_windowed_shape(V: int, tile_v: int) -> None:
+    if V % tile_v or V // tile_v < 3:
+        raise ValueError(f"windowed edge kernel needs V % tile == 0 and V // tile >= 3, "
+                         f"got V={V}, tile={tile_v}")
+
+
+def in_window(nbr: torch.Tensor, tile_v: int) -> torch.Tensor:
+    """(B,V,D) -> bool: neighbour inside its vertex tile's window, the 3*tile_v
+    rows from clip(i - 1, 0, NB - 3) * tile_v for vertex tile i of NB."""
+    V = nbr.shape[1]
+    _check_windowed_shape(V, tile_v)
+    tile = torch.arange(V, device=nbr.device) // tile_v
+    ws = ((tile - 1).clamp(0, V // tile_v - 3) * tile_v)[:, None]
+    return (nbr >= ws) & (nbr < ws + 3 * tile_v)
+
+
+def check_neighbor_locality(nbr: np.ndarray, tile_v: int = 256) -> bool:
+    """True iff V % tile_v == 0 and every neighbour of every tile_v-row tile
+    lies in the tile's window (the windowed kernel's precondition)."""
+    nbr = np.asarray(nbr)
+    B, V, D = nbr.shape
+    if V % tile_v:
+        return False
+    nb = V // tile_v
+    tiles = nbr.reshape(B, nb, tile_v, D)
+    for i in range(nb):
+        ws = np.clip(i - 1, 0, nb - 3) * tile_v
+        t = tiles[:, i]
+        if (t < ws).any() or (t >= ws + 3 * tile_v).any():
+            return False
+    return True
+
+
+def edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: int = 128):
+    """Plain PyTorch version of K5: K1 with each neighbour read from its
+    vertex tile's window (`in_window`); a neighbour outside it reads a zero
+    row, as the TPU kernel's one-hot gather finds no hit there.  Where
+    `check_neighbor_locality` holds this equals `edge_mlp_plain`."""
+    gathered = _gather(b, nbr) * in_window(nbr, tile_v)[..., None]
+    return _edge_tail(a, gathered, mask, w2, b2, g1, be1, g2, be2)
+
+
+def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """Checks what K1 and K5 take; returns the contiguous launch arguments
+    and the fp32 output."""
     B, V, H1 = a.shape
     D = nbr.shape[-1]
     H2 = w2.shape[1]
@@ -70,12 +123,38 @@ def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
         if t.device != a.device:
             raise ValueError("edge_mlp kernel: all tensors must be on one device")
     out = torch.empty((B, V, H2), dtype=torch.float32, device=a.device)
-    lib = kb.library()
-    err = lib.edge_mlp_forward(*(t.data_ptr() for t in args), out.data_ptr(),
-                               B, V, D, H1, H2, kb.stream())
+    return [t.data_ptr() for t in args] + [out.data_ptr()], out
+
+
+def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """K1.  Same arguments and result as `edge_mlp_plain`."""
+    if not a.is_cuda:
+        return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    B, V, D = nbr.shape
+    err = kb.library().edge_mlp_forward(*ptrs, B, V, D, a.shape[2], w2.shape[1], kb.stream())
     kb.check(err, "edge_mlp_forward")
     fused_edge_mlp.launches += 1
     return out
 
 
 fused_edge_mlp.launches = 0
+
+
+def fused_edge_mlp_windowed(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: int = 128):
+    """K5.  Same arguments and result as `edge_mlp_windowed_plain`."""
+    if not a.is_cuda:
+        return edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v)
+    _check_windowed_shape(a.shape[1], tile_v)
+    if b.data_ptr() % 16:                   # the window is staged in 16-byte loads
+        b = b.clone()
+    ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    B, V, D = nbr.shape
+    err = kb.library().edge_mlp_windowed_forward(*ptrs, B, V, D, a.shape[2], w2.shape[1],
+                                                 tile_v, kb.stream())
+    kb.check(err, "edge_mlp_windowed_forward")
+    fused_edge_mlp_windowed.launches += 1
+    return out
+
+
+fused_edge_mlp_windowed.launches = 0

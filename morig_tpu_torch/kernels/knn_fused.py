@@ -1,5 +1,5 @@
-"""Batched cosine kNN with row gather (kernel K2) — counterpart of
-morig_tpu/kernels/knn_fused.py `knn_batched(..., gather_values=...)`.
+"""Batched cosine kNN with row gather (kernel K2) and without (kernel K4) —
+counterpart of morig_tpu/kernels/knn_fused.py `knn_batched`.
 
 Semantics (the TPU kernel's): score = <q, c> with bf16 operands and fp32
 accumulation; masked candidates score -1e30; the k largest in
@@ -7,8 +7,9 @@ first-index-wins order; once a row has fewer than k valid candidates the
 remaining slots hold index 0 and score -1e30 (an all-masked row returns
 index 0 everywhere); gathered = values[idx] exactly.
 
-`knn_batched` launches the CUDA kernel (csrc/knn_topk.cu) for a CUDA tensor
-and runs `knn_plain` for a CPU tensor.
+`knn_batched` with `gather_values` launches K2, without it `knn_topk` (K4);
+both kernels are csrc/knn_topk.cu's, and on a CPU tensor both run
+`knn_plain`.
 """
 from __future__ import annotations
 
@@ -21,10 +22,10 @@ MAX_K = 8
 FEATURE_WIDTHS = (64,)             # the embedding width of CorrNet, the one caller
 
 
-def knn_plain(query, cand, k: int, cand_mask, values):
-    """Plain PyTorch version of K2: k first-index-wins argmax sweeps over the
-    (B,N,P) similarity.  Returns idx (B,N,k) int64, score (B,N,k) fp32,
-    gathered (B,N,k,Cv) fp32."""
+def knn_plain(query, cand, k: int, cand_mask, values=None):
+    """Plain PyTorch version of K2 and K4: k first-index-wins argmax sweeps
+    over the (B,N,P) similarity.  Returns idx (B,N,k) int64, score (B,N,k)
+    fp32 and, with values (B,P,Cv), gathered (B,N,k,Cv) fp32."""
     q = query.to(torch.bfloat16).float()
     c = cand.to(torch.bfloat16).float()
     sim = torch.matmul(q, c.transpose(1, 2))
@@ -39,40 +40,76 @@ def knn_plain(query, cand, k: int, cand_mask, values):
         sim = sim.scatter(-1, imax[..., None], NEG)
     idx = torch.stack(idxs, -1)
     score = torch.stack(scores, -1)
+    if values is None:
+        return idx, score
     bsel = torch.arange(values.shape[0], device=values.device)[:, None, None]
     return idx, score, values.float()[bsel, idx]
 
 
-def knn_batched(query, cand, k: int, cand_mask=None, *, gather_values):
-    """K2.  query (B,N,C), cand (B,P,C), cand_mask (B,P) bool or None,
-    gather_values (B,P,Cv) -> (idx, score, gathered) as `knn_plain`."""
-    if cand_mask is None:
-        cand_mask = torch.ones(cand.shape[:2], dtype=torch.bool, device=cand.device)
-    if not query.is_cuda:
-        return knn_plain(query, cand, k, cand_mask, gather_values)
+def _check(query, cand, k: int, cand_mask) -> None:
     B, N, C = query.shape
     P = cand.shape[1]
-    Cv = gather_values.shape[-1]
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn kernel takes 1 <= k <= {MAX_K}, got {k}")
     if C not in FEATURE_WIDTHS:
         raise ValueError(f"knn kernel takes feature widths {FEATURE_WIDTHS}, got {C}")
-    if (cand.shape != (B, P, C) or cand_mask.shape != (B, P)
-            or gather_values.shape[:2] != (B, P)):
+    if cand.shape != (B, P, C) or cand_mask.shape != (B, P):
         raise ValueError("knn kernel: shape mismatch")
     if cand_mask.dtype != torch.bool:
         raise TypeError("knn kernel takes a bool candidate mask")
-    args = [query.to(torch.bfloat16).contiguous(), cand.to(torch.bfloat16).contiguous(),
-            cand_mask.contiguous(), gather_values.float().contiguous()]
-    for t in args:
+    for t in (cand, cand_mask):
         if t.device != query.device:
             raise ValueError("knn kernel: all tensors must be on one device")
+
+
+def _outputs(query, cand, k, cand_mask):
+    B, N, _ = query.shape
+    inputs = [query.to(torch.bfloat16).contiguous(), cand.to(torch.bfloat16).contiguous(),
+              cand_mask.contiguous()]
     idx = torch.empty((B, N, k), dtype=torch.int64, device=query.device)
     score = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
+    return inputs, idx, score
+
+
+def knn_topk(query, cand, k: int, cand_mask):
+    """K4.  query (B,N,C), cand (B,P,C), cand_mask (B,P) bool -> (idx, score)
+    as `knn_plain` without values."""
+    if not query.is_cuda:
+        return knn_plain(query, cand, k, cand_mask)
+    _check(query, cand, k, cand_mask)
+    (q, c, m), idx, score = _outputs(query, cand, k, cand_mask)
+    B, N, C = query.shape
+    err = kb.library().knn_topk(q.data_ptr(), c.data_ptr(), m.data_ptr(), idx.data_ptr(),
+                                score.data_ptr(), B, N, cand.shape[1], C, k, kb.stream())
+    kb.check(err, "knn_topk")
+    knn_topk.launches += 1
+    return idx, score
+
+
+knn_topk.launches = 0
+
+
+def knn_batched(query, cand, k: int, cand_mask=None, *, gather_values=None):
+    """query (B,N,C), cand (B,P,C), cand_mask (B,P) bool or None.  With
+    gather_values (B,P,Cv), K2: (idx, score, gathered) as `knn_plain`;
+    without, K4 (`knn_topk`): (idx, score)."""
+    if cand_mask is None:
+        cand_mask = torch.ones(cand.shape[:2], dtype=torch.bool, device=cand.device)
+    if gather_values is None:
+        return knn_topk(query, cand, k, cand_mask)
+    if not query.is_cuda:
+        return knn_plain(query, cand, k, cand_mask, gather_values)
+    _check(query, cand, k, cand_mask)
+    if gather_values.shape[:2] != cand.shape[:2] or gather_values.device != query.device:
+        raise ValueError("knn kernel: gather_values must be (B, P, Cv) on the query's device")
+    (q, c, m), idx, score = _outputs(query, cand, k, cand_mask)
+    B, N, C = query.shape
+    Cv = gather_values.shape[-1]
+    values = gather_values.float().contiguous()
     gathered = torch.empty((B, N, k, Cv), dtype=torch.float32, device=query.device)
     err = kb.library().knn_topk_gather(
-        *(t.data_ptr() for t in args), idx.data_ptr(), score.data_ptr(), gathered.data_ptr(),
-        B, N, P, C, Cv, k, kb.stream())
+        q.data_ptr(), c.data_ptr(), m.data_ptr(), values.data_ptr(), idx.data_ptr(),
+        score.data_ptr(), gathered.data_ptr(), B, N, cand.shape[1], C, Cv, k, kb.stream())
     kb.check(err, "knn_topk_gather")
     knn_batched.launches += 1
     return idx, score, gathered

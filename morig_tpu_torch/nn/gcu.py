@@ -4,18 +4,38 @@ morig_tpu/nn/gcu.py ("layer" norm mode, inference).
 The first edge layer is decomposed per vertex: W [x_i ; x_j - x_i] + b =
 (W1 - W2) x_i + W2 x_j + b, so `lin_self` holds (W1 - W2) with the bias and
 `lin_nbr` holds W2.  Both run as bf16 matmuls (the JAX package's bf16 edge
-messages at inference); the per-edge tail runs in kernel K1.
+messages at inference); the per-edge tail runs in kernel K1, or in the
+windowed kernel K5 when the mesh batch carries an `edge_tile`
+(`auto_select_edge_impl`).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from morig_tpu_torch.core.batch import MeshBatch
-from morig_tpu_torch.kernels.edge_fused import fused_edge_mlp
+from morig_tpu_torch.kernels.edge_fused import (
+    check_neighbor_locality, fused_edge_mlp, fused_edge_mlp_windowed)
 from morig_tpu_torch.nn.mlp import MLP, Dense, lecun_normal_
+
+
+def auto_select_edge_impl(entries: Sequence[dict], tile_v: int = 128) -> str:
+    """"windowed" (K5 at `tile_v`) when the padded V is at least 3 tiles of
+    tile_v and every table of every entry (dicts with (V, D)
+    'tpl_nbr'/'geo_nbr') is local at it (`check_neighbor_locality`):
+    ring-ordered meshes, or any mesh after data/preprocess.py's RCM order.
+    "fused" (the full-table K1) otherwise; K1 takes any V.  The JAX package's third choice, "xla" above
+    V = 2048, and its per-layer VMEM budgets guard the TPU's scoped-VMEM
+    limits, which Hopper's kernels do not have.  Pass the choice on with the
+    batch: stack_meshes(..., edge_tile=tile_v) for "windowed"."""
+    V = max(int(np.asarray(e["tpl_nbr"]).shape[0]) for e in entries)
+    local = V % tile_v == 0 and V // tile_v >= 3 and all(
+        check_neighbor_locality(np.asarray(e[k])[None], tile_v=tile_v)
+        for e in entries for k in ("tpl_nbr", "geo_nbr"))
+    return "windowed" if local else "fused"
 
 
 class EdgeMLP(nn.Module):
@@ -42,12 +62,15 @@ class EdgeMLP(nn.Module):
         self.ln1_scale.fill_(1.0)
         self.ln1_bias.zero_()
 
-    def forward(self, x, nbr, nbr_mask):
+    def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None):
+        """K5 at `edge_tile` when given, K1 otherwise."""
         a = self.lin_self(x, torch.bfloat16)
         b = self.lin_nbr(x, torch.bfloat16)
-        return fused_edge_mlp(a, b, nbr, nbr_mask, self.dense_1_kernel,
-                              self.dense_1_bias, self.ln0_scale, self.ln0_bias,
-                              self.ln1_scale, self.ln1_bias)
+        args = (a, b, nbr, nbr_mask, self.dense_1_kernel, self.dense_1_bias,
+                self.ln0_scale, self.ln0_bias, self.ln1_scale, self.ln1_bias)
+        if edge_tile:
+            return fused_edge_mlp_windowed(*args, tile_v=edge_tile)
+        return fused_edge_mlp(*args)
 
 
 class EdgeConv(nn.Module):
@@ -57,8 +80,8 @@ class EdgeConv(nn.Module):
         super().__init__()
         self.nn_pos = EdgeMLP(fin, channels)
 
-    def forward(self, x, nbr, nbr_mask):
-        return self.nn_pos(x, nbr, nbr_mask)
+    def forward(self, x, nbr, nbr_mask, edge_tile=None):
+        return self.nn_pos(x, nbr, nbr_mask, edge_tile)
 
 
 class GCU(nn.Module):
@@ -72,8 +95,8 @@ class GCU(nn.Module):
         self.mlp = MLP(2 * half, [out_channels])
 
     def forward(self, x, mesh: MeshBatch):
-        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask)
-        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask)
+        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile)
+        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile)
         return self.mlp(torch.cat([x_tpl, x_geo], -1))
 
 
@@ -85,8 +108,9 @@ class EdgeConvMotion(nn.Module):
         self.nn_x = EdgeMLP(x_in, x_channels)
         self.nn_pos = EdgeMLP(pos_in, pos_channels)
 
-    def forward(self, pos, x, nbr, nbr_mask):
-        return torch.cat([self.nn_x(x, nbr, nbr_mask), self.nn_pos(pos, nbr, nbr_mask)], -1)
+    def forward(self, pos, x, nbr, nbr_mask, edge_tile=None):
+        return torch.cat([self.nn_x(x, nbr, nbr_mask, edge_tile),
+                          self.nn_pos(pos, nbr, nbr_mask, edge_tile)], -1)
 
 
 class GCUMotion(nn.Module):
@@ -101,6 +125,6 @@ class GCUMotion(nn.Module):
         self.mlp = MLP(2 * (half + dim_pos_feat), [out_channels])
 
     def forward(self, pos, x, mesh: MeshBatch):
-        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask)
-        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask)
+        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile)
+        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile)
         return self.mlp(torch.cat([x_tpl, x_geo], -1))

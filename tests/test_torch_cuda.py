@@ -9,7 +9,10 @@ conftest:
 
 Small shapes with the edge cases the main path can produce: rows with no
 valid edge, ragged vertex tiles, duplicate and masked kNN candidates, rows
-with fewer valid candidates than k.  Shapes and types a kernel does not take
+with fewer valid candidates than k, and for the windowed edge kernel K5
+neighbours outside their window (a zero row) at every width, in both of its
+modes (window staged in shared memory at H <= 64, read from global memory
+at H >= 128).  Shapes and types a kernel does not take
 raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -69,6 +72,39 @@ def test_edge_mlp_kernel_matches_plain(cuda, H, D):
     assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
 
 
+def _windowed_args(dev, H, D, TV, V, seed):
+    """_edge_args with tables local to each vertex tile's window, except for
+    a few valid neighbours that leave it."""
+    a, b, _, mask, *rest = _edge_args(dev, H, V=V, D=D, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    v = torch.arange(V, device=dev)
+    ws = ((v // TV - 1).clamp(0, V // TV - 3) * TV)[None, :, None]
+    nbr = ws + torch.randint(0, 3 * TV, (2, V, D), device=dev, generator=g)
+    nbr[0, :TV, 1] = V - 1                      # outside tile 0's window
+    mask[0, 8:TV, 1] = True                     # (row 7 keeps no valid edge)
+    return a, b, nbr, mask, *rest
+
+
+@pytest.mark.parametrize("D", [12, 16])
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_edge_mlp_windowed_kernel_matches_plain(cuda, H, D):
+    TV, V = 128, 640
+    args = _windowed_args(cuda, H, D, TV, V, seed=H + D)
+    before = (ef.fused_edge_mlp_windowed.launches, ef.fused_edge_mlp.launches)
+    got = ef.fused_edge_mlp_windowed(*args, tile_v=TV)
+    ref = ef.edge_mlp_windowed_plain(*args, tile_v=TV)
+    torch.cuda.synchronize()
+    assert (ef.fused_edge_mlp_windowed.launches, ef.fused_edge_mlp.launches) == (
+        before[0] + 1, before[1])
+    err = (got - ref).abs()
+    assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
+    assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
+    # where every neighbour is in its window K5 equals K1's plain version
+    full = ef.edge_mlp_plain(*args)
+    assert ((got - full).abs()[1].max().item() <= K1_TOL
+            and not torch.allclose(got[0, :TV], full[0, :TV]))
+
+
 def _knn_args(dev, C, seed, N=200, P=300):
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.nn.functional.normalize(torch.randn(3, N, C, device=dev, generator=g), dim=-1)
@@ -109,6 +145,25 @@ def test_knn_kernel_matches_plain(cuda, k, C):
         assert (idx[2, :, 2:] == 0).all() and (score[2, :, 2:] < -1e29).all()
 
 
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_knn_without_values_kernel_matches_plain(cuda, k):
+    """K4: K2's scan with the gather compiled out."""
+    q, c, mask, _ = _knn_args(cuda, 64, seed=100 + k)
+    before = (kf.knn_topk.launches, kf.knn_batched.launches)
+    idx, score = kf.knn_batched(q, c, k, mask)
+    ref_idx, ref_score = kf.knn_plain(q, c, k + 1, mask)
+    torch.cuda.synchronize()
+    assert (kf.knn_topk.launches, kf.knn_batched.launches) == (before[0] + 1, before[1])
+    assert (score - ref_score[..., :k]).abs().max().item() <= K2_TOL
+    hi, lo = ref_score[..., :-1], ref_score[..., 1:]
+    gaps = torch.where((hi < kf.NEG / 2) & (lo < kf.NEG / 2),
+                       torch.full_like(hi, float("inf")), (hi - lo).abs())
+    decided = gaps.min(-1).values > K2_TOL
+    assert not ((idx != ref_idx[..., :k]).any(-1) & decided).any()
+    assert idx[0, 5, 0].item() == 20
+    assert (idx[1] == 0).all() and (score[1] < -1e29).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 @pytest.mark.parametrize("C", [1, 3, 67, 256])
 def test_gather_kernel_is_exact(cuda, C, dtype):
@@ -124,7 +179,8 @@ def test_gather_kernel_is_exact(cuda, C, dtype):
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """On a CUDA tensor an unsupported shape or type raises; nothing runs the
     plain version in the kernel's place."""
-    counts = (ef.fused_edge_mlp.launches, kf.knn_batched.launches, gf.gather_rows.launches)
+    counts = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
+              kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
     with pytest.raises(ValueError, match="widths"):
         ef.fused_edge_mlp(*_edge_args(cuda, 48))
     with pytest.raises(ValueError, match="degree"):
@@ -139,5 +195,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         kf.knn_batched(q[..., :48], c[..., :48], 3, kmask, gather_values=values)
     with pytest.raises(TypeError):
         gf.gather_rows(values.double(), torch.zeros(3, 4, dtype=torch.int64, device=cuda))
-    assert counts == (ef.fused_edge_mlp.launches, kf.knn_batched.launches,
-                      gf.gather_rows.launches)
+    with pytest.raises(ValueError, match="V // tile >= 3"):
+        ef.fused_edge_mlp_windowed(*_edge_args(cuda, 32, V=256), tile_v=128)
+    with pytest.raises(ValueError, match="k <= 8"):
+        kf.knn_batched(q, c, 9, kmask)
+    assert counts == (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
+                      kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)

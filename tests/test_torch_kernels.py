@@ -1,5 +1,6 @@
-"""The port's kernel functions (K1 edge MLP, K2 kNN + gather, K3 row gather)
-against the JAX package's Pallas kernels, run in interpret mode on the CPU.
+"""The port's kernel functions (K1 edge MLP, K2 kNN + gather, K3 row gather,
+K4 kNN, K5 windowed edge MLP) against the JAX package's Pallas kernels, run
+in interpret mode on the CPU.
 
 On a CPU tensor each port wrapper runs its plain PyTorch version, which is
 what these tests hold against JAX; the CUDA kernels themselves are checked
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from morig_tpu.kernels import edge_fused as jef
+from morig_tpu.kernels import knn_fused as jkf
 from morig_tpu.kernels.gather_fused import gather_rows as jax_gather_rows
 from morig_tpu.kernels.knn_fused import knn_batched as jax_knn_batched
 from morig_tpu_torch.kernels import build as kb
@@ -70,6 +72,49 @@ def test_edge_mlp_matches_pallas_interpret(H):
     assert (got.numpy()[:, 5] == 0).all() and (got.numpy()[1, 77] == 0).all()
 
 
+def _local_nbr(rng, Vw, TV, leave: bool):
+    """(B, Vw, D) tables inside each vertex tile's window, with, if `leave`,
+    some valid neighbours outside it (they read a zero row)."""
+    v = np.arange(Vw)
+    ws = np.clip(v // TV - 1, 0, Vw // TV - 3) * TV
+    nbr = ws[None, :, None] + rng.integers(0, 3 * TV, (B, Vw, D))
+    nbr[:, :, 0] = v
+    if leave:
+        nbr[0, :TV, 3] = Vw - 1                  # tile 0 reaches into the last tile
+        nbr[1, -TV:, 4] = 0                      # the last tile reaches row 0
+    return nbr
+
+
+@pytest.mark.parametrize("H,Vw,leave", [(16, 48, False), (64, 64, True)])
+def test_edge_mlp_windowed_matches_pallas_interpret(H, Vw, leave):
+    """K5 plain vs the windowed Pallas kernel (interpret) at TV=16 and V=48
+    (three tiles: every window is the whole table, so K5 equals K1) or V=64,
+    where with `leave` some neighbours lie outside their window and read a
+    zero row on both sides.  Tolerances as for K1."""
+    rng = np.random.default_rng(H)
+    TV = 16
+    a, b, _, mask, w2, vecs = _edge_inputs(H, seed=H + 1)
+    a, b, mask = a[:, :Vw], b[:, :Vw], mask[:, :Vw]
+    nbr = _local_nbr(rng, Vw, TV, leave)
+    mask[0, :TV, 3] = mask[1, -TV:, 4] = True
+    t = torch.as_tensor
+    args = (t(a).to(torch.bfloat16), t(b).to(torch.bfloat16), t(nbr).long(), t(mask), t(w2),
+            *map(t, vecs))
+    got = tef.fused_edge_mlp_windowed(*args, tile_v=TV)
+    assert torch.equal(got, tef.edge_mlp_windowed_plain(*args, tile_v=TV))
+    j = [jnp.asarray(x) for x in (a, b, nbr, mask, w2, *vecs)]
+    ref = jef.fused_edge_mlp_auto(*j, windowed=True, tile_v=TV, interpret=True)
+    assert_close(got, ref, atol=2e-2, what="windowed")
+    assert np.abs(got.numpy() - np.asarray(ref)).mean() < 1e-4
+    full = tef.edge_mlp_plain(*args)
+    assert jef.check_neighbor_locality(nbr, TV) == tef.check_neighbor_locality(nbr, TV) == (
+        not leave)
+    if leave:
+        assert not torch.equal(got[0, :TV], full[0, :TV])
+    else:
+        assert torch.equal(got, full)
+
+
 def test_edge_wrapper_on_cpu_is_the_plain_version():
     a, b, nbr, mask, w2, vecs = _edge_inputs(32, seed=1)
     t = torch.as_tensor
@@ -115,6 +160,23 @@ def test_knn_matches_pallas_interpret(k):
     if k == 5:
         assert (idx.numpy()[1, :, 3:] == 0).all() and (score.numpy()[1, :, 3:] < -1e29).all()
         assert idx.numpy()[0, 3, 0] == 17
+
+
+@pytest.mark.parametrize("k", [1, 5])
+def test_knn_without_values_matches_pallas_interpret(k):
+    """K4 plain vs the fused Pallas kNN without values (interpret):
+    identical indices, scores to 1e-5."""
+    q, c, mask, _ = _knn_inputs(seed=10 + k)
+    t = torch.as_tensor
+    before = tkf.knn_topk.launches
+    idx, score = tkf.knn_batched(t(q), t(c), k, t(mask))
+    assert tkf.knn_topk.launches == before
+    jidx, jscore = jkf._fused_raw(jnp.asarray(q), jnp.asarray(c), jnp.asarray(mask), k,
+                                  interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert_close(score, jscore, atol=1e-5, what="score")
+    ref_idx, ref_score, _ = tkf.knn_plain(t(q), t(c), k, t(mask), t(c[..., :3]))
+    assert torch.equal(idx, ref_idx) and torch.equal(score, ref_score)
 
 
 def test_knn_all_masked_returns_slot_zero():

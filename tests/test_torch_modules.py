@@ -118,6 +118,40 @@ def test_gcu_motion_matches_flax(fixture, H, dp):
     assert_rel_close(got, ref, LAYER, fixture["vm"], f"GCUMotion{H}")
 
 
+def test_gcu_windowed_matches_flax(monkeypatch):
+    """A GCU on a V=384 mesh batch local at tile 128: the port's windowed
+    edge layers (mesh.edge_tile = 128) against flax with
+    set_edge_impl("windowed") and set_edge_tile(128), which reaches the JAX
+    package's windowed Pallas kernel (interpret), at LAYER."""
+    from morig_tpu.kernels import edge_fused as jef
+    from morig_tpu_torch.data.synthetic import capsule_batch
+
+    entries, _ = capsule_batch(2, 1, 64, 384, 12, n_lat=17, n_lon=16, seed=3)
+    assert tgcu.auto_select_edge_impl(entries, tile_v=128) == "windowed"
+    jm = JB.stack_meshes(entries)
+    tm = TB.stack_meshes(entries, edge_tile=128)
+    x = np.random.default_rng(384).standard_normal((2, 384, 32)).astype(np.float32)
+    m = jgcu.GCU(64)
+    p = F.flax_params(m, 384, jnp.asarray(x), jm)
+    traced = []
+    windowed = jef.fused_edge_mlp_windowed
+    monkeypatch.setattr(jef, "fused_edge_mlp_windowed",
+                        lambda *a, **k: traced.append(k["tile_v"]) or windowed(*a, **k))
+    impl, tile = jgcu.get_edge_impl(), jgcu.get_edge_tile()
+    jgcu.set_edge_impl("windowed")
+    jgcu.set_edge_tile(128)
+    try:
+        with F.jax_fused_kernels():
+            ref = m.apply({"params": p}, jnp.asarray(x), jm)
+    finally:
+        jgcu.set_edge_impl(impl)
+        jgcu.set_edge_tile(tile)
+    assert traced == [128, 128]
+    net = F.bridged(lambda: tgcu.GCU(32, 64), W.flax_to_state_dict(p))
+    assert_rel_close(net(torch.as_tensor(x), tm), ref, LAYER, np.asarray(jm.vert_mask),
+                     "windowed GCU")
+
+
 def test_neighbor_search_matches_jax():
     """pairwise distances, euclidean kNN, exact radius grouping, FPS and the
     masked max, on clouds with padding."""
@@ -175,17 +209,28 @@ def test_clustering_matches_jax(sample_rows):
 
 
 def test_mesh_encoder_and_gcus_match_flax(fixture, deform_run):
-    """MeshEncoder end to end, and each of its GCUs fed the flax input."""
+    """MeshEncoder end to end (four GCUs, two MLP stacks, a global max: a
+    network, so NETWORK), and each of its GCUs and MLP stacks fed the flax
+    input (LAYER)."""
     get, p = deform_run["get"], deform_run["params"]["corr_extractor"]
     net = F.bridged(tdn.DeformNet, W.flax_to_state_dict(deform_run["params"]))
     enc = net.corr_extractor.mesh_enc
     vm, tm = fixture["vm"], fixture["tm"]
-    assert_rel_close(enc(tm), get("corr_extractor", "mesh_enc"), LAYER, vm, "MeshEncoder")
-    x = torch.as_tensor(np.asarray(fixture["jm"].verts))
+    assert_rel_close(enc(tm), get("corr_extractor", "mesh_enc"), NETWORK, vm, "MeshEncoder")
+    verts = torch.as_tensor(np.asarray(fixture["jm"].verts))
+    x, skips = verts, []
     for i in range(1, 5):
         ref = get("corr_extractor", "mesh_enc", f"vtx_gcu_{i}")
         assert_rel_close(getattr(enc, f"vtx_gcu_{i}")(x, tm), ref, LAYER, vm, f"vtx_gcu_{i}")
         x = torch.as_tensor(np.asarray(ref))
+        skips.append(x)
+    skips = torch.cat(skips, -1)
+    glb_ref = get("corr_extractor", "mesh_enc", "vtx_mlp_glb")
+    assert_rel_close(enc.vtx_mlp_glb(skips), glb_ref, LAYER, vm, "vtx_mlp_glb")
+    glb = tnb.masked_max(torch.as_tensor(np.asarray(glb_ref)), tm.vert_mask, dim=1)
+    x6 = torch.cat([glb[:, None, :].expand(-1, skips.shape[1], -1), verts, skips], -1)
+    assert_rel_close(enc.vtx_mlp(x6), get("corr_extractor", "mesh_enc", "vtx_mlp"), LAYER, vm,
+                     "vtx_mlp")
     assert set(p) == {"mesh_enc", "pts_enc", "lin_vismask", "temperature"}
 
 

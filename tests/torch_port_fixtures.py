@@ -126,11 +126,15 @@ def assert_close(got, ref, atol: float, rtol: float = 0.0, what: str = ""):
 # difference is fp32 summation order, except where it moves a value across
 # a bf16 rounding boundary: that element then differs by one bf16 ulp
 # (2^-8 relative) and the difference spreads through the layers after it.
-#   LAYER: one edge-layer module (GCU, GCUMotion, the mesh encoder, a shape
-#     code).  Measured: mean <= 5e-6, max <= 4e-4.
-#   NETWORK: a whole network or device program, through 6-12 edge layers
+#   LAYER: one edge-layer module (GCU, GCUMotion, a shape code) or one MLP
+#     stack fed the reference's input.  Measured: mean <= 5e-6, max <= 4e-4.
+#   NETWORK: a whole network or device program, through 4-12 edge layers
 #     and a global max.  Measured: mean <= 9.5e-3, max <= 2.5e-2 (the
-#     JointNet head; its trunk's outputs stay below 1e-3 and 4.1e-3).
+#     JointNet head; its trunk's outputs stay below 1e-3 and 4.1e-3).  The
+#     mesh encoder (four GCUs, two MLP stacks, a global max) is a network:
+#     its end-to-end mean error measured 1.011e-4 (max 1.58e-4) on one CPU,
+#     just over the LAYER mean bound, while each GCU fed the reference's
+#     input stays at <= 1.4e-6 mean.
 LAYER = (1e-4, 5e-3)
 NETWORK = (2e-2, 5e-2)
 
