@@ -3,6 +3,8 @@
 Meshes and point clouds are dense padded tensors with validity masks; edges
 are fixed-width neighbor tables whose slot 0 is the self loop and whose
 invalid slots point at their own row, so every gather stays in bounds.
+Index tensors are int64 (torch's index type) where the JAX package's are
+int32.
 """
 from __future__ import annotations
 
@@ -51,6 +53,51 @@ class PointBatch:
         return PointBatch(self.pts.to(device), self.pts_mask.to(device))
 
 
+@dataclasses.dataclass(frozen=True)
+class CorrBatch:
+    """Padded correspondence pairs of one (src, tar) frame pair: v2p / p2v
+    (B,N,2) int64 (anchor index, positive index), *_mask (B,N) bool."""
+
+    v2p: torch.Tensor
+    v2p_mask: torch.Tensor
+    p2v: torch.Tensor
+    p2v_mask: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseSample:
+    """One batch of the pose datasets: mesh (source frame), point cloud
+    (target frame), correspondences, vismask (B,V) f32 (GT visibility of
+    each vertex) and gt_flow (B,V,3) f32 (vtx_tar - vtx_src)."""
+
+    mesh: MeshBatch
+    points: PointBatch
+    corr: CorrBatch
+    vismask: torch.Tensor
+    gt_flow: torch.Tensor
+
+
+def bucket_size(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n (the last bucket if none fits)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    return int(buckets[-1])
+
+
+def pad_to(arr: np.ndarray, n: int, axis: int = 0, value=0.0) -> np.ndarray:
+    """Pad `arr` with `value` along `axis` up to length n (cut to n when
+    longer)."""
+    cur = arr.shape[axis]
+    if cur >= n:
+        sl = [slice(None)] * arr.ndim
+        sl[axis] = slice(0, n)
+        return arr[tuple(sl)]
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, n - cur)
+    return np.pad(arr, widths, constant_values=value)
+
+
 def edges_to_neighbor_table(edges: np.ndarray, num_verts: int, max_degree: int,
                             pad_to: int) -> tuple[np.ndarray, np.ndarray]:
     """(E,2) undirected edge list -> (pad_to, max_degree) table + mask.
@@ -94,9 +141,10 @@ def build_mesh(verts: np.ndarray, tpl_edges: np.ndarray, geo_edges: np.ndarray,
     )
 
 
-def stack_meshes(entries: Sequence[dict], device="cpu",
+def stack_meshes(entries: Sequence[dict], device="cuda",
                  edge_tile: Optional[int] = None) -> MeshBatch:
-    """Stack per-mesh dicts (all padded to the same V) into a MeshBatch."""
+    """Stack per-mesh dicts (all padded to the same V) into a MeshBatch on
+    `device` (the card unless the caller asks for another)."""
     def stack(k, dtype):
         return torch.as_tensor(np.stack([e[k] for e in entries]), dtype=dtype,
                                device=device)

@@ -39,186 +39,26 @@
 // slower than reading from L2.  A work unit is a run of at most four of K1's
 // 64-edge-row steps inside one vertex tile: several blocks share a tile's
 // window, and the units are small enough to balance the persistent grid at
-// B=4 (eight steps per unit left K5 1.2x behind K1 at H=256).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
+// B=4 (eight steps per unit left K5 1.2x behind K1 at H=256).  The step code
+// itself is edge_tail.cuh's, which the backward K6 shares.
+#include "edge_tail.cuh"
 
 namespace {
 
-constexpr int kRows = 64;       // edge rows per step (D * vertices, padded)
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
+using namespace morig_edge;
+
 constexpr int kStepsPerUnit = 4;  // K5: at most this many steps per work unit
-constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may have
-constexpr float kEps = 1e-6f;
-constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// The per-layer constants a block keeps in registers (each lane holds the
-// channels lane + 32*q) and the shared-memory buffers of one step.
+// K1 and K5 lay the step's ys buffer over hs.
 template <int H1, int H2>
-struct Tail {
-  static constexpr int C1 = (H1 + 31) / 32;     // channels per lane, layer 1
-  static constexpr int C2 = (H2 + 31) / 32;     // channels per lane, layer 2
-  static constexpr int MT = kRows / 16, NT = H2 / 16, KT = H1 / 16;
-  static constexpr int FR = (MT * NT + kWarps - 1) / kWarps;   // accumulators per warp
-  static constexpr size_t kW2Bytes = static_cast<size_t>(H1) * H2 * sizeof(__nv_bfloat16);
-  static constexpr size_t kStepBytes =
-      static_cast<size_t>(kRows) * (H1 * sizeof(__nv_bfloat16) > H2 * sizeof(float)
-                                        ? H1 * sizeof(__nv_bfloat16) : H2 * sizeof(float));
-
-  const __nv_bfloat16* w2s;
-  __nv_bfloat16* hs;   // kRows x H1
-  float* ys;           // kRows x H2 (reuses hs)
-  float g1r[C1], be1r[C1], b2r[C2], g2r[C2], be2r[C2];
-
-  // Stages W2 into shared memory at smem and loads the vectors.
-  __device__ __forceinline__ Tail(unsigned char* smem, const __nv_bfloat16* w2,
-                                  const float* b2, const float* g1, const float* be1,
-                                  const float* g2, const float* be2) {
-    __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(smem);
-    for (int i = threadIdx.x; i < H1 * H2; i += kThreads) w[i] = w2[i];
-    w2s = w;
-    hs = reinterpret_cast<__nv_bfloat16*>(smem + kW2Bytes);
-    ys = reinterpret_cast<float*>(smem + kW2Bytes);
-    const int lane = threadIdx.x % 32;
-#pragma unroll
-    for (int j = 0; j < C1; ++j) {
-      const int c = lane + 32 * j;
-      g1r[j] = c < H1 ? g1[c] : 0.f;
-      be1r[j] = c < H1 ? be1[c] : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < C2; ++j) {
-      const int c = lane + 32 * j;
-      b2r[j] = c < H2 ? b2[c] : 0.f;
-      g2r[j] = c < H2 ? g2[c] : 0.f;
-      be2r[j] = c < H2 ? be2[c] : 0.f;
-    }
-  }
-
-  // One step: the D edges of the nv vertices v0.. of batch row bi.  Edge
-  // (v, d) reads row j = nbr[v, d] as rows + (j - row0) * H1 when lo <= j < hi
-  // and a zero row otherwise (rows is global or shared memory).
-  __device__ __forceinline__ void step(int bi, int v0, int nv, int V, int D,
-                                       const __nv_bfloat16* __restrict__ a,
-                                       const __nv_bfloat16* rows, int lo, int hi, int row0,
-                                       const long long* __restrict__ nbr,
-                                       const unsigned char* __restrict__ mask,
-                                       float* __restrict__ out) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    __syncthreads();   // the previous step's epilogue is done with ys; W2 is staged
-
-    // ---- phase 1: h = bf16(LN1(relu(a[v] + b[nbr[v,d]]))) per edge row
-    for (int r = warp; r < kRows; r += kWarps) {
-      const int vl = r / D, d = r % D, v = v0 + vl;
-      const long long e = (static_cast<long long>(bi) * V + v) * D + d;
-      const bool valid = vl < nv && mask[e];
-      float x[C1];
-      if (valid) {
-        const long long j = nbr[e];
-        const __nv_bfloat16* ar = a + (static_cast<long long>(bi) * V + v) * H1;
-        const __nv_bfloat16* br = j >= lo && j < hi ? rows + (j - row0) * H1 : nullptr;
-        float s = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int q = 0; q < C1; ++q) {
-          const int c = lane + 32 * q;
-          const float bv = br != nullptr && c < H1 ? __bfloat162float(br[c]) : 0.f;
-          x[q] = c < H1 ? fmaxf(__bfloat162float(ar[c]) + bv, 0.f) : 0.f;
-          s += x[q];
-          s2 += x[q] * x[q];
-        }
-        const float mu = warp_sum(s) / H1;
-        const float var = fmaxf(warp_sum(s2) / H1 - mu * mu, 0.f);
-        const float inv = rsqrtf(var + kEps);
-#pragma unroll
-        for (int q = 0; q < C1; ++q) x[q] = (x[q] - mu) * inv * g1r[q] + be1r[q];
-      } else {
-#pragma unroll
-        for (int q = 0; q < C1; ++q) x[q] = 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < C1; ++q) {
-        const int c = lane + 32 * q;
-        if (c < H1) hs[r * H1 + c] = __float2bfloat16(x[q]);
-      }
-    }
-    __syncthreads();
-
-    // ---- phase 2: (kRows x H1) @ (H1 x H2) on the tensor cores, fp32 sums
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR];
-#pragma unroll
-    for (int f = 0; f < FR; ++f) {
-      const int tix = warp + f * kWarps;
-      wmma::fill_fragment(acc[f], 0.f);
-      if (tix < MT * NT) {
-        const int m = tix / NT, n = tix % NT;
-#pragma unroll
-        for (int k = 0; k < KT; ++k) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, hs + m * 16 * H1 + k * 16, H1);
-          wmma::load_matrix_sync(fb, w2s + k * 16 * H2 + n * 16, H2);
-          wmma::mma_sync(acc[f], fa, fb, acc[f]);
-        }
-      }
-    }
-    __syncthreads();   // every warp is done reading hs before ys overwrites it
-#pragma unroll
-    for (int f = 0; f < FR; ++f) {
-      const int tix = warp + f * kWarps;
-      if (tix < MT * NT) {
-        const int m = tix / NT, n = tix % NT;
-        wmma::store_matrix_sync(ys + m * 16 * H2 + n * 16, acc[f], H2, wmma::mem_row_major);
-      }
-    }
-    __syncthreads();
-
-    // ---- phase 3: LN2(relu(y + b2)), masked max over each vertex's edges
-    for (int vl = warp; vl < nv; vl += kWarps) {
-      const int v = v0 + vl;
-      float best[C2];
-#pragma unroll
-      for (int q = 0; q < C2; ++q) best[q] = kNeg;
-      int n_valid = 0;
-      for (int d = 0; d < D; ++d) {
-        const long long e = (static_cast<long long>(bi) * V + v) * D + d;
-        if (!mask[e]) continue;
-        ++n_valid;
-        const int r = vl * D + d;
-        float y[C2];
-        float s = 0.f, s2 = 0.f;
-#pragma unroll
-        for (int q = 0; q < C2; ++q) {
-          const int c = lane + 32 * q;
-          y[q] = c < H2 ? fmaxf(ys[r * H2 + c] + b2r[q], 0.f) : 0.f;
-          s += y[q];
-          s2 += y[q] * y[q];
-        }
-        const float mu = warp_sum(s) / H2;
-        const float var = fmaxf(warp_sum(s2) / H2 - mu * mu, 0.f);
-        const float inv = rsqrtf(var + kEps);
-#pragma unroll
-        for (int q = 0; q < C2; ++q)
-          best[q] = fmaxf(best[q], (y[q] - mu) * inv * g2r[q] + be2r[q]);
-      }
-      float* orow = out + (static_cast<long long>(bi) * V + v) * H2;
-#pragma unroll
-      for (int q = 0; q < C2; ++q) {
-        const int c = lane + 32 * q;
-        if (c < H2) orow[c] = n_valid > 0 ? best[q] : 0.f;
-      }
-    }
-  }
-};
+__device__ __forceinline__ Tail<H1, H2> forward_tail(
+    unsigned char* smem, const __nv_bfloat16* w2, const float* b2, const float* g1,
+    const float* be1, const float* g2, const float* be2) {
+  unsigned char* step = smem + Tail<H1, H2>::kW2Bytes;
+  return Tail<H1, H2>(reinterpret_cast<__nv_bfloat16*>(smem),
+                      reinterpret_cast<__nv_bfloat16*>(step), reinterpret_cast<float*>(step),
+                      w2, b2, g1, be1, g2, be2);
+}
 
 // K1: the work unit is one step of vpt = kRows / D vertices.
 template <int H1, int H2>
@@ -230,7 +70,7 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_kernel(
     const float* __restrict__ g2, const float* __restrict__ be2,
     float* __restrict__ out, int B, int V, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Tail<H1, H2> tail(smem, w2, b2, g1, be1, g2, be2);
+  Tail<H1, H2> tail = forward_tail<H1, H2>(smem, w2, b2, g1, be1, g2, be2);
   const int vpt = kRows / D;
   const int tiles_per_batch = (V + vpt - 1) / vpt;
   const long long total = static_cast<long long>(B) * tiles_per_batch;
@@ -254,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_windowed_kernel(
     float* __restrict__ out, int B, int V, int D, int TV, int units_per_tile,
     int steps_per_unit) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Tail<H1, H2> tail(smem, w2, b2, g1, be1, g2, be2);
+  Tail<H1, H2> tail = forward_tail<H1, H2>(smem, w2, b2, g1, be1, g2, be2);
   __nv_bfloat16* win =
       reinterpret_cast<__nv_bfloat16*>(smem + Tail<H1, H2>::kW2Bytes + Tail<H1, H2>::kStepBytes);
   const int vpt = kRows / D;
@@ -285,32 +125,6 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_windowed_kernel(
                 nbr, mask, out);
     }
   }
-}
-
-// The persistent grid of one kernel instance at one shared-memory size: its
-// dynamic shared memory is set and its occupancy read once per size.
-struct GridCache {
-  size_t smem = 0;
-  long long cap = 0;
-};
-
-template <class Kernel>
-cudaError_t persistent_grid(Kernel kern, size_t smem, long long units, GridCache& cache,
-                            int* grid) {
-  if (smem != cache.smem) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    cache.cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-    cache.smem = smem;
-  }
-  *grid = static_cast<int>(units < cache.cap ? units : cache.cap);
-  return cudaSuccess;
 }
 
 #define MORIG_EDGE_ARGS                                                                  \

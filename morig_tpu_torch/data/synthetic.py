@@ -4,7 +4,8 @@ JAX package.
 
 A UV sphere stretched into a capsule along +y, rigged with a 3-joint chain,
 skinned by height and animated by bending at the middle joint; each frame
-gives the deformed vertices and a partial point cloud seen from +z.  Same
+gives the deformed vertices, a partial point cloud seen from +z, the
+vertex visibility and vertex/point correspondences.  Same
 generator, same random stream: for a seed the arrays equal the JAX
 package's.  `capsule_batch` turns B sequences into the padded mesh entries
 and (T, P, 3) keyframe clouds `RigPredictor.predict_rig_batch` takes.
@@ -147,18 +148,26 @@ def sample_surface(verts, faces, n, rng):
 
 
 def make_capsule_sequence(num_frames: int = 21, num_points: int = 1024, max_bend: float = 0.9,
-                          seed: int = 0, n_lat: int = 17, n_lon: int = 16) -> dict:
-    """An animated capsule: vtx_traj (V,T,3), pts_traj (P,T,3) partial clouds
-    refilled to P points, tpl_edges, geo_edges and the rig."""
+                          partial: bool = True, seed: int = 0, n_lat: int = 17,
+                          n_lon: int = 16) -> dict:
+    """An animated capsule with the raw per-model fields of the pose
+    datasets: vtx_traj (V,T,3), pts_traj (P,T,3) clouds refilled to P points
+    (partial: the front half seen from +z; else the whole surface),
+    corr_v2p / corr_p2v (N,3) int32 [vertex, point, frame] / [point,
+    vertex, frame] pairs (every 4th point with its nearest vertex), vismask
+    (V,T) f32, tpl_edges, geo_edges and the rig."""
     rng = np.random.default_rng(seed)
     rig = make_capsule_rig(n_lat, n_lon)
     V, T = len(rig.verts), num_frames
 
     pts0, fid, bary = sample_surface(rig.verts, rig.faces, num_points, rng)
     pt_skins = (rig.skins[rig.faces[fid]] * bary[..., None]).sum(axis=1)
+    pt_nn_vert = rig.faces[fid, np.argmax(bary, axis=1)]       # max-bary corner
 
     vtx_traj = np.zeros((V, T, 3), np.float32)
     pts_traj = np.zeros((num_points, T, 3), np.float32)
+    vis = np.zeros((V, T), np.float32)
+    corr_v2p, corr_p2v = [], []
     for t in range(T):
         ang = max_bend * np.sin(np.pi * t / (T - 1)) if T > 1 else 0.0
         locals_ = np.stack([np.eye(3, dtype=np.float32), rotz(ang), rotz(ang * 0.5)])
@@ -167,14 +176,27 @@ def make_capsule_sequence(num_frames: int = 21, num_points: int = 1024, max_bend
         rel = pts0[:, None, :] - rig.joints[None, :, :]
         pts_t = np.einsum("jab,pjb->pja", G, rel) + q[None]
         pts_t = np.einsum("pj,pja->pa", pt_skins, pts_t)
-        # single view from +z: keep the front half, refill by repeating it
-        keep = np.where((pts_t[:, 2] - vtx_t.mean(0)[2]) > -0.02)[0]
+        if partial:                          # single view from +z
+            ctr = vtx_t.mean(0)
+            vert_vis = (vtx_t[:, 2] - ctr[2]) > -0.02
+            pt_vis = (pts_t[:, 2] - ctr[2]) > -0.02
+        else:
+            vert_vis = np.ones(V, bool)
+            pt_vis = np.ones(num_points, bool)
+        vis[:, t] = vert_vis
+        # refill the cloud to P points by repeating its visible points
+        keep = np.where(pt_vis)[0]
         sel = keep[rng.integers(0, len(keep), num_points)] if len(keep) else np.zeros(
             num_points, int)
         pts_traj[:, t, :] = pts_t[sel]
         vtx_traj[:, t, :] = vtx_t
-    return dict(rig=rig, vtx_traj=vtx_traj, pts_traj=pts_traj, tpl_edges=rig.tpl_edges,
-                geo_edges=rig.geo_edges)
+        nnv = pt_nn_vert[sel]
+        for p_i in range(0, num_points, 4):
+            corr_p2v.append([p_i, nnv[p_i], t])
+            corr_v2p.append([nnv[p_i], p_i, t])
+    return dict(rig=rig, vtx_traj=vtx_traj, pts_traj=pts_traj,
+                corr_v2p=np.asarray(corr_v2p, np.int32), corr_p2v=np.asarray(corr_p2v, np.int32),
+                vismask=vis, tpl_edges=rig.tpl_edges, geo_edges=rig.geo_edges)
 
 
 def capsule_batch(B: int, T: int, num_points: int, pad_verts: int, degree: int = 12,

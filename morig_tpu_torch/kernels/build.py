@@ -34,6 +34,11 @@ _SIGNATURES = {
     "edge_mlp_forward": [_P] * 11 + [_I] * 5 + [_P],
     # the same, then the vertex tile TV, stream
     "edge_mlp_windowed_forward": [_P] * 11 + [_I] * 6 + [_P],
+    # B, V, D, H1, H2, out grid
+    "edge_mlp_backward_grid": [_I] * 5 + [ctypes.POINTER(_I)],
+    # a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, da, db, dw2, vec, dw2_part,
+    # vec_part, B, V, D, H1, H2, grid, stream
+    "edge_mlp_backward": [_P] * 17 + [_I] * 6 + [_P],
     # q, c, mask, values, idx, score, gathered, B, N, P, C, Cv, k, stream
     "knn_topk_gather": [_P] * 7 + [_I] * 6 + [_P],
     # q, c, mask, idx, score, B, N, P, C, k, stream

@@ -1,5 +1,5 @@
-"""Fused EdgeMLP tail (kernels K1 and K5) — counterpart of
-morig_tpu/kernels/edge_fused.py.
+"""Fused EdgeMLP tail (kernels K1 and K5) and its backward (kernel K6) —
+counterpart of morig_tpu/kernels/edge_fused.py.
 
 Per vertex v over its D table edges:
 
@@ -12,29 +12,50 @@ fp32 (eps 1e-6, variance E[x^2] - E[x]^2) over the true width.
 K1 (`fused_edge_mlp`) reads each neighbour row from the whole table; K5
 (`fused_edge_mlp_windowed`) reads it from its vertex tile's window of
 3 tiles, for meshes whose neighbours are local (`check_neighbor_locality`).
-Each launches its CUDA kernel (csrc/edge_mlp.cu) for a CUDA tensor and runs
-its plain version (`edge_mlp_plain`, `edge_mlp_windowed_plain`) for a CPU
-tensor.
+K6 (`fused_edge_mlp_bwd`) is K1's one-pass backward with an in-kernel
+recompute of the forward, and `fused_edge_mlp_trainable` the autograd
+Function whose forward is K1 and whose backward is K6 (the training path).
+Each launches its CUDA kernel (csrc/edge_mlp.cu, csrc/edge_mlp_bwd.cu) for a
+CUDA tensor and runs its plain version (`edge_mlp_plain`,
+`edge_mlp_windowed_plain`, `edge_mlp_bwd_plain`) for a CPU tensor.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from morig_tpu_torch.kernels import build as kb
+from morig_tpu_torch.kernels.gather_fused import scatter_rows
 
 LN_EPS = 1e-6
 MAX_DEGREE = 16
 WIDTHS = (16, 32, 64, 128, 256)
 
 
-def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """fp32 LayerNorm over the last axis with flax's statistics: var =
-    max(E[x^2] - E[x]^2, 0), eps 1e-6."""
+def _ln_parts(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(xn, inv) of an fp32 LayerNorm over the last axis: inv = rsqrt(var +
+    eps) with var = max(E[x^2] - E[x]^2, 0), xn = (h - mu) * inv."""
     h = h.float()
     mu = h.mean(-1, keepdim=True)
     var = torch.clamp((h * h).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    return (h - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
+    inv = torch.rsqrt(var + LN_EPS)
+    return (h - mu) * inv, inv
+
+
+def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """fp32 LayerNorm over the last axis with flax's statistics: var =
+    max(E[x^2] - E[x]^2, 0), eps 1e-6."""
+    return _ln_parts(h)[0] * scale + bias
+
+
+def _ln_bwd(dy, scale, xn, inv):
+    """Gradient with respect to a LayerNorm's input given its output's."""
+    dxn = dy * scale
+    m1 = dxn.mean(-1, keepdim=True)
+    m2 = (dxn * xn).mean(-1, keepdim=True)
+    return (dxn - m1 - xn * m2) * inv
 
 
 def _edge_tail(a, gathered, mask, w2, b2, g1, be1, g2, be2):
@@ -101,8 +122,8 @@ def edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
 
 
 def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
-    """Checks what K1 and K5 take; returns the contiguous launch arguments
-    and the fp32 output."""
+    """Checks what K1, K5 and K6 take; returns the contiguous launch
+    arguments' pointers and the fp32 (B,V,H2) output of the forward."""
     B, V, H1 = a.shape
     D = nbr.shape[-1]
     H2 = w2.shape[1]
@@ -123,7 +144,7 @@ def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
         if t.device != a.device:
             raise ValueError("edge_mlp kernel: all tensors must be on one device")
     out = torch.empty((B, V, H2), dtype=torch.float32, device=a.device)
-    return [t.data_ptr() for t in args] + [out.data_ptr()], out
+    return [t.data_ptr() for t in args], out
 
 
 def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
@@ -132,7 +153,8 @@ def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
         return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
-    err = kb.library().edge_mlp_forward(*ptrs, B, V, D, a.shape[2], w2.shape[1], kb.stream())
+    err = kb.library().edge_mlp_forward(*ptrs, out.data_ptr(), B, V, D, a.shape[2],
+                                        w2.shape[1], kb.stream())
     kb.check(err, "edge_mlp_forward")
     fused_edge_mlp.launches += 1
     return out
@@ -150,11 +172,111 @@ def fused_edge_mlp_windowed(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
         b = b.clone()
     ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
-    err = kb.library().edge_mlp_windowed_forward(*ptrs, B, V, D, a.shape[2], w2.shape[1],
-                                                 tile_v, kb.stream())
+    err = kb.library().edge_mlp_windowed_forward(*ptrs, out.data_ptr(), B, V, D, a.shape[2],
+                                                 w2.shape[1], tile_v, kb.stream())
     kb.check(err, "edge_mlp_windowed_forward")
     fused_edge_mlp_windowed.launches += 1
     return out
 
 
 fused_edge_mlp_windowed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6: the backward of K1, and the trainable tail
+# ---------------------------------------------------------------------------
+
+def edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: bool = False):
+    """Plain PyTorch version of K6: the gradients of `edge_mlp_plain` given
+    dout (B,V,H2), as (da, db_table, dw2, db2, dg1, dbe1, dg2, dbe2), fp32.
+
+    The forward is recomputed with edge_mlp_plain's own operations, so the
+    max backward routes dout to the valid edges equal to the max the loss
+    saw, split equally between ties (0 where a row has no valid edge).
+    Precision as the TPU kernel's `precise=False`: a, b rounded to bf16,
+    bf16 operands with fp32 sums for dh = ds W2^T, dW2 = h^T ds and the
+    scatter of bf16(dx) into db_table; da and the vector sums in fp32.
+    `precise=True` takes a and b as given and runs every product in fp32
+    (the TPU kernel's formula check)."""
+    mx = torch.float32 if precise else torch.bfloat16
+
+    def rnd(t):
+        return t.to(mx).float()
+
+    a, b = rnd(a), rnd(b)
+    x = a[:, :, None, :] + _gather(b, nbr)                       # (B,V,D,H1)
+    xn1, inv1 = _ln_parts(torch.relu(x))
+    h = xn1 * g1 + be1
+    s = torch.matmul(rnd(h), rnd(w2)) + b2
+    xn2, inv2 = _ln_parts(torch.relu(s))
+    y = xn2 * g2 + be2
+    best = torch.where(mask[..., None], y, torch.full_like(y, -1e30)).max(dim=2, keepdim=True)
+    eq = (mask[..., None] & (y == best.values)).float()
+    dout = dout.float()
+    dout = torch.where(mask.any(dim=2)[..., None], dout, torch.zeros_like(dout))
+    dy = eq * (dout[:, :, None, :] / eq.sum(2, keepdim=True).clamp(min=1.0))
+    ds = torch.where(s > 0, _ln_bwd(dy, g2, xn2, inv2), torch.zeros_like(s))
+    dh = torch.matmul(rnd(ds), rnd(w2).t())
+    dw2 = torch.einsum("bvdi,bvdo->io", rnd(h), rnd(ds))
+    dx = torch.where(x > 0, _ln_bwd(dh, g1, xn1, inv1), torch.zeros_like(x))
+    db = scatter_rows(nbr, rnd(dx), b.shape[1])
+    dims = (0, 1, 2)
+    return (dx.sum(2), db, dw2, ds.sum(dims), (dh * xn1).sum(dims), dh.sum(dims),
+            (dy * xn2).sum(dims), dy.sum(dims))
+
+
+def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
+    """K6.  Same arguments (a, b bf16) and result as `edge_mlp_bwd_plain`;
+    db_table is summed with fp32 atomics, so its last bits vary between
+    runs; the other gradients are deterministic."""
+    if not a.is_cuda:
+        return edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout)
+    ptrs, _ = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    B, V, H1 = a.shape
+    D, H2 = nbr.shape[-1], w2.shape[1]
+    if dout.shape != (B, V, H2) or dout.dtype != torch.float32 or dout.device != a.device:
+        raise ValueError("edge_mlp backward kernel takes an fp32 (B,V,H2) dout on a's device")
+    dout = dout.contiguous()
+    lib = kb.library()
+    grid = ctypes.c_int(0)
+    kb.check(lib.edge_mlp_backward_grid(B, V, D, H1, H2, ctypes.byref(grid)),
+             "edge_mlp_backward_grid")
+    f32 = dict(dtype=torch.float32, device=a.device)
+    da, db = torch.empty((B, V, H1), **f32), torch.zeros((B, V, H1), **f32)
+    dw2, vec = torch.empty((H1, H2), **f32), torch.empty(2 * H1 + 3 * H2, **f32)
+    dw2_part = torch.empty((grid.value, H1, H2), **f32)
+    vec_part = torch.empty((grid.value, vec.numel()), **f32)
+    outs = [dout, da, db, dw2, vec, dw2_part, vec_part]
+    err = lib.edge_mlp_backward(*ptrs, *(t.data_ptr() for t in outs), B, V, D, H1, H2,
+                                grid.value, kb.stream())
+    kb.check(err, "edge_mlp_backward")
+    fused_edge_mlp_bwd.launches += 1
+    dg1, dbe1, db2, dg2, dbe2 = torch.split(vec, [H1, H1, H2, H2, H2])
+    return da, db, dw2, db2, dg1, dbe1, dg2, dbe2
+
+
+fused_edge_mlp_bwd.launches = 0
+
+
+class _TrainableTail(torch.autograd.Function):
+    """Forward K1 on bf16(a), bf16(b); backward K6.  The gradients of a and b
+    return to the fp32 inputs as through the cast."""
+
+    @staticmethod
+    def forward(ctx, a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ctx.save_for_backward(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
+        return fused_edge_mlp(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2 = ctx.saved_tensors
+        da, db, dw2, db2, dg1, dbe1, dg2, dbe2 = fused_edge_mlp_bwd(
+            a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2, dout.float())
+        return da, db, None, None, dw2, db2, dg1, dbe1, dg2, dbe2
+
+
+def fused_edge_mlp_trainable(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """The edge tail with gradients: a, b (B,V,H1) fp32 (rounded to bf16 for
+    K1 inside), the rest as `fused_edge_mlp`; returns (B,V,H2) fp32."""
+    return _TrainableTail.apply(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)

@@ -21,6 +21,15 @@ def gather_plain(values, idx):
     return values[bsel, idx]
 
 
+def scatter_rows(idx, rows, n: int):
+    """The transpose of `gather_plain`: (B,...) int64 indices into n rows,
+    (B,...,C) rows -> (B,n,C) fp32, each index's rows summed (index_add_)."""
+    B, C = idx.shape[0], rows.shape[-1]
+    flat = (idx.reshape(B, -1) + n * torch.arange(B, device=idx.device)[:, None]).reshape(-1)
+    out = torch.zeros(B * n, C, dtype=torch.float32, device=rows.device)
+    return out.index_add_(0, flat, rows.reshape(-1, C).float()).reshape(B, n, C)
+
+
 def gather_rows(values, idx):
     """K3.  Same arguments and result as `gather_plain`."""
     if not values.is_cuda:

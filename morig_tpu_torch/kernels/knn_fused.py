@@ -9,13 +9,18 @@ index 0 everywhere); gathered = values[idx] exactly.
 
 `knn_batched` with `gather_values` launches K2, without it `knn_topk` (K4);
 both kernels are csrc/knn_topk.cu's, and on a CPU tensor both run
-`knn_plain`.
+`knn_plain`.  With `gather_values`, gradients flow as in the JAX package's
+custom VJP (`_fused_g_bwd`): into the query and the selected candidate rows
+through the score, and into the selected value rows through the gathered
+values; the selection itself carries none.  The backward is plain PyTorch,
+as the JAX VJP is plain XLA.
 """
 from __future__ import annotations
 
 import torch
 
 from morig_tpu_torch.kernels import build as kb
+from morig_tpu_torch.kernels.gather_fused import scatter_rows
 
 NEG = -1e30
 MAX_K = 8
@@ -89,30 +94,58 @@ def knn_topk(query, cand, k: int, cand_mask):
 knn_topk.launches = 0
 
 
-def knn_batched(query, cand, k: int, cand_mask=None, *, gather_values=None):
-    """query (B,N,C), cand (B,P,C), cand_mask (B,P) bool or None.  With
-    gather_values (B,P,Cv), K2: (idx, score, gathered) as `knn_plain`;
-    without, K4 (`knn_topk`): (idx, score)."""
-    if cand_mask is None:
-        cand_mask = torch.ones(cand.shape[:2], dtype=torch.bool, device=cand.device)
-    if gather_values is None:
-        return knn_topk(query, cand, k, cand_mask)
+class _KnnGather(torch.autograd.Function):
+    """K2 with the JAX package's VJP: score_j = <q, c[idx_j]> and
+    gathered_j = values[idx_j] are differentiated at the selected rows."""
+
+    @staticmethod
+    def forward(ctx, query, cand, cand_mask, values, k: int):
+        idx, score, gathered = _knn_gather(query, cand, k, cand_mask, values)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(query, cand, idx)
+        ctx.n_values = values.shape[1]
+        return idx, score, gathered
+
+    @staticmethod
+    def backward(ctx, _d_idx, d_score, d_gathered):
+        query, cand, idx = ctx.saved_tensors
+        bsel = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        d_score = d_score.to(query.dtype)
+        dq = torch.einsum("bnk,bnkc->bnc", d_score, cand[bsel, idx])
+        dc = scatter_rows(idx, d_score[..., None] * query[:, :, None, :], cand.shape[1])
+        dvals = scatter_rows(idx, d_gathered, ctx.n_values)
+        return dq, dc.to(cand.dtype), None, dvals, None
+
+
+def _knn_gather(query, cand, k: int, cand_mask, values):
+    """K2 (or its plain version on a CPU tensor), without gradients."""
     if not query.is_cuda:
-        return knn_plain(query, cand, k, cand_mask, gather_values)
+        return knn_plain(query, cand, k, cand_mask, values)
     _check(query, cand, k, cand_mask)
-    if gather_values.shape[:2] != cand.shape[:2] or gather_values.device != query.device:
+    if values.shape[:2] != cand.shape[:2] or values.device != query.device:
         raise ValueError("knn kernel: gather_values must be (B, P, Cv) on the query's device")
     (q, c, m), idx, score = _outputs(query, cand, k, cand_mask)
     B, N, C = query.shape
-    Cv = gather_values.shape[-1]
-    values = gather_values.float().contiguous()
+    Cv = values.shape[-1]
+    vals = values.float().contiguous()
     gathered = torch.empty((B, N, k, Cv), dtype=torch.float32, device=query.device)
     err = kb.library().knn_topk_gather(
-        q.data_ptr(), c.data_ptr(), m.data_ptr(), values.data_ptr(), idx.data_ptr(),
+        q.data_ptr(), c.data_ptr(), m.data_ptr(), vals.data_ptr(), idx.data_ptr(),
         score.data_ptr(), gathered.data_ptr(), B, N, cand.shape[1], C, Cv, k, kb.stream())
     kb.check(err, "knn_topk_gather")
     knn_batched.launches += 1
     return idx, score, gathered
+
+
+def knn_batched(query, cand, k: int, cand_mask=None, *, gather_values=None):
+    """query (B,N,C), cand (B,P,C), cand_mask (B,P) bool or None.  With
+    gather_values (B,P,Cv), K2: (idx, score, gathered) as `knn_plain`,
+    differentiable; without, K4 (`knn_topk`): (idx, score)."""
+    if cand_mask is None:
+        cand_mask = torch.ones(cand.shape[:2], dtype=torch.bool, device=cand.device)
+    if gather_values is None:
+        return knn_topk(query, cand, k, cand_mask)
+    return _KnnGather.apply(query, cand, cand_mask, gather_values, k)
 
 
 knn_batched.launches = 0

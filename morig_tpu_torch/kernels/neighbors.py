@@ -64,16 +64,18 @@ def radius_group(centroids, points, r: float, max_neighbors: int, points_mask=No
     return idx[..., :k], top[..., :k] > NEG / 2
 
 
-def fps(points: torch.Tensor, k: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+def fps(points: torch.Tensor, k: int, mask: torch.Tensor | None = None,
+        start: torch.Tensor | None = None) -> torch.Tensor:
     """Farthest-point sampling of k indices per sample from (B,P,3), starting
-    at index 0 (the eval start); masked points are never picked.  A
-    sequential loop over k on the device."""
+    at `start` (B,) (index 0 when None, the eval start); masked points are
+    never picked after the start.  A sequential loop over k on the device."""
     B, P, _ = points.shape
     valid = torch.ones(B, P, dtype=torch.bool, device=points.device) if mask is None else mask
     bsel = torch.arange(B, device=points.device)
     dist = torch.where(valid, torch.full((B, P), POS, device=points.device),
                        torch.full((B, P), -1.0, device=points.device))
-    last = torch.zeros(B, dtype=torch.int64, device=points.device)
+    last = (torch.zeros(B, dtype=torch.int64, device=points.device) if start is None
+            else start.to(device=points.device, dtype=torch.int64))
     out = [last]
     for _ in range(k - 1):
         d_new = ((points - points[bsel, last][:, None, :]) ** 2).sum(-1)
@@ -81,6 +83,19 @@ def fps(points: torch.Tensor, k: int, mask: torch.Tensor | None = None) -> torch
         last = torch.where(valid, dist, torch.full_like(dist, -1.0)).argmax(dim=-1)
         out.append(last)
     return torch.stack(out, 1)
+
+
+def random_starts(generator: torch.Generator | None, mask: torch.Tensor) -> torch.Tensor:
+    """A uniformly drawn valid FPS start per sample of mask (B,P), from
+    `generator` (random in training, as morig_tpu/nn/corrnet.py
+    `random_starts`); 0 when generator is None (the eval start).  The draws
+    come from the generator's own device and land on mask's."""
+    B = mask.shape[0]
+    if generator is None:
+        return torch.zeros(B, dtype=torch.int64, device=mask.device)
+    u = torch.rand(mask.shape, generator=generator, device=generator.device)
+    u = torch.where(mask.to(u.device), u, torch.full_like(u, -1.0))
+    return u.argmax(dim=-1).to(mask.device)
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:

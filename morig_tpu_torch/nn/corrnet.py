@@ -1,5 +1,7 @@
 """CorrNet — mesh/point correspondence embeddings + visibility head.
-Counterpart of morig_tpu/nn/corrnet.py (eval path: FPS starts at 0)."""
+Counterpart of morig_tpu/nn/corrnet.py.  FPS starts at 0 at eval and where
+no generator is given; in training with a generator, at a random valid
+point per sample (`neighbors.random_starts`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,15 +33,15 @@ class MeshEncoder(nn.Module):
         self.vtx_mlp_glb = MLP(864, [1024])
         self.vtx_mlp = MLPHead(1024 + 3 + 864, [1024, 256], out_features)
 
-    def forward(self, mesh: MeshBatch) -> torch.Tensor:
-        x1 = self.vtx_gcu_1(mesh.verts, mesh)
-        x2 = self.vtx_gcu_2(x1, mesh)
-        x3 = self.vtx_gcu_3(x2, mesh)
-        x4 = self.vtx_gcu_4(x3, mesh)
+    def forward(self, mesh: MeshBatch, train: bool = False) -> torch.Tensor:
+        x1 = self.vtx_gcu_1(mesh.verts, mesh, train)
+        x2 = self.vtx_gcu_2(x1, mesh, train)
+        x3 = self.vtx_gcu_3(x2, mesh, train)
+        x4 = self.vtx_gcu_4(x3, mesh, train)
         skips = torch.cat([x1, x2, x3, x4], -1)
-        glb = nbk.masked_max(self.vtx_mlp_glb(skips), mesh.vert_mask, dim=1)
+        glb = nbk.masked_max(self.vtx_mlp_glb(skips, train), mesh.vert_mask, dim=1)
         glb = glb[:, None, :].expand(-1, skips.shape[1], -1)
-        return l2_normalize(self.vtx_mlp(torch.cat([glb, mesh.verts, skips], -1)))
+        return l2_normalize(self.vtx_mlp(torch.cat([glb, mesh.verts, skips], -1), train))
 
 
 class PointEncoder(nn.Module):
@@ -58,24 +60,27 @@ class PointEncoder(nn.Module):
         self.fp1 = FPModule(3, 64, 0, [64, 64])
         self.pts_mlp = MLPHead(64, [64], out_features)
 
-    def forward(self, points: PointBatch) -> torch.Tensor:
+    def forward(self, points: PointBatch, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pos0, m0 = points.pts, points.pts_mask
         P = pos0.shape[1]
-        x1, pos1, m1 = self.sa1(None, pos0, m0, P // 2)
-        x2, pos2, m2 = self.sa2(x1, pos1, m1, P // 8)
-        x3, pos3, m3 = self.sa3(x2, pos2, m2, P // 32)
-        xg = self.sa4(x3, pos3, m3)
-        f4, _, _ = self.fp4(xg, None, None, x3, pos3, m3)
-        f3, _, _ = self.fp3(f4, pos3, m3, x2, pos2, m2)
-        f2, _, _ = self.fp2(f3, pos2, m2, x1, pos1, m1)
-        f1, _, _ = self.fp1(f2, pos1, m1, None, pos0, m0)
-        return l2_normalize(self.pts_mlp(f1))
+        x1, pos1, m1 = self.sa1(None, pos0, m0, P // 2, train, nbk.random_starts(generator, m0))
+        x2, pos2, m2 = self.sa2(x1, pos1, m1, P // 8, train, nbk.random_starts(generator, m1))
+        x3, pos3, m3 = self.sa3(x2, pos2, m2, P // 32, train, nbk.random_starts(generator, m2))
+        xg = self.sa4(x3, pos3, m3, train)
+        f4, _, _ = self.fp4(xg, None, None, x3, pos3, m3, train)
+        f3, _, _ = self.fp3(f4, pos3, m3, x2, pos2, m2, train)
+        f2, _, _ = self.fp2(f3, pos2, m2, x1, pos1, m1, train)
+        f1, _, _ = self.fp1(f2, pos1, m1, None, pos0, m0, train)
+        return l2_normalize(self.pts_mlp(f1, train))
 
 
 class CorrNet(nn.Module):
     """Returns (vtx_feature (B,V,C), pts_feature (B,P,C), vismask logits
-    (B,V,1), temperature); `mesh_only` returns the mesh embedding alone and
-    `vtx_f` reuses a precomputed one."""
+    (B,V,1) or None without `train_vismask`, temperature); `mesh_only`
+    returns the mesh embedding alone and `vtx_f` reuses a precomputed one.
+    `train` selects the training numerics (fp32 matmuls, K1 + K6 edge
+    layers, plain gathers) and `generator` the random FPS starts."""
 
     def __init__(self, output_feature: int = 64, tau_init: float = 0.07):
         super().__init__()
@@ -88,16 +93,21 @@ class CorrNet(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.temperature.fill_(self.tau_init)
 
-    def forward(self, mesh: MeshBatch, points: Optional[PointBatch],
+    def forward(self, mesh: MeshBatch, points: Optional[PointBatch], train: bool = False,
+                train_vismask: bool = True, generator: Optional[torch.Generator] = None,
                 vtx_f: Optional[torch.Tensor] = None, mesh_only: bool = False):
         if mesh_only:
-            return self.mesh_enc(mesh)
+            return self.mesh_enc(mesh, train)
         if vtx_f is None:
-            vtx_f = self.mesh_enc(mesh)
-        pts_f = self.pts_enc(points)
-        # cosine 1-NN point feature per vertex (kernel K2, gathering pts_f)
-        _, _, nn_feat = knn_batched(vtx_f, pts_f, 1, points.pts_mask, gather_values=pts_f)
-        nn_feat = nn_feat[:, :, 0, :]
-        nn_sim = (vtx_f * nn_feat).sum(-1, keepdim=True)
-        vis_logits = self.lin_vismask(torch.cat([vtx_f, nn_feat, nn_sim], -1))
+            vtx_f = self.mesh_enc(mesh, train)
+        pts_f = self.pts_enc(points, train, generator)
+        vis_logits = None
+        if train_vismask:
+            # cosine 1-NN point feature per vertex (kernel K2, gathering
+            # pts_f); the selection carries no gradient, the feature and the
+            # similarity do
+            _, _, nn_feat = knn_batched(vtx_f, pts_f, 1, points.pts_mask, gather_values=pts_f)
+            nn_feat = nn_feat[:, :, 0, :]
+            nn_sim = (vtx_f * nn_feat).sum(-1, keepdim=True)
+            vis_logits = self.lin_vismask(torch.cat([vtx_f, nn_feat, nn_sim], -1), train)
         return vtx_f, pts_f, vis_logits, self.temperature

@@ -1,12 +1,18 @@
 """Graph convolution units over fixed-width neighbor tables — counterpart of
-morig_tpu/nn/gcu.py ("layer" norm mode, inference).
+morig_tpu/nn/gcu.py ("layer" norm mode).
 
 The first edge layer is decomposed per vertex: W [x_i ; x_j - x_i] + b =
 (W1 - W2) x_i + W2 x_j + b, so `lin_self` holds (W1 - W2) with the bias and
-`lin_nbr` holds W2.  Both run as bf16 matmuls (the JAX package's bf16 edge
-messages at inference); the per-edge tail runs in kernel K1, or in the
-windowed kernel K5 when the mesh batch carries an `edge_tile`
-(`auto_select_edge_impl`).
+`lin_nbr` holds W2.  At inference both run as bf16 matmuls (the JAX
+package's bf16 edge messages) and the per-edge tail runs in kernel K1, or in
+the windowed kernel K5 when the mesh batch carries an `edge_tile`
+(`auto_select_edge_impl`).  In training (`train=True`) both run in fp32 and
+the tail goes through `fused_edge_mlp_trainable`: K1 forward on bf16(a),
+bf16(b), K6 backward, at every width K1 takes.  The JAX package trains
+only 128-multiple widths through its kernels (its TPU lane tiling) and
+narrower ones in XLA; here all widths train through K1 + K6, and the full
+table is used even where the batch carries an `edge_tile` (K5 has no
+backward; on local tables K5 and K1 compute the same function).
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from torch import nn
 
 from morig_tpu_torch.core.batch import MeshBatch
 from morig_tpu_torch.kernels.edge_fused import (
-    check_neighbor_locality, fused_edge_mlp, fused_edge_mlp_windowed)
+    check_neighbor_locality, fused_edge_mlp, fused_edge_mlp_trainable, fused_edge_mlp_windowed)
 from morig_tpu_torch.nn.mlp import MLP, Dense, lecun_normal_
 
 
@@ -62,12 +68,16 @@ class EdgeMLP(nn.Module):
         self.ln1_scale.fill_(1.0)
         self.ln1_bias.zero_()
 
-    def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None):
-        """K5 at `edge_tile` when given, K1 otherwise."""
-        a = self.lin_self(x, torch.bfloat16)
-        b = self.lin_nbr(x, torch.bfloat16)
+    def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None, train: bool = False):
+        """Training: K1 forward and K6 backward on fp32 lin_self/lin_nbr.
+        Inference: K5 at `edge_tile` when given, K1 otherwise."""
+        dt = torch.float32 if train else torch.bfloat16
+        a = self.lin_self(x, dt)
+        b = self.lin_nbr(x, dt)
         args = (a, b, nbr, nbr_mask, self.dense_1_kernel, self.dense_1_bias,
                 self.ln0_scale, self.ln0_bias, self.ln1_scale, self.ln1_bias)
+        if train:
+            return fused_edge_mlp_trainable(*args)
         if edge_tile:
             return fused_edge_mlp_windowed(*args, tile_v=edge_tile)
         return fused_edge_mlp(*args)
@@ -80,8 +90,8 @@ class EdgeConv(nn.Module):
         super().__init__()
         self.nn_pos = EdgeMLP(fin, channels)
 
-    def forward(self, x, nbr, nbr_mask, edge_tile=None):
-        return self.nn_pos(x, nbr, nbr_mask, edge_tile)
+    def forward(self, x, nbr, nbr_mask, edge_tile=None, train: bool = False):
+        return self.nn_pos(x, nbr, nbr_mask, edge_tile, train)
 
 
 class GCU(nn.Module):
@@ -94,10 +104,10 @@ class GCU(nn.Module):
         self.edge_conv_geo = EdgeConv(fin, [half, half])
         self.mlp = MLP(2 * half, [out_channels])
 
-    def forward(self, x, mesh: MeshBatch):
-        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile)
-        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile)
-        return self.mlp(torch.cat([x_tpl, x_geo], -1))
+    def forward(self, x, mesh: MeshBatch, train: bool = False):
+        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train)
+        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train)
+        return self.mlp(torch.cat([x_tpl, x_geo], -1), train)
 
 
 class EdgeConvMotion(nn.Module):

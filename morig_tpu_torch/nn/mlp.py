@@ -5,9 +5,10 @@ normal kernels (truncated at two standard deviations), zero biases, LN
 ones and zeros, zero heads where `zero_init`.  `init_parameters` walks a
 module tree and re-initializes every parameter from one torch.Generator.
 
-Precision: MLP matmuls run in bf16 on the GPU and fp32 on the CPU (the JAX
-package's `infer_matmul_dtype` in "layer" mode); LayerNorm statistics and
-outputs are fp32 (eps 1e-6, flax's E[x^2] - E[x]^2 variance).
+Precision: at inference MLP matmuls run in bf16 on the GPU and fp32 on the
+CPU, in training in fp32 everywhere (the JAX package's `infer_matmul_dtype`
+in "layer" mode); LayerNorm statistics and outputs are fp32 (eps 1e-6,
+flax's E[x^2] - E[x]^2 variance).
 """
 from __future__ import annotations
 
@@ -40,9 +41,10 @@ def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator if generator is not None else torch.Generator().manual_seed(0)
 
 
-def matmul_dtype(x: torch.Tensor) -> torch.dtype:
-    """Inference matmul dtype of the MLP layers: bf16 on the GPU, fp32 on CPU."""
-    return torch.bfloat16 if x.is_cuda else torch.float32
+def matmul_dtype(x: torch.Tensor, train: bool = False) -> torch.dtype:
+    """Matmul dtype of the MLP layers: fp32 in training; at inference bf16 on
+    the GPU and fp32 on the CPU."""
+    return torch.bfloat16 if x.is_cuda and not train else torch.float32
 
 
 class Dense(nn.Module):
@@ -96,8 +98,8 @@ class MLP(nn.Module):
             self.add_module(f"dense_{i}", Dense(dims[i], ch))
             self.add_module(f"ln_{i}", LayerNorm(ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = matmul_dtype(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dt = matmul_dtype(x, train)
         for i in range(len(self.channels)):
             x = torch.relu(getattr(self, f"dense_{i}")(x, dt))
             x = getattr(self, f"ln_{i}")(x)
@@ -112,6 +114,6 @@ class MLPHead(nn.Module):
         self.mlp = MLP(fin, channels)
         self.out = Dense(channels[-1], out, zero_init=zero_init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.mlp(x)
-        return self.out(h, matmul_dtype(h)).float()
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.mlp(x, train)
+        return self.out(h, matmul_dtype(h, train)).float()

@@ -125,12 +125,13 @@ class RigPredictor(torch.nn.Module):
         self.eval()
 
     @classmethod
-    def random(cls, seed: int = 0) -> "RigPredictor":
+    def random(cls, seed: int = 0, device="cuda") -> "RigPredictor":
         """The six networks with every parameter, heads included, filled
-        from seeds `seed`..`seed + 5` by `weights.randomize_`."""
+        from seeds `seed`..`seed + 5` by `weights.randomize_`, on `device`
+        (the card unless the caller asks for another)."""
         nets = (DeformNet, JointNetMotion, MaskNetMotion, RootNet, BoneNet, SkinMotion)
         return cls(*(randomize_(net(generator=torch.Generator().manual_seed(seed + i)), seed + i)
-                     for i, net in enumerate(nets)))
+                     for i, net in enumerate(nets))).to(device)
 
     @property
     def device(self) -> torch.device:

@@ -233,7 +233,7 @@ def test_package_runs_with_jax_blocked():
         from morig_tpu_torch.data.synthetic import capsule_batch
         from morig_tpu_torch.pipelines.rig_predict import RigPredictor
         entries, frames = capsule_batch(1, 5, 64, 64, n_lat=7, n_lon=6)
-        rigs = RigPredictor.random(0).predict_rig_batch(entries, frames)
+        rigs = RigPredictor.random(0, device="cpu").predict_rig_batch(entries, frames)
         assert len(rigs) == 1 and np.isfinite(rigs[0].pos).all()
         assert not any(k.split(".")[0] in BLOCKED for k, v in sys.modules.items() if v is not None)
         print(len(mods), "modules")

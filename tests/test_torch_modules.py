@@ -129,7 +129,7 @@ def test_gcu_windowed_matches_flax(monkeypatch):
     entries, _ = capsule_batch(2, 1, 64, 384, 12, n_lat=17, n_lon=16, seed=3)
     assert tgcu.auto_select_edge_impl(entries, tile_v=128) == "windowed"
     jm = JB.stack_meshes(entries)
-    tm = TB.stack_meshes(entries, edge_tile=128)
+    tm = TB.stack_meshes(entries, device="cpu", edge_tile=128)
     x = np.random.default_rng(384).standard_normal((2, 384, 32)).astype(np.float32)
     m = jgcu.GCU(64)
     p = F.flax_params(m, 384, jnp.asarray(x), jm)
@@ -256,8 +256,8 @@ def test_corrnet_and_deformnet_match_flax(fixture, deform_run):
     F.assert_close(pts_f, j_pts, atol=TIGHT)
     F.assert_close(vis_logits, j_vis, atol=2e-3, rtol=1e-3, what="vismask logits")
     assert float(tau) == pytest.approx(float(j_tau))
-    net.corr_extractor.lin_vismask.forward = lambda x: torch.as_tensor(np.asarray(j_vis))
-    net.corr_extractor.pts_enc.forward = lambda p: torch.as_tensor(np.asarray(j_pts))
+    net.corr_extractor.lin_vismask.forward = lambda *_: torch.as_tensor(np.asarray(j_vis))
+    net.corr_extractor.pts_enc.forward = lambda *_: torch.as_tensor(np.asarray(j_pts))
     flow, _, _, vis, _ = net(fixture["tm"], fixture["tp"], vtx_f=vtx_f)
     j_flow, _, _, j_vis01, _ = deform_run["out"]
     F.assert_close(vis, j_vis01, atol=1e-6, what="vismask")

@@ -299,9 +299,9 @@ def test_flow_joints_program(dag, jax_dag):
     vtx_f, pts_f, vis_logits = (torch.as_tensor(np.asarray(x)) for x in jax_dag["embeds"])
     corr = pred.deform.corr_extractor
     assert_rel_close(corr.mesh_enc(tm), vtx_f, NETWORK, dag["vm"], "mesh embedding")
-    corr.mesh_enc.forward = lambda mesh: vtx_f
-    corr.pts_enc.forward = lambda points: pts_f
-    corr.lin_vismask.forward = lambda x: vis_logits
+    corr.mesh_enc.forward = lambda *_: vtx_f
+    corr.pts_enc.forward = lambda *_: pts_f
+    corr.lin_vismask.forward = lambda *_: vis_logits
     try:
         flow, clusters = pred.flow_joints(tm.repeat_interleave(T), dag["tp"], tm, T)
     finally:
