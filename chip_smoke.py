@@ -10,11 +10,18 @@ Phases, each printing its own lines:
   3. kernels — each of K1 (edge MLP), K2 (kNN + gather), K3 (row gather),
                K4 (kNN), K5 (windowed edge MLP) and K6 (edge MLP backward)
                against its plain PyTorch version on the card, at the shapes
-               the paths give it (K5 also against K1; K6 at the training
-               path's tables, with exact ties), with errors, tolerances,
-               CUDA-event median times, the least time the card could take
-               (`bound_ms`) and, where one PyTorch call computes the same
-               function, that call's time;
+               the paths give it (K5 also against K1, at B*T=20 and B=4; K6
+               at the training path's tables, with exact ties), with
+               errors, tolerances, the least time the card could take
+               (`bound_ms`) and two times per kernel: its device ms (the
+               summed durations of its own launches under torch.profiler
+               over REPS calls, / REPS; a profile that lost ops is taken
+               again, and after three tries the time is CUDA events around
+               REPS calls queued behind a spin kernel) and its call ms (CUDA events
+               around REPS back-to-back calls, / REPS, which includes the
+               wrapper's host time); the plain version's call ms, and
+               where one PyTorch call computes the same function (K3's
+               `values[bsel, idx]`) that call's device and call ms;
   4. paths   — `RigPredictor.predict_rig_batch` on B=4 capsule meshes
                (V=1298 padded to 1536, degree-12 tables, P=1024, T=5) with
                seeded random weights (heads included), in two
@@ -33,7 +40,8 @@ Phases, each printing its own lines:
                peak device memory;
   5. profile (--profile only) — for each path, each device program's
                CUDA-event time, its device ops and busy time under
-               torch.profiler and the ported kernels' share; CUDA-event
+               torch.profiler and the ported kernels' share, and their
+               device ms per call summed over the three programs; CUDA-event
                times of FPS and the clustering;
   6. train   — `CorrPoseStage` (CorrNet, full width) on B=4 capsules
                (V=1298 padded to the 2048 bucket, degree-12 tables,
@@ -48,8 +56,10 @@ Phases, each printing its own lines:
                loss, which must be lower; with --profile also the step's
                device ops, busy time and idle share and K1's and K6's time.
 Then a JSON line of kernel results (launches counted in the main paths'
-counted runs: path 1, path 2 and the training step), the card's name and
-power limit, and last `{"ok": true, "device": {...}}`.  Any failure
+counted runs: path 1, path 2 and the training step; `ms` and `device_ms`
+the device time, `call_ms` the call time, `library_ms` and
+`library_device_ms` the library call's), the card's name and power limit,
+and last `{"ok": true, "device": {...}}`.  Any failure
 raises: the exit code is non-zero and the last line is not printed.
 """
 from __future__ import annotations
@@ -102,7 +112,7 @@ K2_TOL = 1e-5     # fp32 sums of exact bf16 products, in another order; K4 too
 # by more than K6_ELEM_TOL * max(max |plain|, 1).
 K6_L2_TOL, K6_ELEM_TOL, K6_FRAC_TOL = 1e-2, 1e-3, 1e-3
 K6_NAMES = ("da", "db_table", "dw2", "db2", "dg1", "dbe1", "dg2", "dbe2")
-REPS = 10         # CUDA-event samples per kernel timing
+REPS = 20         # calls per kernel timing (and CUDA-event samples of the profiles)
 MAIN_REPS = 7     # timed calls of predict_rig_batch after the warm-up
 TRAIN_B, TRAIN_STEPS = 4, 6      # training batch, timed steps after the warm-up
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): HBM
@@ -132,28 +142,34 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
 
 class Timings:
     """A kernel's results summed over the calls phase 3 makes of it: max
-    error, kernel, plain-version and library-call ms, and the bound (with
-    what bounds the call of the largest bound)."""
+    error; the kernel's device ms and call ms, the plain version's call ms,
+    the library call's call and device ms; and the bound (with what bounds
+    the call of the largest bound)."""
 
     def __init__(self):
-        self.err = self.ms = self.plain_ms = self.bound_ms = 0.0
-        self.library_ms = None
+        self.err = self.device_ms = self.call_ms = self.plain_ms = self.bound_ms = 0.0
+        self.library_ms = self.library_device_ms = None
         self.bound_by, self._worst = "bytes", -1.0
 
-    def add(self, err, ms, plain_ms, n_bytes, flops, library_ms=None):
+    def add(self, err, kernel, plain_ms, n_bytes, flops, library=None):
+        """kernel, library: (device ms, call ms) pairs from `kernel_ms`."""
         b, by = bound(n_bytes, flops)
-        self.err, self.ms, self.plain_ms = max(self.err, err), self.ms + ms, self.plain_ms + plain_ms
+        self.err, self.plain_ms = max(self.err, err), self.plain_ms + plain_ms
+        self.device_ms += kernel[0]
+        self.call_ms += kernel[1]
         self.bound_ms += b
         if b > self._worst:
             self._worst, self.bound_by = b, by
-        if library_ms is not None:
-            self.library_ms = (self.library_ms or 0.0) + library_ms
+        if library is not None:
+            self.library_device_ms = (self.library_device_ms or 0.0) + library[0]
+            self.library_ms = (self.library_ms or 0.0) + library[1]
         return b
 
     def json(self) -> dict:
-        return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
-                "bound_ms": self.bound_ms, "bound_by": self.bound_by,
-                "library_ms": self.library_ms}
+        return {"max_abs_err": self.err, "ms": self.device_ms, "device_ms": self.device_ms,
+                "call_ms": self.call_ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": self.bound_by, "library_ms": self.library_ms,
+                "library_device_ms": self.library_device_ms}
 
 
 def median_ms(fn) -> float:
@@ -167,6 +183,97 @@ def median_ms(fn) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def call_ms(fn) -> float:
+    """CUDA events around REPS back-to-back calls after a warm-up, over REPS:
+    the device's time per call, including any wait on the host's wrapper."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def queued_ms(fn) -> float:
+    """Device ms per call without the profiler: CUDA events around REPS calls
+    queued behind a spin kernel that outlasts the host's queueing, so the
+    card runs them back to back and no host time enters (the call's other
+    device ops, such as K5's W2 layout, do)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    if not ahead:
+        raise AssertionError("the card finished the spin before the host had queued the calls")
+    return start.elapsed_time(end) / REPS
+
+
+# Timing by torch.profiler: host sleep before and after the profiled calls,
+# so that device ops whose timestamps the trace places outside the host's
+# window are kept, and tries before device ms falls back to `queued_ms`.  A
+# run lost every K5 op of one 20-call profile; the trace can place a device
+# op milliseconds before the host call that launched it (the device and host
+# clocks disagree).  Tries, fallbacks and the least start - launch are
+# printed at the end of phase 3.
+PROFILE_PAD_S, PROFILE_TRIES = 0.05, 3
+SPIN_CYCLES = 50_000_000          # ~25 ms at the H100's clocks
+PROFILER_STATS = {"timings": 0, "retried": 0, "fell_back": 0, "least_skew_us": math.inf}
+
+
+def launch_skew_us(prof) -> float:
+    """The least (device op's start - its launch call's start) in a profile,
+    µs: below 0, the trace puts device ops before the host launched them."""
+    from torch.autograd import DeviceType
+
+    ev = prof.profiler.kineto_results.events()
+    launch = {e.correlation_id(): e.start_ns() for e in ev if "LaunchKernel" in e.name()}
+    starts = [e.start_ns() - launch[e.correlation_id()] for e in ev
+              if e.device_type() == DeviceType.CUDA and e.correlation_id() in launch]
+    return min(starts, default=math.inf) / 1e3
+
+
+def kernel_ms(fn, name=None) -> tuple[float, float]:
+    """(device ms, call ms) of fn.  Device ms: under torch.profiler, the
+    summed durations of the device ops of REPS calls whose name contains
+    `name` (or one of a tuple of names; every device op of the calls where
+    name is None), over REPS: the kernel's own time on the card, without its
+    wrapper's host time.  Each call launches the same ops, so a profile must
+    hold a whole, non-zero multiple of REPS of them, else it is taken again;
+    after PROFILE_TRIES it is `queued_ms` instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_call = call_ms(fn)
+    names = (name,) if isinstance(name, str) else name
+    PROFILER_STATS["timings"] += 1
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        ops = [e for e in device_events(prof) if name is None or any(n in e.name for n in names)]
+        PROFILER_STATS["least_skew_us"] = min(PROFILER_STATS["least_skew_us"],
+                                              launch_skew_us(prof))
+        if len(ops) >= REPS and len(ops) % REPS == 0:
+            PROFILER_STATS["retried"] += attempt > 0
+            return sum(e.time_range.elapsed_us() for e in ops) / 1e3 / REPS, t_call
+        print(f"profiler: {len(ops)} device ops named {name!r} in {REPS} calls (try "
+              f"{attempt + 1} of {PROFILE_TRIES})")
+    PROFILER_STATS["fell_back"] += 1
+    t_dev = queued_ms(fn)
+    print(f"profiler: device ms of {name!r} from events behind a spin instead: {t_dev:.4f} ms")
+    return t_dev, t_call
 
 
 # ---------------------------------------------------------------------------
@@ -209,42 +316,55 @@ def check_k1(dev, mesh_bt):
         torch.cuda.synchronize()
         e = (got - ref).abs().max().item()
         e_mean = (got - ref).abs().mean().item()
-        t_k = median_ms(lambda: fused_edge_mlp(*args))
-        t_p = median_ms(lambda: edge_mlp_plain(*args))
+        t_k = kernel_ms(lambda: fused_edge_mlp(*args), DEVICE_NAMES["K1"])
+        t_p = call_ms(lambda: edge_mlp_plain(*args))
         b = res.add(e, t_k, t_p, *edge_cost(args, nbytes(got), 1))
         print(f"K1 edge_mlp B={Bt} V={V} D={D} H={H}: max_abs_err {e:.3g} (tol {K1_TOL}), "
-              f"mean {e_mean:.3g} (tol {K1_MEAN_TOL}); kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-              f"bound {b:.4f} ms")
+              f"mean {e_mean:.3g} (tol {K1_MEAN_TOL}); kernel device {t_k[0]:.4f} ms call "
+              f"{t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
         if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL):
             raise AssertionError(f"K1 disagrees with its plain version at H={H}: {e}, {e_mean}")
     return res
 
 
-def check_k5(dev, mesh_bt):
-    """Every edge width of the paths over the same B*T tables (local at the
-    dispatch tile): K5 against its plain version and against K1."""
+def check_k5(dev, mesh_bt, mesh_b):
+    """Every edge width of the paths over the B*T tables of the flow program
+    and the B tables of the trunks (local at the dispatch tile): K5 against
+    its plain version and against K1, and K5's device time beside K1's on the
+    same tables.  The kernel row sums the B*T shapes, as K1's does."""
     g = torch.Generator(device=dev).manual_seed(1)
-    Bt, V, D = mesh_bt.tpl_nbr.shape
     res = Timings()
-    for H in EDGE_WIDTHS:
-        args = edge_args(dev, mesh_bt.tpl_nbr, mesh_bt.tpl_mask, H, g)
-        got = fused_edge_mlp_windowed(*args, tile_v=EDGE_TILE)
-        ref = edge_mlp_windowed_plain(*args, tile_v=EDGE_TILE)
-        k1 = fused_edge_mlp(*args)
-        torch.cuda.synchronize()
-        e, e_mean = (got - ref).abs().max().item(), (got - ref).abs().mean().item()
-        e1, e1_mean = (got - k1).abs().max().item(), (got - k1).abs().mean().item()
-        t_k = median_ms(lambda: fused_edge_mlp_windowed(*args, tile_v=EDGE_TILE))
-        t_p = median_ms(lambda: edge_mlp_windowed_plain(*args, tile_v=EDGE_TILE))
-        t_1 = median_ms(lambda: fused_edge_mlp(*args))
-        b = res.add(e, t_k, t_p, *edge_cost(args, nbytes(got), 1))
-        print(f"K5 edge_mlp_windowed B={Bt} V={V} D={D} H={H} tile={EDGE_TILE}: max_abs_err "
-              f"{e:.3g} (tol {K1_TOL}), mean {e_mean:.3g} (tol {K1_MEAN_TOL}); against K1 max "
-              f"{e1:.3g}, mean {e1_mean:.3g}; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
-              f"K1 {t_1:.4f} ms bound {b:.4f} ms")
-        if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL and e1 <= K1_TOL
-                and e1_mean <= K1_MEAN_TOL):
-            raise AssertionError(f"K5 disagrees with its plain version or K1 at H={H}")
+    sums = {}
+    for mesh in (mesh_bt, mesh_b):
+        Bt, V, D = mesh.tpl_nbr.shape
+        for H in EDGE_WIDTHS:
+            args = edge_args(dev, mesh.tpl_nbr, mesh.tpl_mask, H, g)
+            got = fused_edge_mlp_windowed(*args, tile_v=EDGE_TILE)
+            ref = edge_mlp_windowed_plain(*args, tile_v=EDGE_TILE)
+            k1 = fused_edge_mlp(*args)
+            torch.cuda.synchronize()
+            e, e_mean = (got - ref).abs().max().item(), (got - ref).abs().mean().item()
+            e1, e1_mean = (got - k1).abs().max().item(), (got - k1).abs().mean().item()
+            t_k = kernel_ms(lambda: fused_edge_mlp_windowed(*args, tile_v=EDGE_TILE),
+                            DEVICE_NAMES["K5"])
+            t_1 = kernel_ms(lambda: fused_edge_mlp(*args), DEVICE_NAMES["K1"])
+            t_p = call_ms(lambda: edge_mlp_windowed_plain(*args, tile_v=EDGE_TILE))
+            cost = edge_cost(args, nbytes(got), 1)
+            b = res.add(e, t_k, t_p, *cost) if mesh is mesh_bt else bound(*cost)[0]
+            k5, k1s = sums.setdefault(Bt, ([0.0, 0.0], [0.0, 0.0]))
+            k5[0], k5[1], k1s[0], k1s[1] = (k5[0] + t_k[0], k5[1] + t_k[1], k1s[0] + t_1[0],
+                                            k1s[1] + t_1[1])
+            print(f"K5 edge_mlp_windowed B={Bt} V={V} D={D} H={H} tile={EDGE_TILE}: max_abs_err "
+                  f"{e:.3g} (tol {K1_TOL}), mean {e_mean:.3g} (tol {K1_MEAN_TOL}); against K1 max "
+                  f"{e1:.3g}, mean {e1_mean:.3g}; device K5 {t_k[0]:.4f} ms K1 {t_1[0]:.4f} ms "
+                  f"(K5/K1 {t_k[0] / t_1[0]:.3f}); call K5 {t_k[1]:.4f} ms K1 {t_1[1]:.4f} ms; "
+                  f"plain {t_p:.4f} ms; bound {b:.4f} ms")
+            if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL and e1 <= K1_TOL
+                    and e1_mean <= K1_MEAN_TOL):
+                raise AssertionError(f"K5 disagrees with its plain version or K1 at B={Bt} H={H}")
+    for Bt, (k5, k1s) in sums.items():
+        print(f"K5 vs K1 over the five widths at B={Bt}: device {k5[0]:.4f} ms vs {k1s[0]:.4f} ms "
+              f"(K5/K1 {k5[0] / k1s[0]:.3f}); call {k5[1]:.4f} ms vs {k1s[1]:.4f} ms")
     return res
 
 
@@ -276,11 +396,12 @@ def check_k6(dev, mesh):
                     and (frac <= K6_FRAC_TOL or not per_vertex)):
                 raise AssertionError(f"K6 disagrees with its plain version at H={H}: {parts[-1]}")
             worst = max(worst, err.max().item())
-        t_k = median_ms(lambda: fused_edge_mlp_bwd(*args, dout))
-        t_p = median_ms(lambda: edge_mlp_bwd_plain(*args, dout))
+        t_k = kernel_ms(lambda: fused_edge_mlp_bwd(*args, dout), DEVICE_NAMES["K6"])
+        t_p = call_ms(lambda: edge_mlp_bwd_plain(*args, dout))
         b = res.add(worst, t_k, t_p, *edge_cost(args + (dout,), nbytes(*got), 3))
         print(f"K6 edge_mlp_bwd B={Bn} V={V} D={D} H={H} ({int(mask.sum())} valid edges): "
-              + "; ".join(parts) + f"; kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {b:.4f} ms")
+              + "; ".join(parts) + f"; kernel device {t_k[0]:.4f} ms call {t_k[1]:.4f} ms; "
+              f"plain {t_p:.4f} ms; bound {b:.4f} ms")
     return res
 
 
@@ -301,8 +422,9 @@ def _knn_case(dev, res, name, q, c, k, mask, values):
     bad = (idx != ref_idx[..., :k]).any(-1) & decided
     bsel = torch.arange(q.shape[0], device=dev)[:, None, None]
     gather_exact = values is None or torch.equal(out[2], values[bsel, idx])
-    t_k = median_ms(lambda: knn_batched(q, c, k, mask, gather_values=values))
-    t_p = median_ms(lambda: knn_plain(q, c, k, mask, values))
+    t_k = kernel_ms(lambda: knn_batched(q, c, k, mask, gather_values=values),
+                    DEVICE_NAMES["K2"])
+    t_p = call_ms(lambda: knn_plain(q, c, k, mask, values))
     inputs = (q, c, mask) if values is None else (q, c, mask, values)
     flops = 2.0 * q.shape[0] * q.shape[1] * c.shape[1] * q.shape[2]
     b = res.add(e, t_k, t_p, nbytes(*inputs, *out), flops)
@@ -310,8 +432,8 @@ def _knn_case(dev, res, name, q, c, k, mask, values):
     cv = "" if values is None else f" Cv={values.shape[-1]}"
     print(f"{kernel} knn {name} q={tuple(q.shape)} c={tuple(c.shape)} k={k}{cv}: max_abs_err "
           f"{e:.3g} (tol {K2_TOL}), {int(bad.sum())} index rows differ of "
-          f"{int(decided.sum())} decided, gather exact {gather_exact}; "
-          f"kernel {t_k:.4f} ms plain {t_p:.4f} ms bound {b:.4f} ms")
+          f"{int(decided.sum())} decided, gather exact {gather_exact}; kernel device "
+          f"{t_k[0]:.4f} ms call {t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
     if not (e <= K2_TOL and int(bad.sum()) == 0 and gather_exact):
         raise AssertionError(f"{kernel} disagrees with its plain version ({name})")
 
@@ -352,6 +474,14 @@ def check_k4(dev):
     return res
 
 
+_J = 48
+K3_SHAPES = [(B_MESH * T, 1024, 3, 512 * 64), (B_MESH * T, 512, 67, 128 * 64),
+             (B_MESH * T, 128, 131, 32 * 64), (B_MESH * T, 32, 256, 128 * 3),
+             (B_MESH * T, 128, 128, 512 * 3), (B_MESH * T, 512, 64, 1024 * 3),
+             (B_MESH, _J, 4, _J * _J), (B_MESH, _J, 131, _J // 3 * _J),
+             (B_MESH, _J // 3, 256, _J * 3), (B_MESH, _J, 128, _J * 3), (B_MESH, _J, 3, _J * _J)]
+
+
 def check_k3(dev):
     """Every (values, idx) shape of the main path, as (B, N, C, M); must be
     exact.  PointEncoder over the B*T clouds: sa1-3 grouping, fp3-1
@@ -359,27 +489,25 @@ def check_k3(dev):
     joint-set encoder: sa1-2.  Its library call is one advanced-indexing
     gather, values[bsel, idx]."""
     g = torch.Generator(device=dev).manual_seed(3)
-    Bt, J = B_MESH * T, 48
-    shapes = [(Bt, 1024, 3, 512 * 64), (Bt, 512, 67, 128 * 64), (Bt, 128, 131, 32 * 64),
-              (Bt, 32, 256, 128 * 3), (Bt, 128, 128, 512 * 3), (Bt, 512, 64, 1024 * 3),
-              (B_MESH, J, 4, J * J), (B_MESH, J, 131, J // 3 * J),
-              (B_MESH, J // 3, 256, J * 3), (B_MESH, J, 128, J * 3),
-              (B_MESH, J, 3, J * J)]
     res = Timings()
-    for Bn, N, C, M in shapes:
+    for Bn, N, C, M in K3_SHAPES:
         values = torch.randn(Bn, N, C, device=dev, generator=g)
         idx = torch.randint(0, N, (Bn, M), device=dev, generator=g)
         bsel = torch.arange(Bn, device=dev)[:, None]
         got, ref = gather_rows(values, idx), gather_plain(values, idx)
         exact = torch.equal(got, ref)
-        t_k = median_ms(lambda: gather_rows(values, idx))
-        t_p = median_ms(lambda: gather_plain(values, idx))
-        t_l = median_ms(lambda: values[bsel, idx])
+        t_k = kernel_ms(lambda: gather_rows(values, idx), DEVICE_NAMES["K3"])
+        t_l = kernel_ms(lambda: values[bsel, idx])
+        t_p = call_ms(lambda: gather_plain(values, idx))
         b = res.add(0.0, t_k, t_p, nbytes(values, idx, got), 0.0, t_l)
-        print(f"K3 gather values=({Bn},{N},{C}) idx=({Bn},{M}): exact {exact}; "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms library {t_l:.4f} ms bound {b:.4f} ms")
+        print(f"K3 gather values=({Bn},{N},{C}) idx=({Bn},{M}): exact {exact}; device kernel "
+              f"{t_k[0]:.4f} ms library {t_l[0]:.4f} ms; call kernel {t_k[1]:.4f} ms library "
+              f"{t_l[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
         if not exact:
             raise AssertionError(f"K3 is not exact at {(Bn, N, C, M)}")
+    print(f"K3 over the {len(K3_SHAPES)} shapes: device kernel {res.device_ms:.4f} ms library "
+          f"{res.library_device_ms:.4f} ms; call kernel {res.call_ms:.4f} ms library "
+          f"{res.library_ms:.4f} ms")
     return res
 
 
@@ -413,6 +541,11 @@ def check_rigs(rigs, entries):
             assert err <= 1e-3, f"rig {i}: skin rows off 1 by {err}"
 
 
+# Substrings of each kernel's device-op names (K6: its kernel and the
+# partial-sum reduce it launches after it).
+DEVICE_NAMES = {"K1": "edge_mlp_kernel", "K2": "knn_kernel", "K3": "gather_rows_kernel",
+                "K4": "knn_kernel", "K5": "edge_mlp_windowed_kernel",
+                "K6": ("edge_mlp_bwd_kernel", "sum_parts_kernel")}
 COUNTERS = {"K1": fused_edge_mlp, "K2": knn_batched, "K3": gather_rows, "K4": knn_topk,
             "K5": fused_edge_mlp_windowed, "K6": fused_edge_mlp_bwd}
 
@@ -475,8 +608,8 @@ def serve(name: str, pred: RigPredictor, entries, frames, expected: dict, **kw):
 # ---------------------------------------------------------------------------
 
 PROGRAMS = ("flow_joints", "skelnets", "skin_full")
-KERNEL_NAMES = {"K1": "edge_mlp_kernel", "K2": "knn_kernel", "K3": "gather_rows_kernel",
-                "K5": "edge_mlp_windowed_kernel"}
+KERNEL_NAMES = {k: DEVICE_NAMES[k] for k in ("K1", "K2", "K3", "K5")}
+K5_PATH2_MS_BEFORE = 43.5   # K5's device ms per path-2 call before its redesign (PERF.md)
 
 
 def device_events(prof):
@@ -507,6 +640,7 @@ def profile_programs(path: str, pred: RigPredictor, entries, frames, **kw):
     finally:
         for name in PROGRAMS:
             delattr(pred, name)
+    per_call: dict = {}
     for name in PROGRAMS:
         fn, args = getattr(pred, name), captured[name]
         wall = median_ms(lambda: fn(*args))
@@ -522,6 +656,7 @@ def profile_programs(path: str, pred: RigPredictor, entries, frames, **kw):
         for k, sub in KERNEL_NAMES.items():
             n = sum(sub in e.name for e in dev)
             t = sum(v for op, v in by_name.items() if sub in op)
+            per_call[k] = per_call.get(k, 0.0) + t
             ported.append(f"{k} {n} launches {t:.2f} ms")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         idle = f"{1 - busy / wall:.3f}" if dev else "not measured (no device events)"
@@ -529,6 +664,9 @@ def profile_programs(path: str, pred: RigPredictor, entries, frames, **kw):
               f"ops, busy {busy:.2f} ms, idle share {idle}; " + "; ".join(ported))
         print(f"profile {path} {name} top device ops ms: "
               + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
+    print(f"profile {path}: ported kernels' device ms per call: "
+          + ", ".join(f"{k} {t:.3f}" for k, t in per_call.items())
+          + (f" (K5 before its redesign: {K5_PATH2_MS_BEFORE} ms)" if per_call.get("K5") else ""))
 
 
 def profile_geometry(dev, entries, jc):
@@ -720,8 +858,12 @@ def main(profile_phase: bool = False):
     mesh_bt = stack_meshes([e for e in entries for _ in range(T)])
     batch = train_batch()
     results = {"K1": check_k1(dev, mesh_bt), "K2": check_k2(dev), "K3": check_k3(dev),
-               "K4": check_k4(dev), "K5": check_k5(dev, mesh_bt),
+               "K4": check_k4(dev), "K5": check_k5(dev, mesh_bt, stack_meshes(entries)),
                "K6": check_k6(dev, batch.mesh)}
+    st = PROFILER_STATS
+    print(f"profiler: {st['timings']} device timings, {st['retried']} taken again, "
+          f"{st['fell_back']} from events behind a spin; least device-op start - launch "
+          f"{st['least_skew_us']:.1f} us")
 
     pred = RigPredictor.random(0)                   # on the card
     edge = expected_edge_launches(pred)

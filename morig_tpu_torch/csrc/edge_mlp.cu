@@ -19,35 +19,37 @@
 // What bounds it on the H100: per edge row the kernel does 2*H1*H2 FLOPs but
 // reads only one bf16 row of b (2*H1 bytes, mostly from L2: neighbors of a
 // mesh are local), so at H >= 64 it is bounded by the tensor-core product and
-// the shared-memory traffic feeding it, and at H = 16/32 by the gather
-// latency of the b rows.  Design: the (D, H1) and (D, H2) per-edge
-// intermediates never leave shared memory (only (V, H2) is written, as on
-// the TPU); W2 stays in shared memory for a block's whole life (dynamic
-// shared memory, up to 128 KB of bf16 at 256x256), and each block walks many
-// work units (persistent grid) so W2 is fetched once per block, not once
-// per unit.  The neighbor gather is a direct indexed load: no one-hot.
+// the traffic feeding it, and at H = 16/32 by the latency of the b rows.
 //
-// K5's window: at H <= 64 a block stages its unit's 3*TV-row window of b in
-// shared memory with 16-byte loads and gathers from there (48 KB at H=64,
-// TV=128), which moves the gather of the narrow layers from L2 to shared
-// memory at no cost in occupancy.  At H=128 the window (96 KB, 160 KB with W2
-// and the step buffer) would leave one block per SM where K1 runs two, and
-// at H=256 (192 KB) it does not fit beside the step's 64 KB fp32 buffer at
-// all, so streaming W2 in k-slices would not make room; there K5 keeps W2
-// resident, as K1 does, and reads the window's rows from global memory (L2).
-// Measured on the H100 at the paths' shapes, staging at H=128 made K5 1.3x
-// slower than reading from L2.  A work unit is a run of at most four of K1's
-// 64-edge-row steps inside one vertex tile: several blocks share a tile's
-// window, and the units are small enough to balance the persistent grid at
-// B=4 (eight steps per unit left K5 1.2x behind K1 at H=256).  The step code
-// itself is edge_tail.cuh's, which the backward K6 shares.
+// K1's design (edge_tail.cuh, shared with the backward K6): the (D, H1) and
+// (D, H2) per-edge intermediates never leave shared memory (only (V, H2) is
+// written, as on the TPU); W2 stays in shared memory for a block's whole
+// life, each block walks many 64-edge-row steps (persistent grid), and the
+// product is WMMA 16x16x16.  The neighbor gather is a direct indexed load.
+//
+// K5's design (redesigned for Hopper; step code in edge_wgmma.cuh): the TPU
+// kernel's degree-major order.  A work unit is 64 vertices of one vertex
+// tile, run as one 64-row slab per neighbour slot; the product is `wgmma`
+// m64nNk16 with LN1's output built straight into its A registers and W2 (in
+// wgmma's K-major layout, one bulk TMA copy per block) as B, fp32
+// accumulators in registers, LN2 and the masked max applied to them in
+// registers (a row's 4 lanes sum its statistics by shuffles).  Slabs with no
+// valid edge in the unit, and units with none at all (padding), are skipped.
+// At H <= 128 a block stages its tile's whole 3*TV-row window with one bulk
+// copy on an mbarrier (12-96 KB at TV=128) and builds the LN1 rows from
+// shared memory; at H=256 the window (192 KB) does not fit beside W2 (128
+// KB), so the block gathers each live slab's rows with cp.async into a
+// two-stage ring one slab ahead, and its two warpgroups split the 256
+// columns (128 accumulators and 128 running maxima per thread would not fit
+// in registers), exchanging the rows' LN2 partial sums.  K5's LayerNorm sums
+// run in another order than K1's, so the two agree within the tolerance of
+// bf16 rounding, not bit for bit.
 #include "edge_tail.cuh"
+#include "edge_wgmma.cuh"
 
 namespace {
 
 using namespace morig_edge;
-
-constexpr int kStepsPerUnit = 4;  // K5: at most this many steps per work unit
 
 // K1 and K5 lay the step's ys buffer over hs.
 template <int H1, int H2>
@@ -82,47 +84,154 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_kernel(
   }
 }
 
-// K5: the work unit is a run of steps inside one vertex tile of TV rows;
-// with kStaged the block first copies the tile's window into shared memory.
-template <int H1, int H2, bool kStaged>
-__global__ void __launch_bounds__(kThreads) edge_mlp_windowed_kernel(
+// K5 (edge_wgmma.cuh's step code).  Window route (kStream false, H <= 128):
+// a work item is one vertex tile; one bulk copy stages its 3*TV-row window of
+// b in shared memory, and the two warpgroups take the tile's 64-vertex units
+// in turn, each unit's slabs on all H columns, gathering the neighbour rows
+// from the window.  Stream route (kStream true, H = 256, or wherever the
+// window does not fit): a work item is one unit; both warpgroups run its
+// slabs, each on half of the columns, and the block gathers each live slab's
+// neighbour rows into a two-stage shared-memory ring with 16-byte cp.async
+// copies, one slab ahead of the product; each warpgroup builds half of the
+// slab's LN1 fragments and the two trade halves through the slab's stage.  Both routes keep W2 in shared
+// memory for the block's life and walk their items with a persistent grid.
+template <int H, bool kStream>
+__global__ void __launch_bounds__(morig_wg::kThreads, (H <= 64 ? 2 : 1)) edge_mlp_windowed_kernel(
     const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
     const long long* __restrict__ nbr, const unsigned char* __restrict__ mask,
-    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
+    const __nv_bfloat16* __restrict__ w2l, const float* __restrict__ b2,
     const float* __restrict__ g1, const float* __restrict__ be1,
     const float* __restrict__ g2, const float* __restrict__ be2,
-    float* __restrict__ out, int B, int V, int D, int TV, int units_per_tile,
-    int steps_per_unit) {
+    float* __restrict__ out, int B, int V, int D, int TV) {
+  namespace wg = morig_wg;
+  constexpr int NW = kStream ? H / 2 : H;          // columns of one warpgroup
   extern __shared__ __align__(128) unsigned char smem[];
-  Tail<H1, H2> tail = forward_tail<H1, H2>(smem, w2, b2, g1, be1, g2, be2);
-  __nv_bfloat16* win =
-      reinterpret_cast<__nv_bfloat16*>(smem + Tail<H1, H2>::kW2Bytes + Tail<H1, H2>::kStepBytes);
-  const int vpt = kRows / D;
-  const int NB = V / TV;
-  const int steps_per_tile = (TV + vpt - 1) / vpt;
-  const long long total = static_cast<long long>(B) * NB * units_per_tile;
-  for (long long u = blockIdx.x; u < total; u += gridDim.x) {
-    const int bi = static_cast<int>(u / (static_cast<long long>(NB) * units_per_tile));
-    const int rem = static_cast<int>(u % (static_cast<long long>(NB) * units_per_tile));
-    const int i = rem / units_per_tile, p = rem % units_per_tile;
-    const int ws = min(max(i - 1, 0), NB - 3) * TV;
-    const __nv_bfloat16* table = b + static_cast<long long>(bi) * V * H1;
-    const __nv_bfloat16* rows = table;
-    int row0 = 0;
-    if (kStaged) {
-      __syncthreads();   // the previous unit's steps are done reading win
-      const uint4* src = reinterpret_cast<const uint4*>(table + static_cast<long long>(ws) * H1);
-      uint4* dst = reinterpret_cast<uint4*>(win);
-      const int n16 = 3 * TV * H1 * static_cast<int>(sizeof(__nv_bfloat16)) / 16;
-      for (int k = threadIdx.x; k < n16; k += kThreads) dst[k] = src[k];
-      rows = win;
-      row0 = ws;
+  const int NB = V / TV, wlen = 3 * TV, units = (TV + wg::kUnit - 1) / wg::kUnit;
+  const int tid = threadIdx.x, g = tid / wg::kWgThreads, lane = tid % 32;
+  const int q = lane % 4, r = 16 * ((tid % wg::kWgThreads) / 32) + lane / 4;
+  // shared memory: W2 | window (or the two-stage ring) | vectors | codes | exchange | live words |
+  // barriers
+  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* rows = w2s + H * H;
+  const int row_slots = kStream ? 2 * wg::kUnit : wlen;
+  float* vecs = reinterpret_cast<float*>(rows + row_slots * H);
+  int* codes = reinterpret_cast<int*>(vecs + 5 * H);                 // [2][D * 64]
+  float2* red = reinterpret_cast<float2*>(codes + 2 * D * wg::kUnit);  // [2][64]
+  uint32_t* livew = reinterpret_cast<uint32_t*>(red + 2 * wg::kUnit);  // [8]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(livew + 8);            // W2, window
+  const wg::Vecs<H> vec{vecs};
+  if (tid == 0) {
+    wg::mbar_init(&bars[0]);
+    wg::mbar_init(&bars[1]);
+    wg::mbar_init_fence();
+  }
+  wg::stage_vecs<H>(vecs, g1, be1, b2, g2, be2);
+  __syncthreads();
+  if (tid == 0) wg::bulk_load(w2s, w2l, H * H * sizeof(__nv_bfloat16), &bars[0]);
+  const int n0 = kStream ? g * NW : 0;
+
+  if constexpr (!kStream) {
+    uint32_t phase = 0;
+    int* cw = codes + g * D * wg::kUnit;
+    for (long long t = blockIdx.x; t < static_cast<long long>(B) * NB; t += gridDim.x, phase ^= 1) {
+      const int bi = static_cast<int>(t / NB), i = static_cast<int>(t % NB);
+      const int ws = min(max(i - 1, 0), NB - 3) * TV;
+      __syncthreads();   // both warpgroups are done with the last window
+      if (tid == 0)
+        wg::bulk_load(rows, b + (static_cast<long long>(bi) * V + ws) * H,
+                      wlen * H * sizeof(__nv_bfloat16), &bars[1]);
+      for (int u = g; u < units; u += 2) {
+        const int v0 = i * TV + u * wg::kUnit, nv = min(wg::kUnit, (i + 1) * TV - v0);
+        const long long base = static_cast<long long>(bi) * V + v0;
+        wg::wg_barrier(g);   // this warpgroup is done with its last unit's codes
+        wg::unit_codes(cw, livew + 4 * g, wg::kWgThreads, tid % wg::kWgThreads, nbr, mask, base,
+                       nv, D, ws, wlen);
+        wg::wg_barrier(g);
+        const uint32_t live = livew[4 * g] | livew[4 * g + 1] | livew[4 * g + 2] | livew[4 * g + 3];
+        wg::mbar_wait(&bars[0], 0);
+        wg::mbar_wait(&bars[1], phase);
+        float acc[NW / 2], best[NW / 2];
+#pragma unroll
+        for (int k = 0; k < NW / 2; ++k) {
+          acc[k] = 0.f;
+          best[k] = wg::kNeg;
+        }
+        bool any_lo = false, any_hi = false;
+        const __nv_bfloat16* a_lo = a + (base + r) * H;
+        const __nv_bfloat16* a_hi = a_lo + 8 * H;
+        for (int d = 0; d < D; ++d) {
+          if (!(live >> d & 1u)) continue;
+          const int c_lo = cw[d * wg::kUnit + r], c_hi = cw[d * wg::kUnit + r + 8];
+          const bool ok_lo = c_lo != wg::kInvalid, ok_hi = c_hi != wg::kInvalid;
+          any_lo |= ok_lo;
+          any_hi |= ok_hi;
+          wg::slab<H, NW, false>(a_lo, c_lo >= 0 ? rows + c_lo * H : nullptr, ok_lo, a_hi,
+                                 c_hi >= 0 ? rows + c_hi * H : nullptr, ok_hi, w2s, vec, n0, q, r,
+                                 g, red, nullptr, acc, best);
+        }
+        wg::store_rows<NW>(r < nv ? out + (base + r) * H : nullptr, any_lo,
+                           r + 8 < nv ? out + (base + r + 8) * H : nullptr, any_hi, best, n0, q);
+      }
     }
-    const int s_end = min((p + 1) * steps_per_unit, steps_per_tile);
-    for (int s = p * steps_per_unit; s < s_end; ++s) {
-      const int v0 = i * TV + s * vpt;
-      tail.step(bi, v0, min(vpt, (i + 1) * TV - v0), V, D, a, rows, ws, ws + 3 * TV, row0,
-                nbr, mask, out);
+  } else {
+    const long long total = static_cast<long long>(B) * NB * units;
+    for (long long t = blockIdx.x; t < total; t += gridDim.x) {
+      const int bi = static_cast<int>(t / (static_cast<long long>(NB) * units));
+      const int rem = static_cast<int>(t % (static_cast<long long>(NB) * units));
+      const int i = rem / units, u = rem % units;
+      const int ws = min(max(i - 1, 0), NB - 3) * TV;
+      const int v0 = i * TV + u * wg::kUnit, nv = min(wg::kUnit, (i + 1) * TV - v0);
+      const long long base = static_cast<long long>(bi) * V + v0;
+      const __nv_bfloat16* window = b + (static_cast<long long>(bi) * V + ws) * H;
+      __syncthreads();   // the last unit is done with the codes and the ring
+      wg::unit_codes(codes, livew, wg::kThreads, tid, nbr, mask, base, nv, D, ws, wlen);
+      __syncthreads();
+      uint32_t live = 0;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) live |= livew[w];
+      // gather slab d's neighbour rows into ring stage s (16 bytes a copy)
+      auto fetch = [&](int d, int s) {
+        __nv_bfloat16* dst = rows + s * wg::kUnit * H;
+        for (int e = tid; e < wg::kUnit * (H / 8); e += wg::kThreads) {
+          const int rr = e / (H / 8), ch = e % (H / 8);
+          const int code = codes[d * wg::kUnit + rr];
+          if (code >= 0) wg::cp_async16(dst + rr * H + ch * 8, window + code * H + ch * 8);
+        }
+        wg::cp_async_commit();
+      };
+      auto next_live = [&](int d) {
+        const uint32_t rest = d + 1 < 32 ? live & ~((2u << d) - 1u) : 0u;
+        return rest ? __ffs(rest) - 1 : D;
+      };
+      int d = live ? __ffs(live) - 1 : D;
+      if (d < D) fetch(d, 0);
+      wg::mbar_wait(&bars[0], 0);
+      float acc[NW / 2], best[NW / 2];
+#pragma unroll
+      for (int k = 0; k < NW / 2; ++k) {
+        acc[k] = 0.f;
+        best[k] = wg::kNeg;
+      }
+      bool any_lo = false, any_hi = false;
+      const __nv_bfloat16* a_lo = a + (base + r) * H;
+      const __nv_bfloat16* a_hi = a_lo + 8 * H;
+      for (int s = 0; d < D; ++s) {
+        wg::cp_async_wait_all();
+        __syncthreads();   // slab d has landed; everyone is done with stage s + 1's last slab
+        const int dn = next_live(d);
+        if (dn < D) fetch(dn, (s + 1) & 1);
+        __nv_bfloat16* st = rows + (s & 1) * wg::kUnit * H;
+        const int c_lo = codes[d * wg::kUnit + r], c_hi = codes[d * wg::kUnit + r + 8];
+        const bool ok_lo = c_lo != wg::kInvalid, ok_hi = c_hi != wg::kInvalid;
+        any_lo |= ok_lo;
+        any_hi |= ok_hi;
+        wg::slab<H, NW, true>(a_lo, c_lo >= 0 ? st + r * H : nullptr, ok_lo, a_hi,
+                              c_hi >= 0 ? st + (r + 8) * H : nullptr, ok_hi, w2s, vec, n0, q, r, g,
+                              red, reinterpret_cast<uint4*>(st), acc, best);
+        d = dn;
+      }
+      wg::store_rows<NW>(r < nv ? out + (base + r) * H : nullptr, any_lo,
+                         r + 8 < nv ? out + (base + r + 8) * H : nullptr, any_hi, best, n0, q);
     }
   }
 }
@@ -152,41 +261,47 @@ cudaError_t launch(const void* a, const void* b, const void* nbr, const void* ma
   return cudaGetLastError();
 }
 
-template <int H, bool kStaged>
+// Shared-memory bytes of K5's routes (the kernel's carve order).
+template <int H>
+size_t windowed_smem(bool stream, int D, int TV) {
+  const size_t row_slots = stream ? 2 * morig_wg::kUnit : 3 * static_cast<size_t>(TV);
+  return (static_cast<size_t>(H) * H + row_slots * H) * sizeof(__nv_bfloat16) +
+         5 * H * sizeof(float) + 2 * static_cast<size_t>(D) * morig_wg::kUnit * sizeof(int) +
+         2 * morig_wg::kUnit * sizeof(float2) + 8 * sizeof(uint32_t) + 2 * sizeof(uint64_t);
+}
+
+template <int H, bool kStream>
 cudaError_t launch_windowed(const void* a, const void* b, const void* nbr, const void* mask,
                             const void* w2, const void* b2, const void* g1, const void* be1,
                             const void* g2, const void* be2, void* out, int B, int V, int D,
-                            int TV, size_t smem, cudaStream_t stream) {
-  auto kern = edge_mlp_windowed_kernel<H, H, kStaged>;
-  const int vpt = kRows / D;
-  const int steps_per_tile = (TV + vpt - 1) / vpt;
-  const int units_per_tile = (steps_per_tile + kStepsPerUnit - 1) / kStepsPerUnit;
-  const int steps_per_unit = (steps_per_tile + units_per_tile - 1) / units_per_tile;
+                            int TV, cudaStream_t stream) {
+  auto kern = edge_mlp_windowed_kernel<H, kStream>;
+  const size_t smem = windowed_smem<H>(kStream, D, TV);
+  const long long tiles = static_cast<long long>(B) * (V / TV);
+  const long long items = kStream ? tiles * ((TV + morig_wg::kUnit - 1) / morig_wg::kUnit) : tiles;
   static GridCache cache;
   int grid = 0;
-  const cudaError_t err = persistent_grid(
-      kern, smem, static_cast<long long>(B) * (V / TV) * units_per_tile, cache, &grid);
+  const cudaError_t err = persistent_grid(kern, smem, items, cache, &grid);
   if (err != cudaSuccess) return err;
   if (grid == 0) return cudaSuccess;
-  kern<<<grid, kThreads, smem, stream>>>(MORIG_EDGE_ARGS, B, V, D, TV, units_per_tile,
-                                         steps_per_unit);
+  kern<<<grid, morig_wg::kThreads, smem, stream>>>(MORIG_EDGE_ARGS, B, V, D, TV);
   return cudaGetLastError();
 }
 
-// The window is staged in shared memory at H <= 64 (where it fits beside W2
-// and the step buffer); at H >= 128 its rows are read from global memory.
+// The window route where the window fits beside W2 (H <= 128), else the
+// stream route.
 template <int H>
 cudaError_t launch_windowed_h(const void* a, const void* b, const void* nbr, const void* mask,
                               const void* w2, const void* b2, const void* g1, const void* be1,
                               const void* g2, const void* be2, void* out, int B, int V, int D,
                               int TV, cudaStream_t stream) {
-  const size_t base = Tail<H, H>::kW2Bytes + Tail<H, H>::kStepBytes;
-  const size_t staged = base + static_cast<size_t>(3) * TV * H * sizeof(__nv_bfloat16);
-  if (H <= 64 && staged <= static_cast<size_t>(kMaxSmem))
-    return launch_windowed<H, true>(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D,
-                                    TV, staged, stream);
-  return launch_windowed<H, false>(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D, TV,
-                                   base, stream);
+  if constexpr (H <= 128) {
+    if (windowed_smem<H>(false, D, TV) <= static_cast<size_t>(kMaxSmem))
+      return launch_windowed<H, false>(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D,
+                                       TV, stream);
+  }
+  return launch_windowed<H, true>(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D, TV,
+                                  stream);
 }
 
 #undef MORIG_EDGE_ARGS
@@ -214,8 +329,9 @@ extern "C" int edge_mlp_forward(const void* a, const void* b, const void* nbr,
   }
 }
 
-// K5: the same arguments plus the vertex tile TV; requires also V % TV == 0,
-// V / TV >= 3 and TV % 8 == 0.
+// K5: the same arguments plus the vertex tile TV, but w2 in wgmma's layout
+// (kernels/edge_fused.py `wgmma_w2_layout`); a and b 16-byte aligned.
+// Requires also V % TV == 0, V / TV >= 3 and TV % 8 == 0.
 extern "C" int edge_mlp_windowed_forward(const void* a, const void* b, const void* nbr,
                                          const void* mask, const void* w2, const void* b2,
                                          const void* g1, const void* be1, const void* g2,

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "knn_topk_gather": [_P] * 7 + [_I] * 6 + [_P],
     # q, c, mask, idx, score, B, N, P, C, k, stream
     "knn_topk": [_P] * 5 + [_I] * 5 + [_P],
-    # values, idx, out, B, N, M, C, stream
-    "gather_rows_forward": [_P] * 3 + [_I] * 4 + [_P],
+    # values, idx, out, B, N, M, C, vec, stream
+    "gather_rows_forward": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -113,6 +113,8 @@ def build(verbose: bool = False) -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -129,5 +131,9 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: torch.device) -> int:
+    """The raw handle of the current stream of the CUDA `device`, on which the
+    kernels launch.  Read without building a Stream object: the wrappers of
+    the short kernels pay for every microsecond of host time."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

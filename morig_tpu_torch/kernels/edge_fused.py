@@ -121,9 +121,10 @@ def edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
     return _edge_tail(a, gathered, mask, w2, b2, g1, be1, g2, be2)
 
 
-def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev=None):
     """Checks what K1, K5 and K6 take; returns the contiguous launch
-    arguments' pointers and the fp32 (B,V,H2) output of the forward."""
+    arguments' pointers and the fp32 (B,V,H2) output of the forward.  w2_dev:
+    W2 as the kernel reads it (default bf16, row-major)."""
     B, V, H1 = a.shape
     D = nbr.shape[-1]
     H2 = w2.shape[1]
@@ -138,8 +139,9 @@ def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
     if nbr.dtype != torch.int64 or mask.dtype != torch.bool:
         raise TypeError("edge_mlp kernel takes int64 nbr and bool mask")
     vecs = [v.float().contiguous() for v in (b2, g1, be1, g2, be2)]
-    args = [a.contiguous(), b.contiguous(), nbr.contiguous(), mask.contiguous(),
-            w2.to(torch.bfloat16).contiguous(), *vecs]
+    if w2_dev is None:
+        w2_dev = w2.to(torch.bfloat16).contiguous()
+    args = [a.contiguous(), b.contiguous(), nbr.contiguous(), mask.contiguous(), w2_dev, *vecs]
     for t in args:
         if t.device != a.device:
             raise ValueError("edge_mlp kernel: all tensors must be on one device")
@@ -154,7 +156,7 @@ def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
     ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
     err = kb.library().edge_mlp_forward(*ptrs, out.data_ptr(), B, V, D, a.shape[2],
-                                        w2.shape[1], kb.stream())
+                                        w2.shape[1], kb.stream(a.device))
     kb.check(err, "edge_mlp_forward")
     fused_edge_mlp.launches += 1
     return out
@@ -163,17 +165,53 @@ def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
 fused_edge_mlp.launches = 0
 
 
+def wgmma_k_order(h: int) -> np.ndarray:
+    """K5's k order (csrc/edge_wgmma.cuh): entry k is the W2 row (LN1
+    column) at the product's physical k.  Lane q of a quad holds LN1 columns
+    in pieces of P = 8 (4 at h=16), piece p being columns (4p + q) P ..
+    (4p + q) P + P - 1, which fill k-chunks p P/4 ..; wgmma takes k = 16c +
+    2q + {0, 1, 8, 9} of k-chunk c from that lane, so column (4 (c // (P/4))
+    + q) P + 4 (c % (P/4)) + j sits at k = 16c + 2q + (j % 2) + 8 (j // 2)."""
+    k = np.arange(h)
+    c, p16 = k // 16, k % 16
+    q, j = (p16 % 8) // 2, p16 % 2 + 2 * (p16 // 8)
+    P = min(h // 4, 8)
+    per = P // 4
+    return (4 * (c // per) + q) * P + 4 * (c % per) + j
+
+
+_W2_INDEX: dict = {}
+
+
+def wgmma_w2_layout(w2: torch.Tensor) -> torch.Tensor:
+    """W2 (H1, H2) as K5 stages it in shared memory: bf16, rows in
+    `wgmma_k_order`, in wgmma's interleaved K-major layout — core matrices
+    of 8 output columns x 8 k, 128 contiguous bytes each (k fastest), H2/8
+    of them per group of 8 k, the groups in k order.  One gather and one
+    cast on the device."""
+    H1, H2 = w2.shape
+    key = (H1, H2, w2.device)
+    if key not in _W2_INDEX:
+        rows = wgmma_k_order(H1).reshape(H1 // 8, 1, 1, 8)          # (kg, -, -, kin)
+        cols = np.arange(H2).reshape(1, H2 // 8, 8, 1)              # (-, ng, nin, -)
+        _W2_INDEX[key] = torch.as_tensor((rows * H2 + cols).reshape(-1), device=w2.device)
+    return w2.reshape(-1)[_W2_INDEX[key]].to(torch.bfloat16)
+
+
 def fused_edge_mlp_windowed(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: int = 128):
     """K5.  Same arguments and result as `edge_mlp_windowed_plain`."""
     if not a.is_cuda:
         return edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v)
     _check_windowed_shape(a.shape[1], tile_v)
-    if b.data_ptr() % 16:                   # the window is staged in 16-byte loads
-        b = b.clone()
-    ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    if tile_v % 8:
+        raise ValueError(f"windowed edge kernel needs tile % 8 == 0, got {tile_v}")
+    # the kernel reads a and b in 16-byte pieces and bulk copies
+    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
+    w2_dev = wgmma_w2_layout(w2) if w2.shape[0] == w2.shape[1] in WIDTHS else None
+    ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev)
     B, V, D = nbr.shape
     err = kb.library().edge_mlp_windowed_forward(*ptrs, out.data_ptr(), B, V, D, a.shape[2],
-                                                 w2.shape[1], tile_v, kb.stream())
+                                                 w2.shape[1], tile_v, kb.stream(a.device))
     kb.check(err, "edge_mlp_windowed_forward")
     fused_edge_mlp_windowed.launches += 1
     return out
@@ -248,7 +286,7 @@ def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
     vec_part = torch.empty((grid.value, vec.numel()), **f32)
     outs = [dout, da, db, dw2, vec, dw2_part, vec_part]
     err = lib.edge_mlp_backward(*ptrs, *(t.data_ptr() for t in outs), B, V, D, H1, H2,
-                                grid.value, kb.stream())
+                                grid.value, kb.stream(a.device))
     kb.check(err, "edge_mlp_backward")
     fused_edge_mlp_bwd.launches += 1
     dg1, dbe1, db2, dg2, dbe2 = torch.split(vec, [H1, H1, H2, H2, H2])

@@ -12,6 +12,7 @@ import torch
 from morig_tpu_torch.kernels import build as kb
 
 DTYPES = (torch.float32, torch.int32)
+INDEX_LIMIT = 2 ** 31         # the kernel's offsets are 32-bit
 
 
 def gather_plain(values, idx):
@@ -31,25 +32,33 @@ def scatter_rows(idx, rows, n: int):
 
 
 def gather_rows(values, idx):
-    """K3.  Same arguments and result as `gather_plain`."""
+    """K3.  Same arguments and result as `gather_plain`.  Rows whose width is
+    a multiple of 4 and whose base is 16-byte aligned take the kernel's
+    16-byte route, others its 4-byte route; an empty `idx` launches nothing."""
     if not values.is_cuda:
         return gather_plain(values, idx)
     if values.dtype not in DTYPES:
         raise TypeError(f"gather kernel takes {DTYPES}, got {values.dtype}")
     if idx.dtype != torch.int64:
         raise TypeError("gather kernel takes int64 indices")
-    if idx.device != values.device or idx.shape[0] != values.shape[0]:
+    dev = values.device
+    if idx.device != dev or idx.shape[0] != values.shape[0]:
         raise ValueError("gather kernel: idx and values must share device and batch")
     B, N, C = values.shape
-    lead = idx.shape
-    idx2 = idx.reshape(B, -1).contiguous()
-    vals = values.contiguous()
-    out = torch.empty((B, idx2.shape[1], C), dtype=values.dtype, device=values.device)
-    err = kb.library().gather_rows_forward(vals.data_ptr(), idx2.data_ptr(), out.data_ptr(),
-                                           B, N, idx2.shape[1], C, kb.stream())
+    M = idx.numel() // B if B else 0
+    if max(B * N * C, B * M * C) >= INDEX_LIMIT:
+        raise ValueError(f"gather kernel takes fewer than 2^31 elements, got values "
+                         f"{tuple(values.shape)} and {B * M} indices")
+    out = torch.empty(idx.shape + (C,), dtype=values.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    vals, idx = values.contiguous(), idx.contiguous()
+    vec = int(C % 4 == 0 and vals.data_ptr() % 16 == 0)
+    err = kb.library().gather_rows_forward(vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                           B, N, M, C, vec, kb.stream(dev))
     kb.check(err, "gather_rows_forward")
     gather_rows.launches += 1
-    return out.reshape(lead + (C,))
+    return out
 
 
 gather_rows.launches = 0

@@ -85,7 +85,8 @@ def knn_topk(query, cand, k: int, cand_mask):
     (q, c, m), idx, score = _outputs(query, cand, k, cand_mask)
     B, N, C = query.shape
     err = kb.library().knn_topk(q.data_ptr(), c.data_ptr(), m.data_ptr(), idx.data_ptr(),
-                                score.data_ptr(), B, N, cand.shape[1], C, k, kb.stream())
+                                score.data_ptr(), B, N, cand.shape[1], C, k,
+                                kb.stream(query.device))
     kb.check(err, "knn_topk")
     knn_topk.launches += 1
     return idx, score
@@ -131,7 +132,8 @@ def _knn_gather(query, cand, k: int, cand_mask, values):
     gathered = torch.empty((B, N, k, Cv), dtype=torch.float32, device=query.device)
     err = kb.library().knn_topk_gather(
         q.data_ptr(), c.data_ptr(), m.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        score.data_ptr(), gathered.data_ptr(), B, N, cand.shape[1], C, Cv, k, kb.stream())
+        score.data_ptr(), gathered.data_ptr(), B, N, cand.shape[1], C, Cv, k,
+        kb.stream(query.device))
     kb.check(err, "knn_topk_gather")
     knn_batched.launches += 1
     return idx, score, gathered

@@ -11,9 +11,11 @@ conftest:
 Small shapes with the edge cases the main path can produce: rows with no
 valid edge, ragged vertex tiles, duplicate and masked kNN candidates, rows
 with fewer valid candidates than k, and for the windowed edge kernel K5
-neighbours outside their window (a zero row) at every width, in both of its
-modes (window staged in shared memory at H <= 64, read from global memory
-at H >= 128), and for the edge backward K6 exact ties in the max (a
+neighbours outside their window (a zero row), a tile of padding and a unit
+with dead upper slabs at every width, in both of its routes (window staged
+in shared memory at H <= 128, rows gathered per slab at H = 256), the row
+gather K3 at every row class and the main path's shapes, and for the edge
+backward K6 exact ties in the max (a
 duplicated neighbour column) and rows with no valid edge.  Shapes and types
 a kernel does not take raise on a CUDA tensor instead of falling back.
 """
@@ -219,24 +221,33 @@ def test_corr_pose_step_on_card_matches_cpu(cuda):
     assert (flat - flat_ref).norm() <= GRAD_TOTAL * flat_ref.norm()
 
 
-def _windowed_args(dev, H, D, TV, V, seed):
+def _windowed_args(dev, H, D, TV, V, seed, B=2):
     """_edge_args with tables local to each vertex tile's window, except for
     a few valid neighbours that leave it."""
-    a, b, _, mask, *rest = _edge_args(dev, H, V=V, D=D, seed=seed)
+    a, b, _, mask, *rest = _edge_args(dev, H, B=B, V=V, D=D, seed=seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     v = torch.arange(V, device=dev)
     ws = ((v // TV - 1).clamp(0, V // TV - 3) * TV)[None, :, None]
-    nbr = ws + torch.randint(0, 3 * TV, (2, V, D), device=dev, generator=g)
+    nbr = ws + torch.randint(0, 3 * TV, (B, V, D), device=dev, generator=g)
     nbr[0, :TV, 1] = V - 1                      # outside tile 0's window
     mask[0, 8:TV, 1] = True                     # (row 7 keeps no valid edge)
     return a, b, nbr, mask, *rest
 
 
+@pytest.mark.parametrize("B", [4, 20])
 @pytest.mark.parametrize("D", [12, 16])
 @pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
-def test_edge_mlp_windowed_kernel_matches_plain(cuda, H, D):
-    TV, V = 128, 640
-    args = _windowed_args(cuda, H, D, TV, V, seed=H + D)
+def test_edge_mlp_windowed_kernel_matches_plain(cuda, H, D, B):
+    """K5 at the paths' tile and size (TV=128, V=1536, B=4 and B*T=20), with
+    neighbours that leave their window (batch row 0), vertices with no valid
+    edge, a last tile of padding (as the capsule's 238 padded rows) and a
+    64-vertex unit whose slots from d=3 on are all masked: against its plain
+    version, and against K1 where every neighbour is in its window."""
+    TV, V = 128, 1536
+    args = _windowed_args(cuda, H, D, TV, V, seed=H + D + B, B=B)
+    mask = args[3]
+    mask[:, -TV:] = False                       # a tile of padding
+    mask[:, 3 * TV:3 * TV + 64, 3:] = False     # a unit with dead upper slabs
     before = (ef.fused_edge_mlp_windowed.launches, ef.fused_edge_mlp.launches)
     got = ef.fused_edge_mlp_windowed(*args, tile_v=TV)
     ref = ef.edge_mlp_windowed_plain(*args, tile_v=TV)
@@ -245,10 +256,13 @@ def test_edge_mlp_windowed_kernel_matches_plain(cuda, H, D):
         before[0] + 1, before[1])
     err = (got - ref).abs()
     assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
-    assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
-    # where every neighbour is in its window K5 equals K1's plain version
+    assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all() and (got[:, -TV:] == 0).all()
+    # where every neighbour is in its window K5 computes K1's function
+    k1 = ef.fused_edge_mlp(*args)
     full = ef.edge_mlp_plain(*args)
-    assert ((got - full).abs()[1].max().item() <= K1_TOL
+    e1 = (got - k1).abs()[1:]
+    assert e1.max().item() <= K1_TOL and e1.mean().item() <= K1_MEAN_TOL
+    assert ((got - full).abs()[1:].max().item() <= K1_TOL
             and not torch.allclose(got[0, :TV], full[0, :TV]))
 
 
@@ -312,8 +326,10 @@ def test_knn_without_values_kernel_matches_plain(cuda, k):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-@pytest.mark.parametrize("C", [1, 3, 67, 256])
+@pytest.mark.parametrize("C", [1, 3, 4, 64, 67, 128, 131, 256])
 def test_gather_kernel_is_exact(cuda, C, dtype):
+    """Each row class: one thread per row (1, 3), 16-byte vectors (4, 64,
+    128, 256), a warp per row of 4-byte elements (67, 131)."""
     g = torch.Generator(device=cuda).manual_seed(C)
     values = (torch.randn(3, 97, C, device=cuda, generator=g) * 1e3).to(dtype)
     idx = torch.randint(0, 97, (3, 41, 7), device=cuda, generator=g)
@@ -321,6 +337,37 @@ def test_gather_kernel_is_exact(cuda, C, dtype):
     got = gf.gather_rows(values, idx)
     assert gf.gather_rows.launches == before + 1
     assert torch.equal(got, gf.gather_plain(values, idx))
+
+
+# chip_smoke.py check_k3's (B, N, C, M): the main path's K3 shapes
+K3_PATH_SHAPES = [(20, 1024, 3, 512 * 64), (20, 512, 67, 128 * 64), (20, 128, 131, 32 * 64),
+                  (20, 32, 256, 128 * 3), (20, 128, 128, 512 * 3), (20, 512, 64, 1024 * 3),
+                  (4, 48, 4, 48 * 48), (4, 48, 131, 16 * 48), (4, 16, 256, 48 * 3),
+                  (4, 48, 128, 48 * 3), (4, 48, 3, 48 * 48)]
+
+
+@pytest.mark.parametrize("shape", K3_PATH_SHAPES)
+def test_gather_kernel_is_exact_at_path_shapes(cuda, shape):
+    Bn, N, C, M = shape
+    g = torch.Generator(device=cuda).manual_seed(M)
+    values = torch.randn(Bn, N, C, device=cuda, generator=g)
+    idx = torch.randint(0, N, (Bn, M), device=cuda, generator=g)
+    assert torch.equal(gf.gather_rows(values, idx), gf.gather_plain(values, idx))
+
+
+def test_gather_kernel_scalar_route_and_empty(cuda):
+    """A values view 4 bytes past a 16-byte boundary takes the 4-byte route
+    even at a width of 64; an empty idx launches nothing."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    flat = torch.randn(3 * 97 * 64 + 1, device=cuda, generator=g)
+    values = flat[1:].view(3, 97, 64)
+    assert values.data_ptr() % 16 == 4
+    idx = torch.randint(0, 97, (3, 50), device=cuda, generator=g)
+    assert torch.equal(gf.gather_rows(values, idx), gf.gather_plain(values, idx))
+    before = gf.gather_rows.launches
+    empty = torch.zeros(3, 0, dtype=torch.int64, device=cuda)
+    got = gf.gather_rows(values, empty)
+    assert got.shape == (3, 0, 64) and gf.gather_rows.launches == before
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -343,6 +390,14 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         kf.knn_batched(q[..., :48], c[..., :48], 3, kmask, gather_values=values)
     with pytest.raises(TypeError):
         gf.gather_rows(values.double(), torch.zeros(3, 4, dtype=torch.int64, device=cuda))
+    # K3's offsets are 32-bit: 2^31 elements of values or of the result
+    one = torch.zeros(1, 1, 1, device=cuda)
+    with pytest.raises(ValueError, match="2\\^31"):
+        gf.gather_rows(one.expand(1, 2 ** 16, 2 ** 15), torch.zeros(1, 4, dtype=torch.int64,
+                                                                     device=cuda))
+    with pytest.raises(ValueError, match="2\\^31"):
+        gf.gather_rows(one.expand(1, 4, 2 ** 5),
+                       torch.zeros(1, 1, dtype=torch.int64, device=cuda).expand(1, 2 ** 26))
     with pytest.raises(ValueError, match="V // tile >= 3"):
         ef.fused_edge_mlp_windowed(*_edge_args(cuda, 32, V=256), tile_v=128)
     with pytest.raises(ValueError, match="k <= 8"):

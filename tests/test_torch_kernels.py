@@ -85,18 +85,25 @@ def _local_nbr(rng, Vw, TV, leave: bool):
     return nbr
 
 
-@pytest.mark.parametrize("H,Vw,leave", [(16, 48, False), (64, 64, True)])
-def test_edge_mlp_windowed_matches_pallas_interpret(H, Vw, leave):
+@pytest.mark.parametrize("H,Vw,leave,padded", [(16, 48, False, False), (64, 64, True, False),
+                                               (32, 64, False, True)])
+def test_edge_mlp_windowed_matches_pallas_interpret(H, Vw, leave, padded):
     """K5 plain vs the windowed Pallas kernel (interpret) at TV=16 and V=48
     (three tiles: every window is the whole table, so K5 equals K1) or V=64,
     where with `leave` some neighbours lie outside their window and read a
-    zero row on both sides.  Tolerances as for K1."""
+    zero row on both sides.  With `padded` (D=12, as every case) the last
+    tile is all padding (no valid edge) and a vertex's valid slots stop at
+    d=2, the shapes the kernel's dead-slab and dead-unit skips meet.
+    Tolerances as for K1."""
     rng = np.random.default_rng(H)
     TV = 16
     a, b, _, mask, w2, vecs = _edge_inputs(H, seed=H + 1)
     a, b, mask = a[:, :Vw], b[:, :Vw], mask[:, :Vw]
     nbr = _local_nbr(rng, Vw, TV, leave)
     mask[0, :TV, 3] = mask[1, -TV:, 4] = True
+    if padded:
+        mask[:, -TV:] = False
+        mask[0, 20] = np.arange(D) < 3
     t = torch.as_tensor
     args = (t(a).to(torch.bfloat16), t(b).to(torch.bfloat16), t(nbr).long(), t(mask), t(w2),
             *map(t, vecs))
@@ -113,6 +120,46 @@ def test_edge_mlp_windowed_matches_pallas_interpret(H, Vw, leave):
         assert not torch.equal(got[0, :TV], full[0, :TV])
     else:
         assert torch.equal(got, full)
+    if padded:
+        assert (got[:, -TV:] == 0).all() and (got[0, 20] != 0).any()
+
+
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_wgmma_w2_layout_matches_fragment_order(H):
+    """K5's product on the card, written out on the CPU: each thread's A
+    registers hold its quad lane's LN1 columns, in pieces of P = 8 (4 at
+    H=16) interleaved across the quad, at wgmma's k positions
+    (csrc/wgmma.cuh, csrc/edge_wgmma.cuh), and the B operand is
+    read from `wgmma_w2_layout`'s bytes through the descriptor's strides
+    (16 H bytes between the two 8-k groups of a chunk, 128 between 8-column
+    core matrices, 32 H per 16-k chunk, 16 per output column of the start).
+    The sum over physical k must be h @ W2 for both column halves."""
+    rng = np.random.default_rng(H)
+    h = rng.standard_normal((64, H)).astype(np.float32)
+    w2 = rng.standard_normal((H, H)).astype(np.float32)
+    lay = tef.wgmma_w2_layout(torch.as_tensor(w2)).float().numpy()       # flat bf16
+    P = min(H // 4, 8)
+    a_phys = np.full((64, H), np.nan, np.float32)
+    for w in range(4):
+        for lane in range(32):
+            q, r = lane % 4, 16 * w + lane // 4
+            for p in range(H // 4 // P):              # lane q's pieces of each row
+                for e in range(P):
+                    c, j = p * (P // 4) + e // 4, e % 4
+                    k = 16 * c + 2 * q + j % 2 + 8 * (j // 2)
+                    for row in (r, r + 8):
+                        a_phys[row, k] = h[row, (4 * p + q) * P + e]
+    assert not np.isnan(a_phys).any()
+    for n0, nw in ((0, H), (0, H // 2), (H // 2, H // 2)):
+        b_phys = np.empty((H, nw), np.float32)
+        for k in range(H):
+            c, kk, kin = k // 16, (k % 16) // 8, k % 8
+            for n in range(nw):
+                byte = c * 32 * H + n0 * 16 + kk * 16 * H + (n // 8) * 128 + (n % 8) * 16 + kin * 2
+                b_phys[k, n] = lay[byte // 2]
+        w2_16 = torch.as_tensor(w2).to(torch.bfloat16).float().numpy()
+        np.testing.assert_allclose(a_phys @ b_phys, h @ w2_16[:, n0:n0 + nw], rtol=1e-5,
+                                   atol=1e-4)
 
 
 def test_edge_wrapper_on_cpu_is_the_plain_version():
@@ -188,10 +235,12 @@ def test_knn_all_masked_returns_slot_zero():
     assert torch.equal(gathered, t(values)[:, :1, None, :].expand_as(gathered))
 
 
-@pytest.mark.parametrize("C", [3, 67])
+@pytest.mark.parametrize("C", [3, 4, 64, 67])
 def test_gather_rows_matches_pallas_interpret(C):
-    """K3 plain vs the Pallas one-hot gather (interpret): the port is exact,
-    the TPU kernel ~2^-17 relative (hi/lo bf16 halves), so 2e-5 relative."""
+    """K3 plain vs the Pallas one-hot gather (interpret), one width of each
+    of the kernel's row classes (3: a thread per row; 4 and 64: 16-byte
+    vectors; 67: a warp per row of 4-byte elements): the port is exact, the
+    TPU kernel ~2^-17 relative (hi/lo bf16 halves), so 2e-5 relative."""
     rng = np.random.default_rng(C)
     values = (rng.standard_normal((B, 128, C)) * 10).astype(np.float32)
     idx = rng.integers(0, 128, (B, 32, 16)).astype(np.int64)
