@@ -7,11 +7,14 @@ Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
   2. build   — compiles the kernels from csrc/ with nvcc (sm_90a), one
                process per source, all started together;
-  3. kernels — each of K1 (edge MLP), K2 (kNN + gather), K3 (row gather),
-               K4 (kNN), K5 (windowed edge MLP) and K6 (edge MLP backward)
-               against its plain PyTorch version on the card, at the shapes
-               the paths give it (K5 also against K1, at B*T=20 and B=4; K6
-               at the training path's tables, with exact ties), with
+  3. kernels — each of K1 (edge MLP, serving), K1-train (K1's training
+               twin, the trainable tail's forward), K2 (kNN + gather), K3
+               (row gather), K4 (kNN), K5 (windowed edge MLP) and K6 (edge
+               MLP backward) against its plain PyTorch version on the card,
+               at the shapes the paths give it (K1 also on random
+               full-table neighbours at H=128 and 256; K5 also against K1,
+               at B*T=20 and B=4; K1-train and K6 at the training path's
+               tables, K6 with exact ties), with
                errors, tolerances, the least time the card could take
                (`bound_ms`) and two times per kernel: its device ms (the
                summed durations of its own launches under torch.profiler
@@ -26,14 +29,14 @@ Phases, each printing its own lines:
                (V=1298 padded to 1536, degree-12 tables, P=1024, T=5) with
                seeded random weights (heads included), in two
                configurations.  Path 1: no voxels, euclidean skin
-               distances, every edge layer on K1.  Path 2 (bench.py phase
-               A's serving configuration): an 88^3 voxel grid and the
-               surface-geodesic matrix per mesh, a device cache, the edge
-               dispatch `auto_select_edge_impl(entries, tile_v=128)`
-               chooses, which must be the windowed K5, and JointNet's head
-               scaled so shifted points land in the volume
-               (`phase_a_predictor`).  Each: one warm-up
-               call, then 7 timed calls, each checked; the kernel counts
+               distances, every edge layer on K1 (K1-train = 0).  Path 2
+               (bench.py phase A's serving configuration): an 88^3 voxel
+               grid and the surface-geodesic matrix per mesh, a device
+               cache, the edge dispatch `auto_select_edge_impl(entries,
+               tile_v=128)` chooses, which must be the windowed K5, and
+               JointNet's head scaled so shifted points land in the volume
+               (`phase_a_predictor`).  Each: one warm-up call, then 7
+               timed calls, each checked; the kernel counts
                are zeroed just before the first timed call and read just
                after it, and must equal the expected launches; prints the
                call's median and quartiles, meshes/s, per-phase medians and
@@ -50,11 +53,12 @@ Phases, each printing its own lines:
                steps on the same batch, each checked (finite loss and
                gradient norm, parameters moved); the kernel counts are
                zeroed just before the first timed step and read just after
-               it (K1 = K6 = 8, K2 = 1, K3 = K4 = K5 = 0); then one
-               `eval_step`.  Prints the step's median and quartiles,
+               it (K1-train = K6 = 8, K2 = 1, K1 = K3 = K4 = K5 = 0); then
+               one `eval_step`.  Prints the step's median and quartiles,
                steps/s, peak device memory and the first and last total
                loss, which must be lower; with --profile also the step's
-               device ops, busy time and idle share and K1's and K6's time.
+               device ops, busy time and idle share and K1-train's and K6's
+               time.
 Then a JSON line of kernel results (launches counted in the main paths'
 counted runs: path 1, path 2 and the training step; `ms` and `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
@@ -80,8 +84,8 @@ from morig_tpu_torch.geometry.geodesic import surface_geodesic
 from morig_tpu_torch.geometry.voxel import voxelize_mesh
 from morig_tpu_torch.kernels import build as kb
 from morig_tpu_torch.kernels.edge_fused import (
-    edge_mlp_bwd_plain, edge_mlp_plain, edge_mlp_windowed_plain, fused_edge_mlp,
-    fused_edge_mlp_bwd, fused_edge_mlp_windowed)
+    _edge_mlp_k6_twin, edge_mlp_bwd_plain, edge_mlp_plain, edge_mlp_windowed_plain,
+    fused_edge_mlp, fused_edge_mlp_bwd, fused_edge_mlp_windowed)
 from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows
 from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_topk
 from morig_tpu_torch.nn.corrnet import l2_normalize
@@ -97,8 +101,9 @@ EDGE_TILE, VOX_DIMS = 128, 88
 # an O(1) output by up to ~2e-2.  The mean error stays at fp32 level
 # (below 7e-7 at every width on the H100), so it is held to 1e-5.
 K1_TOL, K1_MEAN_TOL = 3e-2, 1e-5
-# K5 is K1's arithmetic with the rows read from the window: the same bounds,
-# against its plain version and against K1 (the tables are local).
+# K5 is K1's arithmetic with the rows read from the window, and K1-train
+# K1's function on another step code: the same bounds, K5 against its plain
+# version and against K1 (the tables are local).
 K2_TOL = 1e-5     # fp32 sums of exact bf16 products, in another order; K4 too
 # K6 against its plain version.  Both round h, ds and dx to bf16 from fp32
 # values summed in another order, so a rare element lands one bf16 ulp
@@ -281,7 +286,8 @@ def kernel_ms(fn, name=None) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 EDGE_WIDTHS = (16, 32, 64, 128, 256)
-TRAIN_WIDTHS = (16, 32, 128, 256)      # CorrNet's edge layers (K1 and K6 in training)
+TRAIN_WIDTHS = (16, 32, 128, 256)      # CorrNet's edge layers (K1-train and K6 in training)
+RANDOM_WIDTHS = (128, 256)             # K1 on random full-table neighbours
 
 
 def edge_args(dev, nbr, mask, H, g):
@@ -304,26 +310,67 @@ def edge_cost(args, out_bytes: int, passes: int):
     return nbytes(*args) + out_bytes, passes * 2.0 * int(mask.sum()) * w2.shape[0] * w2.shape[1]
 
 
+def random_tables(dev, Bt, V, D, g):
+    """Neighbours drawn uniformly from the whole mesh (no locality) and 70%
+    of the slots valid, as the card tests' K1 cases."""
+    nbr = torch.randint(0, V, (Bt, V, D), device=dev, generator=g)
+    return nbr, torch.rand(Bt, V, D, device=dev, generator=g) < 0.7
+
+
+def _edge_check(name, fn, plain, args, H, tables, kernel):
+    """fn against plain on args within K1_TOL/K1_MEAN_TOL; returns (error,
+    (device ms, call ms), plain call ms, bound ms) and prints them."""
+    got, ref = fn(*args), plain(*args)
+    torch.cuda.synchronize()
+    e, e_mean = (got - ref).abs().max().item(), (got - ref).abs().mean().item()
+    t_k = kernel_ms(lambda: fn(*args), DEVICE_NAMES[kernel])
+    t_p = call_ms(lambda: plain(*args))
+    b = bound(*edge_cost(args, nbytes(got), 1))[0]
+    Bt, V, D = args[2].shape
+    print(f"{kernel} {name} {tables} B={Bt} V={V} D={D} H={H}: max_abs_err {e:.3g} (tol "
+          f"{K1_TOL}), mean {e_mean:.3g} (tol {K1_MEAN_TOL}); kernel device {t_k[0]:.4f} ms call "
+          f"{t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
+    if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL):
+        raise AssertionError(f"{kernel} disagrees with its plain version at {tables} H={H}: "
+                             f"{e}, {e_mean}")
+    return e, t_k, t_p, got
+
+
 def check_k1(dev, mesh_bt):
-    """Every edge width of the paths, over the B*T tables of the flow program."""
+    """Every edge width of the paths, over the B*T tables of the flow program;
+    then H=128 and 256 on random full-table neighbours of the same size,
+    whose time is printed beside the capsule tables' (not in the sum)."""
     g = torch.Generator(device=dev).manual_seed(1)
     Bt, V, D = mesh_bt.tpl_nbr.shape
-    res = Timings()
+    res, capsule = Timings(), {}
     for H in EDGE_WIDTHS:
         args = edge_args(dev, mesh_bt.tpl_nbr, mesh_bt.tpl_mask, H, g)
-        got = fused_edge_mlp(*args)
-        ref = edge_mlp_plain(*args)
-        torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        e_mean = (got - ref).abs().mean().item()
-        t_k = kernel_ms(lambda: fused_edge_mlp(*args), DEVICE_NAMES["K1"])
-        t_p = call_ms(lambda: edge_mlp_plain(*args))
-        b = res.add(e, t_k, t_p, *edge_cost(args, nbytes(got), 1))
-        print(f"K1 edge_mlp B={Bt} V={V} D={D} H={H}: max_abs_err {e:.3g} (tol {K1_TOL}), "
-              f"mean {e_mean:.3g} (tol {K1_MEAN_TOL}); kernel device {t_k[0]:.4f} ms call "
-              f"{t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
-        if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL):
-            raise AssertionError(f"K1 disagrees with its plain version at H={H}: {e}, {e_mean}")
+        e, t_k, t_p, got = _edge_check("edge_mlp", fused_edge_mlp, edge_mlp_plain, args, H,
+                                       "capsule tables", "K1")
+        res.add(e, t_k, t_p, *edge_cost(args, nbytes(got), 1))
+        capsule[H] = t_k[0]
+    print(f"K1 over the five widths on the capsule tables at B={Bt}: device {res.device_ms:.4f} "
+          f"ms (PR 4's WMMA kernel: {K1_DEVICE_MS_BEFORE} ms), call {res.call_ms:.4f} ms")
+    for H in RANDOM_WIDTHS:
+        nbr, mask = random_tables(dev, Bt, V, D, g)
+        args = edge_args(dev, nbr, mask, H, g)
+        _, t_k, _, _ = _edge_check("edge_mlp", fused_edge_mlp, edge_mlp_plain, args, H,
+                                   "random tables", "K1")
+        print(f"K1 random vs capsule tables at H={H}: device {t_k[0]:.4f} vs {capsule[H]:.4f} ms "
+              f"(random/capsule {t_k[0] / capsule[H]:.3f})")
+    return res
+
+
+def check_k1_train(dev, mesh):
+    """K1's training twin at the training path's widths over its tables (B=4,
+    V=2048, D=12, the capsules PoseDataset pads)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    res = Timings()
+    for H in TRAIN_WIDTHS:
+        args = edge_args(dev, mesh.tpl_nbr, mesh.tpl_mask, H, g)
+        e, t_k, t_p, got = _edge_check("edge_mlp twin", _edge_mlp_k6_twin, edge_mlp_plain, args,
+                                       H, "training tables", "K1-train")
+        res.add(e, t_k, t_p, *edge_cost(args, nbytes(got), 1))
     return res
 
 
@@ -357,14 +404,14 @@ def check_k5(dev, mesh_bt, mesh_b):
             print(f"K5 edge_mlp_windowed B={Bt} V={V} D={D} H={H} tile={EDGE_TILE}: max_abs_err "
                   f"{e:.3g} (tol {K1_TOL}), mean {e_mean:.3g} (tol {K1_MEAN_TOL}); against K1 max "
                   f"{e1:.3g}, mean {e1_mean:.3g}; device K5 {t_k[0]:.4f} ms K1 {t_1[0]:.4f} ms "
-                  f"(K5/K1 {t_k[0] / t_1[0]:.3f}); call K5 {t_k[1]:.4f} ms K1 {t_1[1]:.4f} ms; "
+                  f"(K1/K5 {t_1[0] / t_k[0]:.3f}); call K5 {t_k[1]:.4f} ms K1 {t_1[1]:.4f} ms; "
                   f"plain {t_p:.4f} ms; bound {b:.4f} ms")
             if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL and e1 <= K1_TOL
                     and e1_mean <= K1_MEAN_TOL):
                 raise AssertionError(f"K5 disagrees with its plain version or K1 at B={Bt} H={H}")
     for Bt, (k5, k1s) in sums.items():
         print(f"K5 vs K1 over the five widths at B={Bt}: device {k5[0]:.4f} ms vs {k1s[0]:.4f} ms "
-              f"(K5/K1 {k5[0] / k1s[0]:.3f}); call {k5[1]:.4f} ms vs {k1s[1]:.4f} ms")
+              f"(K1/K5 {k1s[0] / k5[0]:.3f}); call {k5[1]:.4f} ms vs {k1s[1]:.4f} ms")
     return res
 
 
@@ -542,12 +589,13 @@ def check_rigs(rigs, entries):
 
 
 # Substrings of each kernel's device-op names (K6: its kernel and the
-# partial-sum reduce it launches after it).
-DEVICE_NAMES = {"K1": "edge_mlp_kernel", "K2": "knn_kernel", "K3": "gather_rows_kernel",
-                "K4": "knn_kernel", "K5": "edge_mlp_windowed_kernel",
-                "K6": ("edge_mlp_bwd_kernel", "sum_parts_kernel")}
-COUNTERS = {"K1": fused_edge_mlp, "K2": knn_batched, "K3": gather_rows, "K4": knn_topk,
-            "K5": fused_edge_mlp_windowed, "K6": fused_edge_mlp_bwd}
+# partial-sum reduce it launches after it); no name holds another's.
+DEVICE_NAMES = {"K1": "edge_mlp_table_kernel", "K1-train": "edge_mlp_kernel",
+                "K2": "knn_kernel", "K3": "gather_rows_kernel", "K4": "knn_kernel",
+                "K5": "edge_mlp_windowed_kernel", "K6": ("edge_mlp_bwd_kernel", "sum_parts_kernel")}
+COUNTERS = {"K1": fused_edge_mlp, "K1-train": _edge_mlp_k6_twin, "K2": knn_batched,
+            "K3": gather_rows, "K4": knn_topk, "K5": fused_edge_mlp_windowed,
+            "K6": fused_edge_mlp_bwd}
 
 
 def zero_counts() -> None:
@@ -610,6 +658,8 @@ def serve(name: str, pred: RigPredictor, entries, frames, expected: dict, **kw):
 PROGRAMS = ("flow_joints", "skelnets", "skin_full")
 KERNEL_NAMES = {k: DEVICE_NAMES[k] for k in ("K1", "K2", "K3", "K5")}
 K5_PATH2_MS_BEFORE = 43.5   # K5's device ms per path-2 call before its redesign (PERF.md)
+K1_PATH1_MS_BEFORE = 34.712  # K1's device ms per path-1 call before its redesign (PERF.md)
+K1_DEVICE_MS_BEFORE = 3.3017  # K1's phase-3 five-width device ms before its redesign (PERF.md)
 
 
 def device_events(prof):
@@ -666,7 +716,8 @@ def profile_programs(path: str, pred: RigPredictor, entries, frames, **kw):
               + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
     print(f"profile {path}: ported kernels' device ms per call: "
           + ", ".join(f"{k} {t:.3f}" for k, t in per_call.items())
-          + (f" (K5 before its redesign: {K5_PATH2_MS_BEFORE} ms)" if per_call.get("K5") else ""))
+          + (f" (K5 before its redesign: {K5_PATH2_MS_BEFORE} ms)" if per_call.get("K5") else "")
+          + (f" (K1 before its redesign: {K1_PATH1_MS_BEFORE} ms)" if per_call.get("K1") else ""))
 
 
 def profile_geometry(dev, entries, jc):
@@ -731,9 +782,10 @@ def phase_a_inputs(entries):
 # phase 6: training CorrNet (CorrPoseStage)
 # ---------------------------------------------------------------------------
 
-# K1 and K6: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo); K2: the
-# vismask 1-NN; K3: none (training gathers with plain indexing).
-EXPECTED_TRAIN = dict(K1=8, K2=1, K3=0, K4=0, K5=0, K6=8)
+# K1-train and K6: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo); K2:
+# the vismask 1-NN; K1: none (serving only); K3: none (training gathers with
+# plain indexing).
+EXPECTED_TRAIN = {"K1": 0, "K1-train": 8, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 8}
 
 
 def train_batch():
@@ -804,7 +856,8 @@ def train(batch, dev, profile_phase: bool):
 
 def profile_step(stage, state, batch, gen):
     """One training step under torch.profiler: its device ops, busy time and
-    idle share against its CUDA-event time, and K1's and K6's device time."""
+    idle share against its CUDA-event time, and K1-train's, K6's and K2's
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = median_ms(lambda: stage.train_step(state, batch, gen))
@@ -817,7 +870,8 @@ def profile_step(stage, state, batch, gen):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     ported = []
-    for k, sub in (("K1", "edge_mlp_kernel"), ("K6", "edge_mlp_bwd_kernel"), ("K2", "knn_kernel")):
+    for k, sub in (("K1-train", DEVICE_NAMES["K1-train"]), ("K6", "edge_mlp_bwd_kernel"),
+                   ("K2", DEVICE_NAMES["K2"])):
         n = sum(sub in e.name for e in dev)
         ported.append(f"{k} {n} launches {sum(v for op, v in by_name.items() if sub in op):.2f} ms")
     idle = f"{1 - busy / wall:.3f}" if dev else "not measured (no device events)"
@@ -828,8 +882,13 @@ def profile_step(stage, state, batch, gen):
           + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
 
 
-SOURCES = {  # kernel: (route, source, the TPU kernel it replaces)
+# kernel: (route, source, the TPU kernel it replaces).  The serving edge
+# kernels K1 and K5 run the wgmma step code of csrc/edge_wgmma.cuh; the
+# training pair K1-train and K6 the WMMA step code of csrc/edge_tail.cuh.
+SOURCES = {
     "K1": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu", "morig_tpu/kernels/edge_fused.py:102"),
+    "K1-train": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu",
+                 "morig_tpu/kernels/edge_fused.py:102"),
     "K2": ("cuda", "morig_tpu_torch/csrc/knn_topk.cu", "morig_tpu/kernels/knn_fused.py:109"),
     "K3": ("cuda", "morig_tpu_torch/csrc/gather_rows.cu",
            "morig_tpu/kernels/gather_fused.py:88"),
@@ -857,8 +916,9 @@ def main(profile_phase: bool = False):
     entries, frames = capsule_batch(B_MESH, T, P, V_PAD, DEGREE)
     mesh_bt = stack_meshes([e for e in entries for _ in range(T)])
     batch = train_batch()
-    results = {"K1": check_k1(dev, mesh_bt), "K2": check_k2(dev), "K3": check_k3(dev),
-               "K4": check_k4(dev), "K5": check_k5(dev, mesh_bt, stack_meshes(entries)),
+    results = {"K1": check_k1(dev, mesh_bt), "K1-train": check_k1_train(dev, batch.mesh),
+               "K2": check_k2(dev), "K3": check_k3(dev), "K4": check_k4(dev),
+               "K5": check_k5(dev, mesh_bt, stack_meshes(entries)),
                "K6": check_k6(dev, batch.mesh)}
     st = PROFILER_STATS
     print(f"profiler: {st['timings']} device timings, {st['retried']} taken again, "
@@ -868,14 +928,15 @@ def main(profile_phase: bool = False):
     pred = RigPredictor.random(0)                   # on the card
     edge = expected_edge_launches(pred)
     path1 = serve("path 1", pred, entries, frames,
-                  dict(K1=edge, K2=EXPECTED_KNN_LAUNCHES, K3=EXPECTED_GATHER_LAUNCHES, K4=0,
-                       K5=0, K6=0))
+                  {"K1": edge, "K1-train": 0, "K2": EXPECTED_KNN_LAUNCHES,
+                   "K3": EXPECTED_GATHER_LAUNCHES, "K4": 0, "K5": 0, "K6": 0})
     phase_a = phase_a_inputs(entries)
     pred2 = phase_a_predictor(0)
     cache: dict = {}
     path2 = serve("path 2", pred2, entries, frames,
-                  dict(K1=0, K2=EXPECTED_KNN_LAUNCHES, K3=EXPECTED_GATHER_LAUNCHES, K4=0,
-                       K5=edge, K6=0), device_cache=cache, **phase_a)
+                  {"K1": 0, "K1-train": 0, "K2": EXPECTED_KNN_LAUNCHES,
+                   "K3": EXPECTED_GATHER_LAUNCHES, "K4": 0, "K5": edge, "K6": 0},
+                  device_cache=cache, **phase_a)
     if profile_phase:
         profile_programs("path 1", pred, entries, frames)
         profile_programs("path 2", pred2, entries, frames, device_cache=cache, **phase_a)

@@ -1,10 +1,10 @@
-// The fused EdgeMLP tail's step code, shared by K1/K5 (edge_mlp.cu, the
-// forward) and K6 (edge_mlp_bwd.cu, the backward, which recomputes the
-// forward).  Every kernel that includes this header computes the per-edge
-// forward with the same instructions in the same order (the LayerNorm
-// arithmetic is written with explicitly rounded intrinsics, so no kernel
-// contracts it differently), which is what lets K6's max routing compare its
-// recomputed per-edge outputs with K1's by exact equality.
+// The fused EdgeMLP tail's step code, shared by K1's training twin
+// (edge_mlp.cu `edge_mlp_kernel`, the training forward) and K6
+// (edge_mlp_bwd.cu, the backward, which recomputes the forward).  Both
+// compute the per-edge forward with the same instructions in the same order
+// (the LayerNorm arithmetic is written with explicitly rounded intrinsics, so
+// neither contracts it differently), which is what lets K6's max routing
+// compare its recomputed per-edge outputs with the twin's by exact equality.
 //
 //   h[e]   = bf16(LN1(relu(a[v] + b[nbr[v,d]])))            (per edge row e)
 //   y[e]   = h[e] @ W2                                        (bf16 WMMA, fp32 sums)

@@ -1,6 +1,7 @@
 // The fused EdgeMLP tail's step code on Hopper's warpgroup product, used by
-// K5 (edge_mlp.cu `edge_mlp_windowed_kernel`).  K1 and K6 keep the WMMA step
-// code of edge_tail.cuh (K6's max routing needs K1's bits).
+// the serving kernels K1 (edge_mlp.cu `edge_mlp_table_kernel`) and K5
+// (`edge_mlp_windowed_kernel`).  K6 and K1's training twin keep the WMMA step
+// code of edge_tail.cuh (K6's max routing needs the twin's bits).
 //
 // A work unit is 64 vertices of one vertex tile; it runs degree-major, one
 // 64-row "slab" per neighbour slot d: row r of slab d is edge d of vertex

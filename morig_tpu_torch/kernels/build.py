@@ -31,7 +31,8 @@ _I = ctypes.c_int
 # C signature of every exported launcher; each returns cudaGetLastError().
 _SIGNATURES = {
     # a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D, H1, H2, stream
-    "edge_mlp_forward": [_P] * 11 + [_I] * 5 + [_P],
+    "edge_mlp_table_forward": [_P] * 11 + [_I] * 5 + [_P],
+    "edge_mlp_train_forward": [_P] * 11 + [_I] * 5 + [_P],
     # the same, then the vertex tile TV, stream
     "edge_mlp_windowed_forward": [_P] * 11 + [_I] * 6 + [_P],
     # B, V, D, H1, H2, out grid

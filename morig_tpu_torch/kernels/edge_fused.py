@@ -9,15 +9,19 @@ and 0 where no edge of v is valid.  a and b arrive rounded to bf16; the W2
 product takes bf16 operands with fp32 accumulation; both LayerNorms run in
 fp32 (eps 1e-6, variance E[x^2] - E[x]^2) over the true width.
 
-K1 (`fused_edge_mlp`) reads each neighbour row from the whole table; K5
-(`fused_edge_mlp_windowed`) reads it from its vertex tile's window of
-3 tiles, for meshes whose neighbours are local (`check_neighbor_locality`).
-K6 (`fused_edge_mlp_bwd`) is K1's one-pass backward with an in-kernel
-recompute of the forward, and `fused_edge_mlp_trainable` the autograd
-Function whose forward is K1 and whose backward is K6 (the training path).
-Each launches its CUDA kernel (csrc/edge_mlp.cu, csrc/edge_mlp_bwd.cu) for a
-CUDA tensor and runs its plain version (`edge_mlp_plain`,
-`edge_mlp_windowed_plain`, `edge_mlp_bwd_plain`) for a CPU tensor.
+K1 (`fused_edge_mlp`, the serving call) reads each neighbour row from the
+whole table; K5 (`fused_edge_mlp_windowed`) reads it from its vertex tile's
+window of 3 tiles, for meshes whose neighbours are local
+(`check_neighbor_locality`).  Both run the wgmma step code
+(csrc/edge_wgmma.cuh).  K6 (`fused_edge_mlp_bwd`) is the one-pass backward
+with an in-kernel recompute of the forward, and `fused_edge_mlp_trainable`
+the autograd Function of the training path: its forward is K1's training
+twin (`_edge_mlp_k6_twin`, on csrc/edge_tail.cuh's WMMA step code, which
+K6's recompute repeats bit for bit so that its max routes by exact
+equality), its backward K6.  Each launches its CUDA kernel
+(csrc/edge_mlp.cu, csrc/edge_mlp_bwd.cu) for a CUDA tensor and runs its
+plain version (`edge_mlp_plain`, `edge_mlp_windowed_plain`,
+`edge_mlp_bwd_plain`) for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -122,9 +126,11 @@ def edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
 
 
 def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev=None):
-    """Checks what K1, K5 and K6 take; returns the contiguous launch
-    arguments' pointers and the fp32 (B,V,H2) output of the forward.  w2_dev:
-    W2 as the kernel reads it (default bf16, row-major)."""
+    """Checks what K1, its twin, K5 and K6 take; returns the contiguous launch
+    arguments and the fp32 (B,V,H2) output of the forward.  w2_dev: W2 as
+    the kernel reads it (default bf16, row-major).  The caller holds the
+    arguments until the launch is queued: a copy made here and freed before
+    then could be handed to a buffer allocated in between."""
     B, V, H1 = a.shape
     D = nbr.shape[-1]
     H2 = w2.shape[1]
@@ -146,27 +152,28 @@ def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev=None):
         if t.device != a.device:
             raise ValueError("edge_mlp kernel: all tensors must be on one device")
     out = torch.empty((B, V, H2), dtype=torch.float32, device=a.device)
-    return [t.data_ptr() for t in args], out
+    return args, out
 
 
-def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
-    """K1.  Same arguments and result as `edge_mlp_plain`."""
+def _edge_mlp_k6_twin(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """K1's training twin: the forward of `fused_edge_mlp_trainable`.  Same
+    arguments and result as `edge_mlp_plain`."""
     if not a.is_cuda:
         return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
-    ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    args, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
-    err = kb.library().edge_mlp_forward(*ptrs, out.data_ptr(), B, V, D, a.shape[2],
-                                        w2.shape[1], kb.stream(a.device))
-    kb.check(err, "edge_mlp_forward")
-    fused_edge_mlp.launches += 1
+    err = kb.library().edge_mlp_train_forward(*(t.data_ptr() for t in args + [out]), B, V, D,
+                                              a.shape[2], w2.shape[1], kb.stream(a.device))
+    kb.check(err, "edge_mlp_train_forward")
+    _edge_mlp_k6_twin.launches += 1
     return out
 
 
-fused_edge_mlp.launches = 0
+_edge_mlp_k6_twin.launches = 0
 
 
 def wgmma_k_order(h: int) -> np.ndarray:
-    """K5's k order (csrc/edge_wgmma.cuh): entry k is the W2 row (LN1
+    """K1's and K5's k order (csrc/edge_wgmma.cuh): entry k is the W2 row (LN1
     column) at the product's physical k.  Lane q of a quad holds LN1 columns
     in pieces of P = 8 (4 at h=16), piece p being columns (4p + q) P ..
     (4p + q) P + P - 1, which fill k-chunks p P/4 ..; wgmma takes k = 16c +
@@ -184,7 +191,7 @@ _W2_INDEX: dict = {}
 
 
 def wgmma_w2_layout(w2: torch.Tensor) -> torch.Tensor:
-    """W2 (H1, H2) as K5 stages it in shared memory: bf16, rows in
+    """W2 (H1, H2) as K1 and K5 stage it in shared memory: bf16, rows in
     `wgmma_k_order`, in wgmma's interleaved K-major layout — core matrices
     of 8 output columns x 8 k, 128 contiguous bytes each (k fastest), H2/8
     of them per group of 8 k, the groups in k order.  One gather and one
@@ -198,6 +205,32 @@ def wgmma_w2_layout(w2: torch.Tensor) -> torch.Tensor:
     return w2.reshape(-1)[_W2_INDEX[key]].to(torch.bfloat16)
 
 
+def _wgmma_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """`_kernel_args` for the wgmma kernels (K1, K5): W2 in `wgmma_w2_layout`,
+    a and b 16-byte aligned (the kernels read them in 16-byte pieces and bulk
+    copies; a view that is not gets copied)."""
+    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format) for t in (a, b))
+    w2_dev = wgmma_w2_layout(w2) if w2.shape[0] == w2.shape[1] in WIDTHS else None
+    return _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev)
+
+
+def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """K1.  Same arguments and result as `edge_mlp_plain`."""
+    if not a.is_cuda:
+        return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    args, out = _wgmma_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    B, V, D = nbr.shape
+    err = kb.library().edge_mlp_table_forward(*(t.data_ptr() for t in args + [out]), B, V, D,
+                                              a.shape[2], w2.shape[1], kb.stream(a.device))
+    kb.check(err, "edge_mlp_table_forward")
+    fused_edge_mlp.launches += 1
+    return out
+
+
+fused_edge_mlp.launches = 0
+
+
 def fused_edge_mlp_windowed(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: int = 128):
     """K5.  Same arguments and result as `edge_mlp_windowed_plain`."""
     if not a.is_cuda:
@@ -205,13 +238,11 @@ def fused_edge_mlp_windowed(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
     _check_windowed_shape(a.shape[1], tile_v)
     if tile_v % 8:
         raise ValueError(f"windowed edge kernel needs tile % 8 == 0, got {tile_v}")
-    # the kernel reads a and b in 16-byte pieces and bulk copies
-    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
-    w2_dev = wgmma_w2_layout(w2) if w2.shape[0] == w2.shape[1] in WIDTHS else None
-    ptrs, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev)
+    args, out = _wgmma_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
-    err = kb.library().edge_mlp_windowed_forward(*ptrs, out.data_ptr(), B, V, D, a.shape[2],
-                                                 w2.shape[1], tile_v, kb.stream(a.device))
+    err = kb.library().edge_mlp_windowed_forward(*(t.data_ptr() for t in args + [out]), B, V, D,
+                                                 a.shape[2], w2.shape[1], tile_v,
+                                                 kb.stream(a.device))
     kb.check(err, "edge_mlp_windowed_forward")
     fused_edge_mlp_windowed.launches += 1
     return out
@@ -269,7 +300,7 @@ def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
     runs; the other gradients are deterministic."""
     if not a.is_cuda:
         return edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout)
-    ptrs, _ = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    args, _ = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, H1 = a.shape
     D, H2 = nbr.shape[-1], w2.shape[1]
     if dout.shape != (B, V, H2) or dout.dtype != torch.float32 or dout.device != a.device:
@@ -285,7 +316,7 @@ def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
     dw2_part = torch.empty((grid.value, H1, H2), **f32)
     vec_part = torch.empty((grid.value, vec.numel()), **f32)
     outs = [dout, da, db, dw2, vec, dw2_part, vec_part]
-    err = lib.edge_mlp_backward(*ptrs, *(t.data_ptr() for t in outs), B, V, D, H1, H2,
+    err = lib.edge_mlp_backward(*(t.data_ptr() for t in args + outs), B, V, D, H1, H2,
                                 grid.value, kb.stream(a.device))
     kb.check(err, "edge_mlp_backward")
     fused_edge_mlp_bwd.launches += 1
@@ -297,14 +328,14 @@ fused_edge_mlp_bwd.launches = 0
 
 
 class _TrainableTail(torch.autograd.Function):
-    """Forward K1 on bf16(a), bf16(b); backward K6.  The gradients of a and b
-    return to the fp32 inputs as through the cast."""
+    """Forward K1's training twin on bf16(a), bf16(b); backward K6.  The
+    gradients of a and b return to the fp32 inputs as through the cast."""
 
     @staticmethod
     def forward(ctx, a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         ctx.save_for_backward(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
-        return fused_edge_mlp(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
+        return _edge_mlp_k6_twin(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
 
     @staticmethod
     def backward(ctx, dout):
@@ -316,5 +347,5 @@ class _TrainableTail(torch.autograd.Function):
 
 def fused_edge_mlp_trainable(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
     """The edge tail with gradients: a, b (B,V,H1) fp32 (rounded to bf16 for
-    K1 inside), the rest as `fused_edge_mlp`; returns (B,V,H2) fp32."""
+    the forward inside), the rest as `fused_edge_mlp`; returns (B,V,H2) fp32."""
     return _TrainableTail.apply(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)

@@ -9,8 +9,13 @@ conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 Small shapes with the edge cases the main path can produce: rows with no
-valid edge, ragged vertex tiles, duplicate and masked kNN candidates, rows
-with fewer valid candidates than k, and for the windowed edge kernel K5
+valid edge, ragged vertex tiles, for the serving edge kernel K1 partial
+64-vertex units, an all-masked mesh, neighbours that all point at the last
+row and views that are not 16-byte aligned, and K1 against K5 on local
+tables; K1's training twin (the trainable tail's forward) against its
+plain version, and the launch counters of serving and training kept
+apart; duplicate and masked kNN candidates, rows with fewer valid
+candidates than k, and for the windowed edge kernel K5
 neighbours outside their window (a zero row), a tile of padding and a unit
 with dead upper slabs at every width, in both of its routes (window staged
 in shared memory at H <= 128, rows gathered per slab at H = 256), the row
@@ -86,6 +91,90 @@ def test_edge_mlp_kernel_matches_plain(cuda, H, D):
     assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
 
 
+@pytest.mark.parametrize("D", [4, 12, 16])
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_edge_mlp_twin_kernel_matches_plain(cuda, H, D):
+    """K1's training twin (edge_tail.cuh's WMMA step code), which K6's
+    recompute repeats; at D=4 a 64-row step holds 16 vertices."""
+    args = _edge_args(cuda, H, D=D, seed=H + D)
+    before = (ef._edge_mlp_k6_twin.launches, ef.fused_edge_mlp.launches)
+    got = ef._edge_mlp_k6_twin(*args)
+    ref = ef.edge_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert (ef._edge_mlp_k6_twin.launches, ef.fused_edge_mlp.launches) == (
+        before[0] + 1, before[1])
+    err = (got - ref).abs()
+    assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
+    assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
+
+
+def _table_args(dev, H, V, seed, D=12, misaligned=False):
+    """Random full-table neighbours for B meshes of V vertices, B chosen so
+    that the output holds at least 640 rows (a rare one-ulp LN1 rounding
+    difference must not move the mean error past K1_MEAN_TOL), with the
+    last mesh's mask all false; `misaligned`: a and b are views 2 bytes past
+    a 16-byte boundary."""
+    B = max(2, -(-640 // V))
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def table():
+        flat = torch.randn(B * V * H + 1, device=dev, generator=g).to(torch.bfloat16)
+        return flat[1:].view(B, V, H) if misaligned else flat[:-1].view(B, V, H)
+
+    a, b = table(), table()
+    nbr = torch.randint(0, V, (B, V, D), device=dev, generator=g)
+    mask = torch.rand(B, V, D, device=dev, generator=g) < 0.7
+    mask[-1] = False
+    w2 = torch.randn(H, H, device=dev, generator=g) / math.sqrt(H)
+    vecs = [0.1 * torch.randn(H, device=dev, generator=g),
+            torch.rand(H, device=dev, generator=g) + 0.5,
+            0.1 * torch.randn(H, device=dev, generator=g),
+            torch.rand(H, device=dev, generator=g) + 0.5,
+            0.1 * torch.randn(H, device=dev, generator=g)]
+    return a, b, nbr, mask, w2, *vecs
+
+
+@pytest.mark.parametrize("case", ["V1", "V64", "V65", "V1536", "last_row", "misaligned"])
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_edge_mlp_kernel_table_cases(cuda, H, case):
+    """K1 against its plain version where the last 64-vertex unit of a mesh
+    holds 1 (V=1, 65) or 64 (V=64, 1536) vertices, where every neighbour is
+    the last row (V=301), and on a and b views that are not 16-byte aligned
+    (V=301); each with a mesh whose mask is all false (all zeros)."""
+    V = {"V1": 1, "V64": 64, "V65": 65, "V1536": 1536}.get(case, 301)
+    args = _table_args(cuda, H, V, seed=H + V, misaligned=case == "misaligned")
+    if case == "last_row":
+        args[2].fill_(V - 1)
+    if case == "misaligned":
+        assert args[0].data_ptr() % 16 == 2 and args[1].data_ptr() % 16 == 2
+    before = (ef.fused_edge_mlp.launches, ef._edge_mlp_k6_twin.launches)
+    got = ef.fused_edge_mlp(*args)
+    ref = ef.edge_mlp_plain(*args)
+    torch.cuda.synchronize()
+    assert (ef.fused_edge_mlp.launches, ef._edge_mlp_k6_twin.launches) == (
+        before[0] + 1, before[1])
+    err = (got - ref).abs()
+    assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
+    assert (got[-1] == 0).all() and torch.isfinite(got).all()
+
+
+def test_serving_and_training_count_apart(cuda):
+    """fused_edge_mlp counts K1 only; the trainable tail's forward counts the
+    twin only, its backward K6."""
+    args = _edge_args(cuda, 32)
+    counts = lambda: (ef.fused_edge_mlp.launches, ef._edge_mlp_k6_twin.launches,
+                      ef.fused_edge_mlp_bwd.launches)
+    k1, twin, k6 = counts()
+    ef.fused_edge_mlp(*args)
+    assert counts() == (k1 + 1, twin, k6)
+    a, b = (t.float().requires_grad_() for t in args[:2])
+    out = ef.fused_edge_mlp_trainable(a, b, *args[2:])
+    assert counts() == (k1 + 1, twin + 1, k6)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (k1 + 1, twin + 1, k6 + 1)
+
+
 def _bwd_args(dev, H, D=12, V=301, seed=0):
     """_edge_args with neighbour column 1 a copy of column 0 (exact ties in
     the max) and a seeded dout."""
@@ -124,7 +213,7 @@ def test_edge_mlp_bwd_kernel_matches_plain(cuda, H, D):
 
 
 def test_trainable_tail_on_card_matches_cpu_plain(cuda):
-    """Gradients through fused_edge_mlp_trainable (K1 forward, K6 backward)
+    """Gradients through fused_edge_mlp_trainable (the twin forward, K6 backward)
     on the card against the same Function on the CPU (plain versions)."""
     args, dout = _bwd_args(cuda, 128, seed=5)
     a, b, nbr, mask, *params = args
@@ -156,7 +245,7 @@ def _pose_dataset():
 
 @pytest.mark.parametrize("fin,out", [(3, 32), (32, 64), (64, 256), (256, 512)])
 def test_gcu_train_backward_on_card_matches_cpu(cuda, fin, out):
-    """Each of CorrNet's GCUs in training (two edge layers through K1 + K6 on
+    """Each of CorrNet's GCUs in training (two edge layers through the twin + K6 on
     the card, their plain versions on the CPU; the fuse MLP in fp32) from the
     same weights, input and dout on the valid vertices: the output, the
     input's gradient and every parameter's gradient by relative L2 at
@@ -221,16 +310,17 @@ def test_corr_pose_step_on_card_matches_cpu(cuda):
     assert (flat - flat_ref).norm() <= GRAD_TOTAL * flat_ref.norm()
 
 
-def _windowed_args(dev, H, D, TV, V, seed, B=2):
-    """_edge_args with tables local to each vertex tile's window, except for
-    a few valid neighbours that leave it."""
+def _windowed_args(dev, H, D, TV, V, seed, B=2, leave=True):
+    """_edge_args with tables local to each vertex tile's window, except
+    (with `leave`) for a few valid neighbours that leave it."""
     a, b, _, mask, *rest = _edge_args(dev, H, B=B, V=V, D=D, seed=seed)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     v = torch.arange(V, device=dev)
     ws = ((v // TV - 1).clamp(0, V // TV - 3) * TV)[None, :, None]
     nbr = ws + torch.randint(0, 3 * TV, (B, V, D), device=dev, generator=g)
-    nbr[0, :TV, 1] = V - 1                      # outside tile 0's window
-    mask[0, 8:TV, 1] = True                     # (row 7 keeps no valid edge)
+    if leave:
+        nbr[0, :TV, 1] = V - 1                  # outside tile 0's window
+        mask[0, 8:TV, 1] = True                 # (row 7 keeps no valid edge)
     return a, b, nbr, mask, *rest
 
 
@@ -264,6 +354,23 @@ def test_edge_mlp_windowed_kernel_matches_plain(cuda, H, D, B):
     assert e1.max().item() <= K1_TOL and e1.mean().item() <= K1_MEAN_TOL
     assert ((got - full).abs()[1:].max().item() <= K1_TOL
             and not torch.allclose(got[0, :TV], full[0, :TV]))
+
+
+@pytest.mark.parametrize("B", [4, 20])
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_edge_mlp_kernel_matches_windowed_on_local_tables(cuda, H, B):
+    """K1 against K5 at the paths' size (V=1536, D=12, TV=128, B=4 and
+    B*T=20) on tables local to every window, where both compute the same
+    function; a tile of padding."""
+    TV, V = 128, 1536
+    args = _windowed_args(cuda, H, 12, TV, V, seed=H + B, B=B, leave=False)
+    args[3][:, -TV:] = False
+    got = ef.fused_edge_mlp(*args)
+    k5 = ef.fused_edge_mlp_windowed(*args, tile_v=TV)
+    torch.cuda.synchronize()
+    err = (got - k5).abs()
+    assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
+    assert (got[:, -TV:] == 0).all()
 
 
 def _knn_args(dev, C, seed, N=200, P=300):
@@ -375,7 +482,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     plain version in the kernel's place."""
     counts = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
               kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
-    k6 = ef.fused_edge_mlp_bwd.launches
+    k6 = (ef.fused_edge_mlp_bwd.launches, ef._edge_mlp_k6_twin.launches)
     with pytest.raises(ValueError, match="widths"):
         ef.fused_edge_mlp(*_edge_args(cuda, 48))
     with pytest.raises(ValueError, match="degree"):
@@ -410,4 +517,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ef.fused_edge_mlp_bwd(*args, dout.double())
     assert counts == (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
                       kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
-    assert ef.fused_edge_mlp_bwd.launches == k6
+    with pytest.raises(ValueError, match="widths"):
+        ef._edge_mlp_k6_twin(*_edge_args(cuda, 48))
+    with pytest.raises(ValueError, match="degree"):
+        ef._edge_mlp_k6_twin(*_edge_args(cuda, 32, D=17))
+    assert (ef.fused_edge_mlp_bwd.launches, ef._edge_mlp_k6_twin.launches) == k6

@@ -32,7 +32,7 @@ from torch_port_fixtures import assert_close
 B, V, D = 2, 128, 12
 
 
-def _edge_inputs(H, seed):
+def _edge_inputs(H, seed, V=V, D=D):
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((B, V, H)).astype(np.float32)
     b = rng.standard_normal((B, V, H)).astype(np.float32)
@@ -54,14 +54,17 @@ def _port_edge(a, b, nbr, mask, w2, vecs):
                               t(nbr).long(), t(mask), t(w2), *map(t, vecs))
 
 
-@pytest.mark.parametrize("H", [16, 64, 128])
-def test_edge_mlp_matches_pallas_interpret(H):
-    """K1 plain vs the Pallas kernel (interpret) and its bf16 XLA oracle.
-    Tolerance 2e-2 absolute on O(1) LayerNorm outputs: both sides round the
-    LN1 output to bf16 before the W2 product, from fp32 values computed in
-    another order (and, at 128, with the two-pass variance), so a rare
-    element rounds one bf16 ulp apart; the mean error stays below 1e-4."""
-    a, b, nbr, mask, w2, vecs = _edge_inputs(H, seed=H)
+@pytest.mark.parametrize("H,Vn,Dn", [(16, V, D), (32, V, D), (64, V, D), (128, V, D),
+                                     (256, V, D), (32, 100, 16)])
+def test_edge_mlp_matches_pallas_interpret(H, Vn, Dn):
+    """K1 plain vs the Pallas kernel (interpret) and its bf16 XLA oracle, at
+    every width, and at D=16 with V=100 (not a multiple of K1's 64-vertex
+    unit on the card; one tile of 100 on the TPU).  Tolerance 2e-2 absolute
+    on O(1) LayerNorm outputs: both sides round the LN1 output to bf16
+    before the W2 product, from fp32 values computed in another order (and,
+    at 128 and above, with the two-pass variance), so a rare element rounds
+    one bf16 ulp apart; the mean error stays below 1e-4."""
+    a, b, nbr, mask, w2, vecs = _edge_inputs(H, seed=H + Dn - D, V=Vn, D=Dn)
     got = _port_edge(a, b, nbr, mask, w2, vecs)
     j = [jnp.asarray(x) for x in (a, b, nbr, mask, w2, *vecs)]
     pallas = jef.fused_edge_mlp_auto(*j, tile_v=128, interpret=True)
@@ -167,9 +170,10 @@ def test_edge_wrapper_on_cpu_is_the_plain_version():
     t = torch.as_tensor
     args = (t(a).to(torch.bfloat16), t(b).to(torch.bfloat16), t(nbr).long(), t(mask),
             t(w2), *map(t, vecs))
-    before = tef.fused_edge_mlp.launches
+    before = (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches)
     assert torch.equal(tef.fused_edge_mlp(*args), tef.edge_mlp_plain(*args))
-    assert tef.fused_edge_mlp.launches == before
+    assert torch.equal(tef._edge_mlp_k6_twin(*args), tef.edge_mlp_plain(*args))
+    assert (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches) == before
 
 
 def _unit(rng, shape):
