@@ -14,8 +14,9 @@ Phases, each printing its own lines:
                at the shapes the paths give it (K1 also on random
                full-table neighbours at H=128 and 256; K5 also against K1,
                at B*T=20 and B=4; K1-train and K6 at the training path's
-               tables, K6 with exact ties), with
-               errors, tolerances, the least time the card could take
+               tables, K6 with exact ties; K2 also at the training step's
+               vismask shape, printed apart from its three serving cases),
+               with errors, tolerances, the least time the card could take
                (`bound_ms`) and two times per kernel: its device ms (the
                summed durations of its own launches under torch.profiler
                over REPS calls, / REPS; a profile that lost ops is taken
@@ -24,7 +25,9 @@ Phases, each printing its own lines:
                around REPS back-to-back calls, / REPS, which includes the
                wrapper's host time); the plain version's call ms, and
                where one PyTorch call computes the same function (K3's
-               `values[bsel, idx]`) that call's device and call ms;
+               `values[bsel, idx]`) that call's device and call ms; beside
+               K2 and K4 a library composite (bf16 bmm, mask, topk and
+               K2's gather: several calls, a yardstick only);
   4. paths   — `RigPredictor.predict_rig_batch` on B=4 capsule meshes
                (V=1298 padded to 1536, degree-12 tables, P=1024, T=5) with
                seeded random weights (heads included), in two
@@ -62,7 +65,8 @@ Phases, each printing its own lines:
 Then a JSON line of kernel results (launches counted in the main paths'
 counted runs: path 1, path 2 and the training step; `ms` and `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
-`library_device_ms` the library call's), the card's name and power limit,
+`library_device_ms` the library call's, `composite_ms` and
+`composite_device_ms` K2's and K4's composite's), the card's name and power limit,
 and last `{"ok": true, "device": {...}}`.  Any failure
 raises: the exit code is non-zero and the last line is not printed.
 """
@@ -154,10 +158,13 @@ class Timings:
     def __init__(self):
         self.err = self.device_ms = self.call_ms = self.plain_ms = self.bound_ms = 0.0
         self.library_ms = self.library_device_ms = None
+        self.composite_ms = self.composite_device_ms = None
         self.bound_by, self._worst = "bytes", -1.0
 
-    def add(self, err, kernel, plain_ms, n_bytes, flops, library=None):
-        """kernel, library: (device ms, call ms) pairs from `kernel_ms`."""
+    def add(self, err, kernel, plain_ms, n_bytes, flops, library=None, composite=None):
+        """kernel, library, composite: (device ms, call ms) pairs from
+        `kernel_ms`; the composite (several PyTorch calls, K2 and K4 only) is
+        a yardstick apart from the library call."""
         b, by = bound(n_bytes, flops)
         self.err, self.plain_ms = max(self.err, err), self.plain_ms + plain_ms
         self.device_ms += kernel[0]
@@ -168,13 +175,18 @@ class Timings:
         if library is not None:
             self.library_device_ms = (self.library_device_ms or 0.0) + library[0]
             self.library_ms = (self.library_ms or 0.0) + library[1]
+        if composite is not None:
+            self.composite_device_ms = (self.composite_device_ms or 0.0) + composite[0]
+            self.composite_ms = (self.composite_ms or 0.0) + composite[1]
         return b
 
     def json(self) -> dict:
         return {"max_abs_err": self.err, "ms": self.device_ms, "device_ms": self.device_ms,
                 "call_ms": self.call_ms, "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": self.bound_by, "library_ms": self.library_ms,
-                "library_device_ms": self.library_device_ms}
+                "library_device_ms": self.library_device_ms,
+                "composite_ms": self.composite_ms,
+                "composite_device_ms": self.composite_device_ms}
 
 
 def median_ms(fn) -> float:
@@ -452,9 +464,24 @@ def check_k6(dev, mesh):
     return res
 
 
+def knn_composite(q, c, k, mask, values):
+    """The library composite timed beside K2 and K4 as a yardstick (several
+    PyTorch calls, not one, and never called by the port): the bf16 batched
+    product, the mask, topk, and for K2 the advanced-indexing gather."""
+    qb, cb = q.to(torch.bfloat16), c.to(torch.bfloat16)
+    bsel = torch.arange(q.shape[0], device=q.device)[:, None, None]
+
+    def run():
+        score, idx = torch.bmm(qb, cb.mT).float().masked_fill_(~mask[:, None], NEG).topk(k)
+        return (idx, score) if values is None else (idx, score, values[bsel, idx])
+    return run
+
+
 def _knn_case(dev, res, name, q, c, k, mask, values):
     """K2 (values given) or K4 (values None) against knn_plain: scores within
-    K2_TOL, indices equal wherever the order is decided, gather exact."""
+    K2_TOL, indices equal wherever the order is decided, gather exact; its
+    device and call ms beside the composite's.  Adds to `res` unless res is
+    None."""
     out = knn_batched(q, c, k, mask, gather_values=values)
     idx, score = out[:2]
     ref_idx, ref_score = knn_plain(q, c, k + 1, mask)
@@ -469,18 +496,21 @@ def _knn_case(dev, res, name, q, c, k, mask, values):
     bad = (idx != ref_idx[..., :k]).any(-1) & decided
     bsel = torch.arange(q.shape[0], device=dev)[:, None, None]
     gather_exact = values is None or torch.equal(out[2], values[bsel, idx])
+    kernel = "K4" if values is None else "K2"
     t_k = kernel_ms(lambda: knn_batched(q, c, k, mask, gather_values=values),
-                    DEVICE_NAMES["K2"])
+                    DEVICE_NAMES[kernel])
+    t_c = kernel_ms(knn_composite(q, c, k, mask, values))
     t_p = call_ms(lambda: knn_plain(q, c, k, mask, values))
     inputs = (q, c, mask) if values is None else (q, c, mask, values)
     flops = 2.0 * q.shape[0] * q.shape[1] * c.shape[1] * q.shape[2]
-    b = res.add(e, t_k, t_p, nbytes(*inputs, *out), flops)
-    kernel = "K4" if values is None else "K2"
+    cost = (nbytes(*inputs, *out), flops)
+    b = bound(*cost)[0] if res is None else res.add(e, t_k, t_p, *cost, composite=t_c)
     cv = "" if values is None else f" Cv={values.shape[-1]}"
     print(f"{kernel} knn {name} q={tuple(q.shape)} c={tuple(c.shape)} k={k}{cv}: max_abs_err "
           f"{e:.3g} (tol {K2_TOL}), {int(bad.sum())} index rows differ of "
           f"{int(decided.sum())} decided, gather exact {gather_exact}; kernel device "
-          f"{t_k[0]:.4f} ms call {t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
+          f"{t_k[0]:.4f} ms call {t_k[1]:.4f} ms; composite device {t_c[0]:.4f} ms call "
+          f"{t_c[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
     if not (e <= K2_TOL and int(bad.sum()) == 0 and gather_exact):
         raise AssertionError(f"{kernel} disagrees with its plain version ({name})")
 
@@ -501,13 +531,23 @@ def knn_inputs(dev):
 
 def check_k2(dev):
     """vismask 1-NN (Cv=64), voting against points (k=5, Cv=3), completion
-    with query = cand and masked candidates (k=5, Cv=3)."""
+    with query = cand and masked candidates (k=5, Cv=3): the kernel's row.
+    Then the training step's vismask (B=4, N=2048, P=1024, k=1, Cv=64),
+    printed apart so that the three-case sum stays comparable."""
     vtx_f, pts_f, pts, flow, all_pts, visible = knn_inputs(dev)
     res = Timings()
     for case in (("vismask", vtx_f, pts_f, 1, all_pts, pts_f),
                  ("voting", vtx_f, pts_f, 5, all_pts, pts),
                  ("completion", vtx_f, vtx_f, 5, visible, flow)):
         _knn_case(dev, res, *case)
+    print(f"K2 over the three serving cases: device {res.device_ms:.4f} ms (the CUDA-core "
+          f"kernel before the redesign: {K2_DEVICE_MS_BEFORE} ms), call {res.call_ms:.4f} ms; composite device "
+          f"{res.composite_device_ms:.4f} ms call {res.composite_ms:.4f} ms")
+    g = torch.Generator(device=dev).manual_seed(4)
+    vtx = l2_normalize(torch.randn(TRAIN_B, 2048, 64, device=dev, generator=g))
+    pts_t = l2_normalize(torch.randn(TRAIN_B, P, 64, device=dev, generator=g))
+    ones = torch.ones(TRAIN_B, P, dtype=torch.bool, device=dev)
+    _knn_case(dev, None, "training vismask", vtx, pts_t, 1, ones, pts_t)
     return res
 
 
@@ -518,6 +558,9 @@ def check_k4(dev):
     for case in (("vismask", vtx_f, pts_f, 1, all_pts, None),
                  ("voting", vtx_f, pts_f, 5, all_pts, None)):
         _knn_case(dev, res, *case)
+    print(f"K4 over its two cases: device {res.device_ms:.4f} ms (the CUDA-core kernel "
+          f"before the redesign: {K4_DEVICE_MS_BEFORE} ms), call {res.call_ms:.4f} ms; composite device "
+          f"{res.composite_device_ms:.4f} ms call {res.composite_ms:.4f} ms")
     return res
 
 
@@ -591,7 +634,7 @@ def check_rigs(rigs, entries):
 # Substrings of each kernel's device-op names (K6: its kernel and the
 # partial-sum reduce it launches after it); no name holds another's.
 DEVICE_NAMES = {"K1": "edge_mlp_table_kernel", "K1-train": "edge_mlp_kernel",
-                "K2": "knn_kernel", "K3": "gather_rows_kernel", "K4": "knn_kernel",
+                "K2": "knn_wgmma_kernel", "K3": "gather_rows_kernel", "K4": "knn_wgmma_kernel",
                 "K5": "edge_mlp_windowed_kernel", "K6": ("edge_mlp_bwd_kernel", "sum_parts_kernel")}
 COUNTERS = {"K1": fused_edge_mlp, "K1-train": _edge_mlp_k6_twin, "K2": knn_batched,
             "K3": gather_rows, "K4": knn_topk, "K5": fused_edge_mlp_windowed,
@@ -660,6 +703,9 @@ KERNEL_NAMES = {k: DEVICE_NAMES[k] for k in ("K1", "K2", "K3", "K5")}
 K5_PATH2_MS_BEFORE = 43.5   # K5's device ms per path-2 call before its redesign (PERF.md)
 K1_PATH1_MS_BEFORE = 34.712  # K1's device ms per path-1 call before its redesign (PERF.md)
 K1_DEVICE_MS_BEFORE = 3.3017  # K1's phase-3 five-width device ms before its redesign (PERF.md)
+K2_DEVICE_MS_BEFORE = 0.9375  # K2's phase-3 three-case device ms before its redesign (PERF.md)
+K4_DEVICE_MS_BEFORE = 0.5933  # K4's phase-3 two-case device ms before its redesign (PERF.md)
+K2_PATH_MS_BEFORE = {"path 1": 0.967, "path 2": 0.968}  # K2 per call before (PERF.md)
 
 
 def device_events(prof):
@@ -717,7 +763,8 @@ def profile_programs(path: str, pred: RigPredictor, entries, frames, **kw):
     print(f"profile {path}: ported kernels' device ms per call: "
           + ", ".join(f"{k} {t:.3f}" for k, t in per_call.items())
           + (f" (K5 before its redesign: {K5_PATH2_MS_BEFORE} ms)" if per_call.get("K5") else "")
-          + (f" (K1 before its redesign: {K1_PATH1_MS_BEFORE} ms)" if per_call.get("K1") else ""))
+          + (f" (K1 before its redesign: {K1_PATH1_MS_BEFORE} ms)" if per_call.get("K1") else "")
+          + f" (K2 before its redesign: {K2_PATH_MS_BEFORE[path]} ms)")
 
 
 def profile_geometry(dev, entries, jc):

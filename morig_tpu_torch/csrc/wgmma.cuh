@@ -103,6 +103,16 @@ struct Wgmma<128> {
   }
 };
 
+// The descriptor of a bf16 B operand at shared-memory address `addr` (a
+// 32-bit shared-window address, 16-byte aligned) in the no-swizzle K-major
+// layout: core matrices of 8 columns x 8 k, 128 contiguous bytes each;
+// `lead` bytes between the two 8-k core matrices of one k16 step, `stride`
+// bytes between neighbouring 8-column core matrices.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }

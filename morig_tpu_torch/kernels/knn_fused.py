@@ -8,8 +8,9 @@ remaining slots hold index 0 and score -1e30 (an all-masked row returns
 index 0 everywhere); gathered = values[idx] exactly.
 
 `knn_batched` with `gather_values` launches K2, without it `knn_topk` (K4);
-both kernels are csrc/knn_topk.cu's, and on a CPU tensor both run
-`knn_plain`.  With `gather_values`, gradients flow as in the JAX package's
+both are csrc/knn_topk.cu's `knn_wgmma_kernel` (the similarity on wgmma,
+the top-k in registers, one instantiation for each k), and on a CPU tensor
+both run `knn_plain`.  With `gather_values`, gradients flow as in the JAX package's
 custom VJP (`_fused_g_bwd`): into the query and the selected candidate rows
 through the score, and into the selected value rows through the gathered
 values; the selection itself carries none.  The backward is plain PyTorch,
@@ -67,10 +68,16 @@ def _check(query, cand, k: int, cand_mask) -> None:
             raise ValueError("knn kernel: all tensors must be on one device")
 
 
+def _aligned_bf16(x):
+    """x as contiguous bf16 whose base is 16-byte aligned: the kernel copies
+    candidate rows in 16-byte pieces (a view that is not gets copied)."""
+    x = x.to(torch.bfloat16).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _outputs(query, cand, k, cand_mask):
     B, N, _ = query.shape
-    inputs = [query.to(torch.bfloat16).contiguous(), cand.to(torch.bfloat16).contiguous(),
-              cand_mask.contiguous()]
+    inputs = [_aligned_bf16(query), _aligned_bf16(cand), cand_mask.contiguous()]
     idx = torch.empty((B, N, k), dtype=torch.int64, device=query.device)
     score = torch.empty((B, N, k), dtype=torch.float32, device=query.device)
     return inputs, idx, score

@@ -15,7 +15,11 @@ row and views that are not 16-byte aligned, and K1 against K5 on local
 tables; K1's training twin (the trainable tail's forward) against its
 plain version, and the launch counters of serving and training kept
 apart; duplicate and masked kNN candidates, rows with fewer valid
-candidates than k, and for the windowed edge kernel K5
+candidates than k, for the kNN kernels K2 and K4 ragged query and
+candidate counts (partial 64-query slabs and 64-candidate tiles) at every
+k from the main path's and both gather widths, exact ties across the
+lanes of a quad and across tiles, misaligned views and the paths' shapes,
+and for the windowed edge kernel K5
 neighbours outside their window (a zero row), a tile of padding and a unit
 with dead upper slabs at every width, in both of its routes (window staged
 in shared memory at H <= 128, rows gathered per slab at H = 256), the row
@@ -430,6 +434,138 @@ def test_knn_without_values_kernel_matches_plain(cuda, k):
     assert not ((idx != ref_idx[..., :k]).any(-1) & decided).any()
     assert idx[0, 5, 0].item() == 20
     assert (idx[1] == 0).all() and (score[1] < -1e29).all()
+
+
+def _assert_knn_matches_plain(q, c, k, mask, values=None):
+    """K2 (values given) or K4 against knn_plain: scores within K2_TOL,
+    indices equal wherever the order is decided, empty slots (index 0,
+    score -1e30) where the plain version's are, the gather exact.  Returns
+    the kernel's (idx, score)."""
+    counter = kf.knn_topk if values is None else kf.knn_batched
+    before = counter.launches
+    out = kf.knn_batched(q, c, k, mask, gather_values=values)
+    idx, score = out[:2]
+    ref_idx, ref_score = kf.knn_plain(q, c, k + 1, mask)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert idx.shape == score.shape == (*q.shape[:2], k)
+    assert (score - ref_score[..., :k]).abs().max().item() <= K2_TOL
+    hi, lo = ref_score[..., :-1], ref_score[..., 1:]
+    gaps = torch.where((hi < kf.NEG / 2) & (lo < kf.NEG / 2),
+                       torch.full_like(hi, float("inf")), (hi - lo).abs())
+    decided = gaps.min(-1).values > K2_TOL
+    assert not ((idx != ref_idx[..., :k]).any(-1) & decided).any()
+    empty = ref_score[..., :k] < kf.NEG / 2
+    assert (idx[empty] == 0).all() and (score[empty] == kf.NEG).all()
+    if values is not None:
+        bsel = torch.arange(q.shape[0], device=q.device)[:, None, None]
+        assert torch.equal(out[2], values[bsel, idx])
+    return idx, score
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+@pytest.mark.parametrize("P", [1, 7, 64, 65, 129, 300])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 200])
+def test_knn_kernel_ragged_shapes(cuda, N, P, k):
+    """No multiple of a slab (64 queries) or a tile assumed: partial slabs
+    and tiles, fewer candidates than k, with the gather at Cv = 3 and 64
+    and without it."""
+    g = torch.Generator(device=cuda).manual_seed(N * 1000 + P * 10 + k)
+    q = torch.nn.functional.normalize(torch.randn(3, N, 64, device=cuda, generator=g), dim=-1)
+    c = torch.nn.functional.normalize(torch.randn(3, P, 64, device=cuda, generator=g), dim=-1)
+    mask = torch.rand(3, P, device=cuda, generator=g) < 0.8
+    mask[1] = False                             # an all-masked batch row
+    for Cv in (3, 64, None):
+        values = None if Cv is None else torch.randn(3, P, Cv, device=cuda, generator=g)
+        idx, score = _assert_knn_matches_plain(q, c, k, mask, values)
+        assert (idx[1] == 0).all() and (score[1] == kf.NEG).all()
+
+
+# 12 copies of one candidate: a pair one thread holds (2, 3), columns other
+# lanes of the same quad hold (4, 9), and columns of later tiles
+TIE_COLUMNS = [2, 3, 4, 9, 70, 130, 131, 200, 201, 255, 256, 299]
+
+
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("k", [5, 8])
+def test_knn_kernel_exact_ties(cuda, k, gather):
+    """A query equal to a candidate that sits at 12 columns: the k smallest
+    of those columns, in order, with bit-equal scores; in every slab."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    N, P = 130, 300
+    q = torch.nn.functional.normalize(torch.randn(2, N, 64, device=cuda, generator=g), dim=-1)
+    c = torch.nn.functional.normalize(torch.randn(2, P, 64, device=cuda, generator=g), dim=-1)
+    c[0, TIE_COLUMNS] = c[0, 2].clone()
+    rows = [0, 13, 64, 100, 129]                # queries in all three slabs
+    q[0, rows] = c[0, 2]
+    mask = torch.ones(2, P, dtype=torch.bool, device=cuda)
+    values = torch.randn(2, P, 3, device=cuda, generator=g) if gather else None
+    idx, score = _assert_knn_matches_plain(q, c, k, mask, values)
+    want = torch.tensor(TIE_COLUMNS[:k], device=cuda)
+    for n in rows:
+        assert torch.equal(idx[0, n], want), (n, idx[0, n].tolist())
+        assert (score[0, n] == score[0, n, 0]).all()
+    # each copy alone scores the same bits, whichever column holds it
+    for col in TIE_COLUMNS:
+        only = torch.zeros(1, P, dtype=torch.bool, device=cuda)
+        only[0, col] = True
+        alone_idx, alone = kf.knn_batched(q[:1, rows], c[:1], 1, only)
+        assert (alone_idx == col).all() and torch.equal(alone[0, :, 0], score[0, rows, 0])
+
+
+def test_knn_kernel_misaligned_views(cuda):
+    """q and c views whose base is 2 bytes past a 16-byte boundary are
+    copied to an aligned base by the wrapper."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    N, P = 97, 150
+    fq = torch.randn(2 * N * 64 + 1, device=cuda, generator=g).to(torch.bfloat16)
+    fc = torch.randn(2 * P * 64 + 1, device=cuda, generator=g).to(torch.bfloat16)
+    q, c = fq[1:].view(2, N, 64), fc[1:].view(2, P, 64)
+    assert q.data_ptr() % 16 == 2 and c.data_ptr() % 16 == 2
+    mask = torch.rand(2, P, device=cuda, generator=g) < 0.7
+    values = torch.randn(2, P, 64, device=cuda, generator=g)
+    for k in (1, 5):
+        _assert_knn_matches_plain(q, c, k, mask, values)
+        _assert_knn_matches_plain(q, c, k, mask)
+
+
+def _path_knn_inputs(dev):
+    """chip_smoke.py's kNN inputs: the serving path's B*T=20, V=1536,
+    P=1024 embeddings, points, flow and visibility."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    Bt, V, P = 20, 1536, 1024
+    vtx_f = torch.nn.functional.normalize(torch.randn(Bt, V, 64, device=dev, generator=g), dim=-1)
+    pts_f = torch.nn.functional.normalize(torch.randn(Bt, P, 64, device=dev, generator=g), dim=-1)
+    pts = torch.randn(Bt, P, 3, device=dev, generator=g)
+    flow = torch.randn(Bt, V, 3, device=dev, generator=g)
+    all_pts = torch.ones(Bt, P, dtype=torch.bool, device=dev)
+    visible = torch.rand(Bt, V, device=dev, generator=g) < 0.4
+    visible[0] = False
+    visible[1, 3:] = False
+    return vtx_f, pts_f, pts, flow, all_pts, visible
+
+
+@pytest.mark.parametrize("case", ["vismask", "voting", "completion", "voting_k4",
+                                  "train_vismask"])
+def test_knn_kernel_at_path_shapes(cuda, case):
+    """The serving path's three K2 cases (and voting without the gather, K4)
+    at B*T=20, V=1536, P=1024; the training step's vismask at B=4, N=2048,
+    P=1024, k=1, Cv=64."""
+    if case == "train_vismask":
+        g = torch.Generator(device=cuda).manual_seed(4)
+        vtx = torch.nn.functional.normalize(torch.randn(4, 2048, 64, device=cuda, generator=g),
+                                            dim=-1)
+        pts_f = torch.nn.functional.normalize(torch.randn(4, 1024, 64, device=cuda, generator=g),
+                                              dim=-1)
+        _assert_knn_matches_plain(vtx, pts_f, 1, torch.ones(4, 1024, dtype=torch.bool,
+                                                            device=cuda), pts_f)
+        return
+    vtx_f, pts_f, pts, flow, all_pts, visible = _path_knn_inputs(cuda)
+    args = {"vismask": (vtx_f, pts_f, 1, all_pts, pts_f),
+            "voting": (vtx_f, pts_f, 5, all_pts, pts),
+            "completion": (vtx_f, vtx_f, 5, visible, flow),
+            "voting_k4": (vtx_f, pts_f, 5, all_pts, None)}[case]
+    _assert_knn_matches_plain(*args)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])

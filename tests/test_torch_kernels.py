@@ -194,7 +194,7 @@ def _knn_inputs(seed, N=64, Pc=128, C=64):
     return q, c, mask, values
 
 
-@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
 def test_knn_matches_pallas_interpret(k):
     """K2 plain vs the fused Pallas kNN (interpret): identical indices
     (first index wins ties), scores to 1e-5 (fp32 sums of exact bf16
@@ -208,12 +208,12 @@ def test_knn_matches_pallas_interpret(k):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     assert_close(score, jscore, atol=1e-5, what="score")
     assert_close(gathered, jgath, atol=1e-6, rtol=2e-5, what="gathered")
-    if k == 5:
+    if k >= 5:
         assert (idx.numpy()[1, :, 3:] == 0).all() and (score.numpy()[1, :, 3:] < -1e29).all()
         assert idx.numpy()[0, 3, 0] == 17
 
 
-@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
 def test_knn_without_values_matches_pallas_interpret(k):
     """K4 plain vs the fused Pallas kNN without values (interpret):
     identical indices, scores to 1e-5."""
@@ -228,6 +228,33 @@ def test_knn_without_values_matches_pallas_interpret(k):
     assert_close(score, jscore, atol=1e-5, what="score")
     ref_idx, ref_score, _ = tkf.knn_plain(t(q), t(c), k, t(mask), t(c[..., :3]))
     assert torch.equal(idx, ref_idx) and torch.equal(score, ref_score)
+
+
+@pytest.mark.parametrize("gather", [False, True])
+def test_knn_exact_ties_match_pallas_interpret(gather):
+    """12 copies of one candidate (columns one thread of the card kernel
+    holds as a pair, other lanes of its quad, later tiles) and queries equal
+    to it: the plain version and the Pallas kernel both pick the five
+    smallest columns, with equal scores."""
+    ties = [2, 3, 4, 9, 70, 100, 101, 120, 121, 122, 126, 127]
+    q, c, mask, values = _knn_inputs(seed=21)
+    c[0, ties] = c[0, 2]
+    q[0, [0, 31, 63]] = c[0, 2]
+    mask[0, ties] = True
+    t = torch.as_tensor
+    if gather:
+        idx, score, _ = tkf.knn_batched(t(q), t(c), 5, t(mask), gather_values=t(values))
+        jidx, jscore, _ = jax_knn_batched(jnp.asarray(q), jnp.asarray(c), 5, jnp.asarray(mask),
+                                          gather_values=jnp.asarray(values), interpret=True)
+    else:
+        idx, score = tkf.knn_batched(t(q), t(c), 5, t(mask))
+        jidx, jscore = jkf._fused_raw(jnp.asarray(q), jnp.asarray(c), jnp.asarray(mask), 5,
+                                      interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert_close(score, jscore, atol=1e-5, what="score")
+    for n in (0, 31, 63):
+        np.testing.assert_array_equal(idx.numpy()[0, n], ties[:5])
+        assert (score.numpy()[0, n] == score.numpy()[0, n, 0]).all()
 
 
 def test_knn_all_masked_returns_slot_zero():
