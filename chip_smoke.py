@@ -14,7 +14,8 @@ Phases, each printing its own lines:
                at the shapes the paths give it (K1 also on random
                full-table neighbours at H=128 and 256; K5 also against K1,
                at B*T=20 and B=4; K1-train and K6 at the training path's
-               tables, K6 with exact ties; K2 also at the training step's
+               tables, K6 with exact ties, and K6's dW2 kernel alone against
+               its plain version; K2 also at the training step's
                vismask shape, printed apart from its three serving cases),
                with errors, tolerances, the least time the card could take
                (`bound_ms`) and two times per kernel: its device ms (the
@@ -88,8 +89,9 @@ from morig_tpu_torch.geometry.geodesic import surface_geodesic
 from morig_tpu_torch.geometry.voxel import voxelize_mesh
 from morig_tpu_torch.kernels import build as kb
 from morig_tpu_torch.kernels.edge_fused import (
-    _edge_mlp_k6_twin, edge_mlp_bwd_plain, edge_mlp_plain, edge_mlp_windowed_plain,
-    fused_edge_mlp, fused_edge_mlp_bwd, fused_edge_mlp_windowed)
+    _edge_mlp_k6_twin, bwd_step_tiles, edge_mlp_bwd_plain, edge_mlp_dw2_plain, edge_mlp_plain,
+    edge_mlp_windowed_plain, fused_edge_mlp, fused_edge_mlp_bwd, fused_edge_mlp_dw2,
+    fused_edge_mlp_windowed)
 from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows
 from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_topk
 from morig_tpu_torch.nn.corrnet import l2_normalize
@@ -120,6 +122,9 @@ K2_TOL = 1e-5     # fp32 sums of exact bf16 products, in another order; K4 too
 # for one vertex, also by their entries: fewer than K6_FRAC_TOL of them off
 # by more than K6_ELEM_TOL * max(max |plain|, 1).
 K6_L2_TOL, K6_ELEM_TOL, K6_FRAC_TOL = 1e-2, 1e-3, 1e-3
+# K6's dW2 kernel alone: the plain version's bf16 products summed in fp32 in
+# another order
+K6_DW2_TOL = 1e-5
 K6_NAMES = ("da", "db_table", "dw2", "db2", "dg1", "dbe1", "dg2", "dbe2")
 REPS = 20         # calls per kernel timing (and CUDA-event samples of the profiles)
 MAIN_REPS = 7     # timed calls of predict_rig_batch after the warm-up
@@ -259,14 +264,16 @@ def launch_skew_us(prof) -> float:
     return min(starts, default=math.inf) / 1e3
 
 
-def kernel_ms(fn, name=None) -> tuple[float, float]:
+def kernel_ms(fn, name=None, split=None) -> tuple[float, float]:
     """(device ms, call ms) of fn.  Device ms: under torch.profiler, the
     summed durations of the device ops of REPS calls whose name contains
     `name` (or one of a tuple of names; every device op of the calls where
     name is None), over REPS: the kernel's own time on the card, without its
     wrapper's host time.  Each call launches the same ops, so a profile must
     hold a whole, non-zero multiple of REPS of them, else it is taken again;
-    after PROFILE_TRIES it is `queued_ms` instead."""
+    after PROFILE_TRIES it is `queued_ms` instead.  `split` (a dict), where
+    given, gets each name's device ms per call (left empty after a
+    fallback)."""
     from torch.profiler import ProfilerActivity, profile
 
     t_call = call_ms(fn)
@@ -284,6 +291,9 @@ def kernel_ms(fn, name=None) -> tuple[float, float]:
                                               launch_skew_us(prof))
         if len(ops) >= REPS and len(ops) % REPS == 0:
             PROFILER_STATS["retried"] += attempt > 0
+            if split is not None:
+                split.update({n: sum(e.time_range.elapsed_us() for e in ops if n in e.name)
+                              / 1e3 / REPS for n in names})
             return sum(e.time_range.elapsed_us() for e in ops) / 1e3 / REPS, t_call
         print(f"profiler: {len(ops)} device ops named {name!r} in {REPS} calls (try "
               f"{attempt + 1} of {PROFILE_TRIES})")
@@ -431,7 +441,10 @@ def check_k6(dev, mesh):
     """The training path's edge widths over its tables (B=4, V=2048, D=12,
     the capsules PoseDataset pads), with neighbour column 1 a copy of column
     0 (exact ties in the max) and a seeded dout: every gradient against the
-    plain version's."""
+    plain version's, and K6's dW2 kernel alone against its plain version over
+    the tiles packed from the plain backward's h and ds.  Prints the device
+    ms of each of K6's kernels (main, dW2, the fixed-order sums) and their
+    sum over the four widths beside the kernel's before its redesign."""
     g = torch.Generator(device=dev).manual_seed(6)
     nbr, mask = mesh.tpl_nbr.clone(), mesh.tpl_mask.clone()
     nbr[:, :, 1], mask[:, :, 1] = nbr[:, :, 0], mask[:, :, 0]
@@ -455,12 +468,24 @@ def check_k6(dev, mesh):
                     and (frac <= K6_FRAC_TOL or not per_vertex)):
                 raise AssertionError(f"K6 disagrees with its plain version at H={H}: {parts[-1]}")
             worst = max(worst, err.max().item())
-        t_k = kernel_ms(lambda: fused_edge_mlp_bwd(*args, dout), DEVICE_NAMES["K6"])
+        tiles, live = bwd_step_tiles(*args, dout)
+        dw2_ref = edge_mlp_dw2_plain(tiles, live)
+        dw2_err = ((fused_edge_mlp_dw2(tiles, live) - dw2_ref).norm() / dw2_ref.norm()).item()
+        if not dw2_err <= K6_DW2_TOL:
+            raise AssertionError(f"K6's dW2 kernel disagrees with its plain version at H={H}: "
+                                 f"rel L2 {dw2_err}")
+        del tiles
+        split: dict = {}
+        t_k = kernel_ms(lambda: fused_edge_mlp_bwd(*args, dout), DEVICE_NAMES["K6"], split)
         t_p = call_ms(lambda: edge_mlp_bwd_plain(*args, dout))
         b = res.add(worst, t_k, t_p, *edge_cost(args + (dout,), nbytes(*got), 3))
-        print(f"K6 edge_mlp_bwd B={Bn} V={V} D={D} H={H} ({int(mask.sum())} valid edges): "
-              + "; ".join(parts) + f"; kernel device {t_k[0]:.4f} ms call {t_k[1]:.4f} ms; "
-              f"plain {t_p:.4f} ms; bound {b:.4f} ms")
+        print(f"K6 edge_mlp_bwd B={Bn} V={V} D={D} H={H} ({int(mask.sum())} valid edges, "
+              f"{int(live.sum())} of {live.numel()} steps live): " + "; ".join(parts)
+              + f"; dW2 kernel alone rel L2 {dw2_err:.3g} (tol {K6_DW2_TOL}); kernel device "
+              f"{t_k[0]:.4f} ms (" + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
+              + f") call {t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
+    print(f"K6 over the four widths at the training tables: device {res.device_ms:.4f} ms (the "
+          f"kernel before its redesign: {K6_DEVICE_MS_BEFORE} ms), call {res.call_ms:.4f} ms")
     return res
 
 
@@ -631,11 +656,13 @@ def check_rigs(rigs, entries):
             assert err <= 1e-3, f"rig {i}: skin rows off 1 by {err}"
 
 
-# Substrings of each kernel's device-op names (K6: its kernel and the
-# partial-sum reduce it launches after it); no name holds another's.
+# Substrings of each kernel's device-op names (K6: its main kernel, its dW2
+# kernel and the fixed-order sums it launches after them); no name holds
+# another's.
 DEVICE_NAMES = {"K1": "edge_mlp_table_kernel", "K1-train": "edge_mlp_kernel",
                 "K2": "knn_wgmma_kernel", "K3": "gather_rows_kernel", "K4": "knn_wgmma_kernel",
-                "K5": "edge_mlp_windowed_kernel", "K6": ("edge_mlp_bwd_kernel", "sum_parts_kernel")}
+                "K5": "edge_mlp_windowed_kernel",
+                "K6": ("edge_mlp_bwd_kernel", "edge_mlp_dw2_kernel", "sum_parts_kernel")}
 COUNTERS = {"K1": fused_edge_mlp, "K1-train": _edge_mlp_k6_twin, "K2": knn_batched,
             "K3": gather_rows, "K4": knn_topk, "K5": fused_edge_mlp_windowed,
             "K6": fused_edge_mlp_bwd}
@@ -706,6 +733,8 @@ K1_DEVICE_MS_BEFORE = 3.3017  # K1's phase-3 five-width device ms before its red
 K2_DEVICE_MS_BEFORE = 0.9375  # K2's phase-3 three-case device ms before its redesign (PERF.md)
 K4_DEVICE_MS_BEFORE = 0.5933  # K4's phase-3 two-case device ms before its redesign (PERF.md)
 K2_PATH_MS_BEFORE = {"path 1": 0.967, "path 2": 0.968}  # K2 per call before (PERF.md)
+K6_DEVICE_MS_BEFORE = 2.6982  # K6's phase-3 four-width device ms before its redesign (PERF.md)
+K6_STEP_MS_BEFORE = 5.29     # K6's device ms per training step before its redesign (PERF.md)
 
 
 def device_events(prof):
@@ -917,10 +946,12 @@ def profile_step(stage, state, batch, gen):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     ported = []
-    for k, sub in (("K1-train", DEVICE_NAMES["K1-train"]), ("K6", "edge_mlp_bwd_kernel"),
-                   ("K2", DEVICE_NAMES["K2"])):
-        n = sum(sub in e.name for e in dev)
-        ported.append(f"{k} {n} launches {sum(v for op, v in by_name.items() if sub in op):.2f} ms")
+    for k in ("K1-train", "K6", "K2"):
+        subs = DEVICE_NAMES[k] if isinstance(DEVICE_NAMES[k], tuple) else (DEVICE_NAMES[k],)
+        n = sum(subs[0] in e.name for e in dev)
+        t = sum(v for op, v in by_name.items() if any(sub in op for sub in subs))
+        ported.append(f"{k} {n} launches {t:.2f} ms"
+                      + (f" (before its redesign: {K6_STEP_MS_BEFORE} ms)" if k == "K6" else ""))
     idle = f"{1 - busy / wall:.3f}" if dev else "not measured (no device events)"
     print(f"profile train step: CUDA-event median {wall:.2f} ms; {len(dev)} device ops, busy "
           f"{busy:.2f} ms, idle share {idle}; " + "; ".join(ported))

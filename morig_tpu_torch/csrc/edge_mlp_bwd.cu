@@ -8,54 +8,192 @@
 //
 //   da (B,V,H1), db_table (B,V,H1), dW2 (H1,H2), db2, dg1, dbe1, dg2, dbe2
 //
-// in fp32.  The forward is recomputed in the kernel with K1's own step code
-// (edge_tail.cuh), so each recomputed per-edge output equals the one K1 gave
-// the loss bit for bit; the max backward then routes dout to the valid edges
-// that equal the max by exact equality, splitting ties equally (dout / count;
-// 0 on rows with no valid edge).  Then, in fp32 per edge row: LN2 backward,
-// relu, ds -> dh = bf16(ds) @ bf16(W2)^T and dW2 += bf16(h)^T @ bf16(ds) on
-// the tensor cores (WMMA, fp32 sums), LN1 backward, relu -> dx; da[v] is the
-// fp32 sum over v's edges of dx (d in order) and db_table[nbr] += bf16(dx),
-// the TPU kernel's precision (`precise=False`).
+// in fp32.  The forward is recomputed in the kernel with the training
+// forward's own step code (edge_tail.cuh `ln1_rows`, `dense`, `ln2_row`), so
+// each recomputed per-edge output equals the one the loss saw bit for bit;
+// the max backward then routes dout to the valid edges that equal the max by
+// exact equality, splitting ties equally (dout / count; 0 on rows with no
+// valid edge).  Then, in fp32 per edge row: LN2 backward, relu, ds; dh =
+// bf16(ds) @ bf16(W2)^T and dW2 = bf16(h)^T @ bf16(ds) on the tensor cores
+// (fp32 sums); LN1 backward, relu -> dx; da[v] is the fp32 sum over v's edges
+// of dx (d in order) and db_table[nbr] += bf16(dx), the TPU kernel's
+// precision (`precise=False`).
 //
 // What does not carry over from the TPU: there the grid runs in order, so the
 // db_table block and the dW2/vector sums stay resident across grid steps.
 // Here blocks run in parallel: db_table is a scatter of fp32 atomics into a
 // buffer the wrapper zeroes (the order of the adds varies from run to run, so
-// db_table is not bitwise deterministic); dW2 and the five vector sums are
-// per-block partials (dW2 read-modified-written by its owning warp in the
-// block's slice of a global buffer, the vectors in registers and then over
-// the block's warps in shared memory) summed over the blocks in a fixed order
-// by a second small kernel, so they are
-// deterministic for a given grid.
+// db_table is not bitwise deterministic); the five vector sums are per-block
+// partials and dW2 per-split partials of its own kernel, each added over the
+// blocks in a fixed order by `sum_parts_kernel`, so they are deterministic
+// for a given grid.
 //
-// Shared memory: W2 resident (bf16, up to 128 KB at 256x256), one step's h
-// (64 x H1 bf16) and y (64 x H2 fp32); ds (bf16) is written over the first
-// half of each y row, and dh (fp32) over y once both products have read ds.
-// x, xn1 and the LN1 sign are recomputed from a, b and the kept per-row
-// statistics instead of being held.  At H=256 that is 225 KB: one block of
-// 8 warps per SM.
+// Three kernels per call.
+//
+// `edge_mlp_bwd_kernel` walks 64-edge-row steps (the D edges of 64 / D
+// vertices) over a persistent grid of 8-warp blocks.  A step none of whose
+// edges is valid (mesh padding: about 37% of the training tables' steps)
+// writes its da rows as 0 and its live flag as 0 and does nothing else, so
+// the decision costs one block barrier (`__syncthreads_or` over the step's
+// mask).  A live step: (1) recomputes h (64 x H1 bf16) and y (64 x H2 fp32)
+// with the training forward's step code; (2) writes h to the step's scratch
+// tile; (3) the max and LN2 backward, one vertex per warp, write ds (bf16)
+// into the shared memory h left, laid out as the B operand of (4) dh^T = W2
+// ds^T, one `wgmma` m64nNk16 chain per 64 rows of W2 (A = W2's rows by
+// `ldmatrix` from its row-major staging, the one the recompute's WMMA
+// reads, so W2 is held once), while the block copies ds to the scratch tile;
+// dh lands over y as fp32 rows; (5) the LN1 backward runs one edge row per
+// warp over all 8 warps, a lane holding H1/32 contiguous channels (a and b
+// read 16 bytes at a time at H1 = 256), and writes dx over dh;
+// (6) da[v] sums v's dx rows in d order.
+//
+// `edge_mlp_dw2_kernel` computes dW2 = sum over live steps of h^T ds from
+// the scratch tiles: a block is one warpgroup on one 64-row slab of dW2's H1
+// rows (H1 / 64 slabs, or one below 64) and one split of the steps (step t
+// goes to split t mod S), its tiles through a three-stage cp.async ring; A
+// (h^T, by ldmatrix) and B (ds, by descriptor) are both read from the
+// no-swizzle K-major core-matrix layout the tile is written in: chunk (g, c)
+// of a 64 x H part, at byte 16 (g H + c), holds rows 8g .. 8g + 7 of column
+// c, so the 8 columns c = 8n .. 8n + 7 of row group g form one 128-byte core
+// matrix.  Products are m64nNk16 with N = H2 up to 128 (two at H2 = 256).
+// Each split writes its (H1, H2) partial; `sum_parts_kernel` adds the S
+// partials.
+//
+// Shared memory of the main kernel: W2 resident (bf16, up to 128 KB at
+// 256x256), one step's h (64 x H1 bf16, then ds in the dh B layout) and y
+// (64 x H2 fp32, then dh, then dx); x, xn1 and the LN1 sign are recomputed
+// from a, b and the kept per-row statistics.  At H=256 that is 225 KB: one
+// block of 8 warps per SM.
 //
 // What bounds it on the H100: three products of 2*E*H1*H2 FLOPs each (the
-// recompute, dh and dW2; E = B*V*D edge rows) against reading a, b, dout and
-// writing da and db_table, so the tensor cores at every width; this first
-// version runs WMMA at one block per SM at H=256 and re-reads dW2's partial
-// tiles from L2 on every step (see PERF.md for its time against the bound).
+// recompute, dh and dW2; E = the valid edge rows) against reading a, b, dout
+// and writing da and db_table, so the tensor cores at every width.  What
+// costs the time (PERF.md): the recompute's WMMA step code, kept bit for bit
+// because the route compares against its bits, and the per-vertex route.
 #include "edge_tail.cuh"
+#include "edge_wgmma.cuh"
 
 namespace {
 
 using namespace morig_edge;
+namespace wg = morig_wg;
+
+// Four 8x8 b16 matrices from shared memory, lane l giving the address of row
+// l % 8 of matrix l / 8; register j holds matrix j's row l / 4, elements
+// 2(l % 4), 2(l % 4) + 1: wgmma's A fragment where the four matrices are
+// (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(wg::smem_u32(p))
+               : "memory");
+}
+
+// 8 bf16 at p[0], p[ld], ..., p[7 ld] as one 16-byte chunk (p[0] first).
+__device__ __forceinline__ uint4 column8(const __nv_bfloat16* p, int ld) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = static_cast<uint32_t>(s[2 * k * ld]) | (static_cast<uint32_t>(s[(2 * k + 1) * ld]) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// P (1, 2, 4 or 8) contiguous bf16 as fp32, from a 2P-byte aligned address.
+template <int P>
+__device__ __forceinline__ void load_bf16_row(const __nv_bfloat16* p, float (&x)[P]) {
+  if constexpr (P == 8 || P == 4) {
+    wg::load_bf16<P>(p, x);
+  } else if constexpr (P == 2) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+    x[0] = __bfloat162float(*p);
+  }
+}
+
+// The element of (row r, column c) of a step's ds in the dh product's B
+// layout (K = H2 columns, N = 64 rows, K-major): core matrix (column group
+// c / 8, row group r / 8) at 128 (8 (c / 8) + r / 8) bytes, its 16-byte row r
+// % 8 holding columns 8 (c / 8) .. + 7.  kernels/edge_fused.py
+// `dh_operand_index` is the same map.
+__device__ __forceinline__ int dsb_index(int r, int c) {
+  return (((c >> 3) * 8 + (r >> 3)) * 64) + (r & 7) * 8 + (c & 7);
+}
 
 template <int H1, int H2>
 struct BwdLayout {
   using T = Tail<H1, H2>;
-  static constexpr size_t kH = T::kW2Bytes;             // hs
-  static constexpr size_t kY = kH + T::kHBytes;         // ys, then ds and dh
+  static constexpr size_t kH = T::kW2Bytes;             // hs, then ds (dh's B operand)
+  static constexpr size_t kY = kH + T::kHBytes;         // ys: y, then dh, then dx
   static constexpr size_t kStats = kY + T::kYBytes;     // per-row LN1 mu, inv
-  static constexpr size_t kBytes = kStats + 2 * kRows * sizeof(float);
+  static constexpr size_t kBits = kStats + 2 * kRows * sizeof(float);  // two steps' valid-row bits
+  static constexpr size_t kBytes = kBits + 2 * sizeof(unsigned long long);
   static constexpr int kVec = 2 * H1 + 3 * H2;          // dg1 | dbe1 | db2 | dg2 | dbe2
+  // 16-byte chunks of a step's scratch tile: 8 H1 of h, then 8 H2 of ds
+  static constexpr long long kTileChunks = 16LL * H1;
 };
+
+// dh^T = W2 ds^T for the step (ds in `dsb`), written into ys as dh rows
+// (fp32, row r at ys + r H1).  At H1 >= 128 warpgroup g takes W2's 64-row
+// slabs g, g + 2, ... against all 64 edge rows; below, the one slab (rows
+// past H1 zero) against its warpgroup's 32 edge rows.  `overlap` runs while
+// the first chain is in flight.
+template <int H1, int H2, class F>
+__device__ __forceinline__ void dh_product(const __nv_bfloat16* w2s, const __nv_bfloat16* dsb,
+                                           float* ys, F&& overlap) {
+  constexpr int kSlabs = H1 >= 64 ? H1 / 64 : 1;
+  constexpr int kN = H1 >= 128 ? 64 : 32;
+  constexpr int kPerWg = H1 >= 128 ? kSlabs / 2 : 1;
+  constexpr int KC = H2 / 16;                   // k-chunks of 16 columns of ds
+  constexpr int KB = KC < 8 ? KC : 8;           // k-chunks per chain (A registers held)
+  const int g = threadIdx.x / 128, w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int n0 = H1 >= 128 ? 0 : 32 * g;
+  const uint32_t dsb_u = wg::smem_u32(dsb);
+#pragma unroll 1
+  for (int k = 0; k < kPerWg; ++k) {
+    const int i0 = 64 * (H1 >= 128 ? g + 2 * k : 0) + 16 * w;   // this warp's 16 rows of W2
+    const __nv_bfloat16* arow =
+        w2s + (i0 + (lane / 8 & 1) * 8 + lane % 8) * H2 + (lane / 16) * 8;
+    float acc[kN / 2];
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < KC; c0 += KB) {
+      uint32_t afr[KB][4];
+#pragma unroll
+      for (int c = 0; c < KB; ++c) {
+        if (i0 < H1) {
+          ldmatrix_x4(afr[c], arow + 16 * (c0 + c));
+        } else {
+          afr[c][0] = afr[c][1] = afr[c][2] = afr[c][3] = 0u;
+        }
+      }
+      wg::wgmma_fence();
+      wg::fence_operands(acc);
+      wg::fence_operands(afr);
+#pragma unroll
+      for (int c = 0; c < KB; ++c)
+        wg::Wgmma<kN>::mma(acc, afr[c],
+                           wg::kmajor_desc(dsb_u + ((c0 + c) * 16 + n0 / 8) * 128, 1024, 128), 1);
+      wg::wgmma_commit();
+      if (k == 0 && c0 == 0) overlap();
+      wg::wgmma_wait_all();
+      wg::fence_operands(acc);
+      wg::fence_operands(afr);
+    }
+    if (i0 < H1) {
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = i0 + lane / 4 + 8 * (e >> 1), r = n0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          ys[r * H1 + i] = acc[4 * j + e];
+        }
+    }
+  }
+}
 
 template <int H1, int H2>
 __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
@@ -65,61 +203,97 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
     const float* __restrict__ g1, const float* __restrict__ be1,
     const float* __restrict__ g2, const float* __restrict__ be2,
     const float* __restrict__ dout, float* __restrict__ da, float* __restrict__ db,
-    float* __restrict__ dw2_part, float* __restrict__ vec_part, int B, int V, int D) {
-  static_assert(H1 == H2, "dh is written over the y buffer");
+    uint4* __restrict__ scratch, unsigned char* __restrict__ live,
+    float* __restrict__ vec_part, int B, int V, int D) {
+  static_assert(H1 == H2, "ds is written over hs and dh over ys");
   using T = Tail<H1, H2>;
   using L = BwdLayout<H1, H2>;
-  constexpr int C1 = T::C1, C2 = T::C2;
-  constexpr int kDsLd = 2 * H2;               // ds rows in bf16 elements, inside y rows
-  constexpr int NT1 = H1 / 16, NT2 = H2 / 16;
-  constexpr int FRH = (T::MT * NT1 + kWarps - 1) / kWarps;
+  constexpr int C2 = T::C2;
+  constexpr int P = H1 >= 32 ? H1 / 32 : 1;     // LN1-backward channels per lane, contiguous
   extern __shared__ __align__(128) unsigned char smem[];
   T tail(reinterpret_cast<__nv_bfloat16*>(smem), reinterpret_cast<__nv_bfloat16*>(smem + L::kH),
          reinterpret_cast<float*>(smem + L::kY), w2, b2, g1, be1, g2, be2);
   float* mu1 = reinterpret_cast<float*>(smem + L::kStats);
   float* inv1 = mu1 + kRows;
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(tail.ys);
-  float* dhs = tail.ys;
+  unsigned long long* rowbits = reinterpret_cast<unsigned long long*>(smem + L::kBits);
+  __nv_bfloat16* dsb = tail.hs;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = lane * P;                      // this lane's LN1-backward channels
+  const bool own = c0 < H1;
 
-  float acc_dg1[C1], acc_dbe1[C1], acc_db2[C2], acc_dg2[C2], acc_dbe2[C2];
+  float g1c[P], acc_dg1[P], acc_dbe1[P], acc_db2[C2], acc_dg2[C2], acc_dbe2[C2];
 #pragma unroll
-  for (int q = 0; q < C1; ++q) acc_dg1[q] = acc_dbe1[q] = 0.f;
+  for (int k = 0; k < P; ++k) {
+    g1c[k] = own ? g1[c0 + k] : 0.f;
+    acc_dg1[k] = acc_dbe1[k] = 0.f;
+  }
 #pragma unroll
   for (int q = 0; q < C2; ++q) acc_db2[q] = acc_dg2[q] = acc_dbe2[q] = 0.f;
-  float* part = dw2_part + static_cast<long long>(blockIdx.x) * H1 * H2;
 
   const int vpt = kRows / D;
   const int tiles_per_batch = (V + vpt - 1) / vpt;
   const long long total = static_cast<long long>(B) * tiles_per_batch;
-  bool first = true;
-  for (long long t = blockIdx.x; t < total; t += gridDim.x) {
+  int parity = 0;
+  for (long long t = blockIdx.x; t < total; t += gridDim.x, parity ^= 1) {
     const int bi = static_cast<int>(t / tiles_per_batch);
     const int v0 = static_cast<int>(t % tiles_per_batch) * vpt;
     const int nv = min(vpt, V - v0);
+    const long long vb = static_cast<long long>(bi) * V + v0;   // the step's first vertex
     const __nv_bfloat16* table = b + static_cast<long long>(bi) * V * H1;
 
-    // ---- recompute: h, y (K1's step code)
-    __syncthreads();   // the previous step is done with hs, ys and the statistics
+    // ---- live steps only.  The barrier also ends the previous step (its
+    // readers of hs, ys, the statistics and the other parity's row bits).
+    const bool valid = threadIdx.x < nv * D && mask[vb * D + threadIdx.x];
+    if (threadIdx.x < kRows) {
+      const unsigned bits = __ballot_sync(0xffffffffu, valid);
+      if (lane == 0) reinterpret_cast<unsigned*>(rowbits + parity)[warp] = bits;
+    }
+    const bool is_live = __syncthreads_or(valid);
+    if (threadIdx.x == 0) live[t] = is_live;
+    if (!is_live) {
+      for (int i = threadIdx.x; i < nv * H1; i += kThreads) da[vb * H1 + i] = 0.f;
+      continue;
+    }
+    const unsigned long long rows = rowbits[parity];
+    uint4* h_out = scratch + t * L::kTileChunks;
+    uint4* ds_out = h_out + 8 * H1;
+
+    // ---- recompute: h, y (the training forward's step code)
     tail.ln1_rows(bi, v0, nv, V, D, a, table, 0, V, 0, nbr, mask, mu1, inv1);
     __syncthreads();
     tail.dense();
 
-    // ---- max backward, LN2 backward, relu: ds (bf16) over each y row
+    // ---- h to the scratch tile: chunk (g, c) = rows 8g..8g+7 of column c
+    for (int e = threadIdx.x; e < 8 * H1; e += kThreads)
+      h_out[e] = column8(tail.hs + (e / H1) * 8 * H1 + e % H1, H1);
+    __syncthreads();   // hs is free for ds
+
+    // ---- max backward, LN2 backward, relu: ds (bf16) into dsb.  One pass
+    // over the vertex's valid rows finds the max and counts the rows equal
+    // to it (the count restarts where the max rises), a second computes ds.
     for (int vl = warp; vl < nv; vl += kWarps) {
-      const long long v = static_cast<long long>(bi) * V + v0 + vl;
-      const unsigned char* mrow = mask + v * D;
+      const long long v = vb + vl;
       float best[C2], share[C2], cnt[C2];
-      int n_valid;
-      tail.vertex_max(vl, D, mrow, best, n_valid);
+      int n_valid = 0;
 #pragma unroll
-      for (int q = 0; q < C2; ++q) cnt[q] = 0.f;
+      for (int q = 0; q < C2; ++q) {
+        best[q] = kNeg;
+        cnt[q] = 0.f;
+      }
       for (int d = 0; d < D; ++d) {
-        if (!mrow[d]) continue;
+        if (!(rows >> (vl * D + d) & 1ull)) continue;
+        ++n_valid;
         float s[C2], xn[C2], out[C2], inv;
         tail.ln2_row(vl * D + d, s, xn, out, inv);
 #pragma unroll
-        for (int q = 0; q < C2; ++q) cnt[q] += out[q] == best[q] ? 1.f : 0.f;
+        for (int q = 0; q < C2; ++q) {
+          if (out[q] > best[q]) {
+            best[q] = out[q];
+            cnt[q] = 1.f;
+          } else if (out[q] == best[q]) {
+            cnt[q] += 1.f;
+          }
+        }
       }
 #pragma unroll
       for (int q = 0; q < C2; ++q) {
@@ -129,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
       for (int d = 0; d < D; ++d) {
         const int r = vl * D + d;
         float ds[C2];
-        if (mrow[d]) {
+        if (rows >> r & 1ull) {
           float s[C2], xn[C2], out[C2], dxn[C2], inv;
           tail.ln2_row(r, s, xn, out, inv);
           float p1 = 0.f, p2 = 0.f;
@@ -152,127 +326,93 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
 #pragma unroll
           for (int q = 0; q < C2; ++q) ds[q] = 0.f;
         }
-        __syncwarp();   // the warp has read y row r before ds overwrites it
 #pragma unroll
         for (int q = 0; q < C2; ++q) {
           const int c = lane + 32 * q;
-          if (c < H2) dss[r * kDsLd + c] = __float2bfloat16(ds[q]);
+          if (c < H2) dsb[dsb_index(r, c)] = __float2bfloat16(ds[q]);
         }
       }
     }
     for (int i = threadIdx.x; i < (kRows - nv * D) * H2; i += kThreads)
-      dss[(nv * D + i / H2) * kDsLd + i % H2] = __float2bfloat16(0.f);
+      dsb[dsb_index(nv * D + i / H2, i % H2)] = __float2bfloat16(0.f);
+    wg::fence_async_shared();   // ds is visible to wgmma
     __syncthreads();
 
-    // ---- dW2 += h^T ds: each warp owns fixed tiles of the block's partial
-    for (int tix = warp; tix < NT1 * NT2; tix += kWarps) {
-      const int m = tix / NT2, n = tix % NT2;
-      float* tile = part + m * 16 * H2 + n * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      if (first) {
-        wmma::fill_fragment(acc, 0.f);
+    // ---- dh^T = W2 ds^T on wgmma into ys (y is dead), ds to the scratch
+    // tile while the first chain runs
+    dh_product<H1, H2>(tail.w2s, dsb, tail.ys, [&] {
+      for (int e = threadIdx.x; e < 8 * H2; e += kThreads) {
+        const int g = e / H2, o = e % H2;
+        ds_out[e] = column8(dsb + ((o >> 3) * 8 + g) * 64 + (o & 7), 8);
+      }
+    });
+    __syncthreads();
+
+    // ---- LN1 backward, relu, one edge row per warp: dx over dh, db scatter
+    for (int r = warp; r < nv * D; r += kWarps) {
+      if (!(rows >> r & 1ull)) continue;
+      const long long e = vb * D + r;
+      const long long j = nbr[e];
+      float* row = tail.ys + r * H1;
+      float x[P], bv[P], dh[P];
+      if (own) {
+        load_bf16_row<P>(a + (vb + r / D) * H1 + c0, x);
+        load_bf16_row<P>(table + j * H1 + c0, bv);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          x[k] = fmaxf(__fadd_rn(x[k], bv[k]), 0.f);
+          dh[k] = row[c0 + k];
+        }
       } else {
-        wmma::load_matrix_sync(acc, tile, H2, wmma::mem_row_major);
+#pragma unroll
+        for (int k = 0; k < P; ++k) x[k] = dh[k] = 0.f;
       }
+      const float mu = mu1[r], inv = inv1[r];
+      float xn[P], dxn[P], p1 = 0.f, p2 = 0.f;
 #pragma unroll
-      for (int k = 0; k < kRows / 16; ++k) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, tail.hs + k * 16 * H1 + m * 16, H1);
-        wmma::load_matrix_sync(fb, dss + k * 16 * kDsLd + n * 16, kDsLd);
-        wmma::mma_sync(acc, fa, fb, acc);
+      for (int k = 0; k < P; ++k) {
+        xn[k] = ln_norm(x[k], mu, inv);
+        acc_dg1[k] += dh[k] * xn[k];
+        acc_dbe1[k] += dh[k];
+        dxn[k] = dh[k] * g1c[k];
+        p1 += dxn[k];
+        p2 += dxn[k] * xn[k];
       }
-      wmma::store_matrix_sync(tile, acc, H2, wmma::mem_row_major);
-    }
-    first = false;
-
-    // ---- dh = ds @ W2^T
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> dacc[FRH];
+      const float m1 = warp_sum(p1) / H1, m2 = warp_sum(p2) / H1;
+      if (own) {
+        float* dbrow = db + (static_cast<long long>(bi) * V + j) * H1 + c0;
 #pragma unroll
-    for (int f = 0; f < FRH; ++f) {
-      const int tix = warp + f * kWarps;
-      wmma::fill_fragment(dacc[f], 0.f);
-      if (tix < T::MT * NT1) {
-        const int m = tix / NT1, n = tix % NT1;
-#pragma unroll
-        for (int k = 0; k < NT2; ++k) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, dss + m * 16 * kDsLd + k * 16, kDsLd);
-          wmma::load_matrix_sync(fb, tail.w2s + n * 16 * H2 + k * 16, H2);
-          wmma::mma_sync(dacc[f], fa, fb, dacc[f]);
+        for (int k = 0; k < P; ++k) {
+          // x holds relu(a + b): positive exactly where a + b is
+          const float dx = x[k] > 0.f ? (dxn[k] - m1 - xn[k] * m2) * inv : 0.f;
+          row[c0 + k] = dx;
+          atomicAdd(dbrow + k, __bfloat162float(__float2bfloat16(dx)));
         }
-      }
-    }
-    __syncthreads();   // both products are done reading ds before dh overwrites it
-#pragma unroll
-    for (int f = 0; f < FRH; ++f) {
-      const int tix = warp + f * kWarps;
-      if (tix < T::MT * NT1) {
-        const int m = tix / NT1, n = tix % NT1;
-        wmma::store_matrix_sync(dhs + m * 16 * H1 + n * 16, dacc[f], H1, wmma::mem_row_major);
       }
     }
     __syncthreads();
 
-    // ---- LN1 backward, relu: dx; da (sum over the vertex's edges), db scatter
-    for (int vl = warp; vl < nv; vl += kWarps) {
-      const long long v = static_cast<long long>(bi) * V + v0 + vl;
-      const __nv_bfloat16* ar = a + v * H1;
-      float dav[C1];
-#pragma unroll
-      for (int q = 0; q < C1; ++q) dav[q] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const long long e = v * D + d;
-        if (!mask[e]) continue;
-        const int r = vl * D + d;
-        const long long j = nbr[e];
-        float x[C1], xn[C1], dxn[C1];
-        tail.edge_input(ar, table + j * H1, x);
-        const float mu = mu1[r], inv = inv1[r];
-        float p1 = 0.f, p2 = 0.f;
-#pragma unroll
-        for (int q = 0; q < C1; ++q) {
-          const int c = lane + 32 * q;
-          const float dh = c < H1 ? dhs[r * H1 + c] : 0.f;
-          xn[q] = ln_norm(x[q], mu, inv);
-          acc_dg1[q] += dh * xn[q];
-          acc_dbe1[q] += dh;
-          dxn[q] = dh * tail.g1r[q];
-          p1 += dxn[q];
-          p2 += dxn[q] * xn[q];
-        }
-        const float m1 = warp_sum(p1) / H1, m2 = warp_sum(p2) / H1;
-        float* dbrow = db + (static_cast<long long>(bi) * V + j) * H1;
-#pragma unroll
-        for (int q = 0; q < C1; ++q) {
-          const int c = lane + 32 * q;
-          // x holds relu(a + b): positive exactly where a + b is
-          const float dx = x[q] > 0.f ? (dxn[q] - m1 - xn[q] * m2) * inv : 0.f;
-          dav[q] += dx;
-          if (c < H1) atomicAdd(dbrow + c, __bfloat162float(__float2bfloat16(dx)));
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < C1; ++q) {
-        const int c = lane + 32 * q;
-        if (c < H1) da[v * H1 + c] = dav[q];
-      }
+    // ---- da[v]: the sum of v's valid dx rows, d in order
+    for (int i = threadIdx.x; i < nv * H1; i += kThreads) {
+      const int vl = i / H1, c = i % H1;
+      float s = 0.f;
+      for (int d = 0; d < D; ++d)
+        if (rows >> (vl * D + d) & 1ull) s += tail.ys[(vl * D + d) * H1 + c];
+      da[vb * H1 + i] = s;
     }
   }
 
   // ---- the block's vector partial: each warp's sums through shared memory
-  // (ys is free once the last step is done with dh), added over the warps in
+  // (ys is free once the last step is done with dx), added over the warps in
   // order into the block's row of vec_part
   static_assert(kWarps * L::kVec * sizeof(float) <= T::kYBytes, "warp partials fit in ys");
   float* vp = tail.ys + warp * L::kVec;
   __syncthreads();
+  if (own) {
 #pragma unroll
-  for (int q = 0; q < C1; ++q) {
-    const int c = lane + 32 * q;
-    if (c < H1) {
-      vp[c] = acc_dg1[q];
-      vp[H1 + c] = acc_dbe1[q];
+    for (int k = 0; k < P; ++k) {
+      vp[c0 + k] = acc_dg1[k];
+      vp[H1 + c0 + k] = acc_dbe1[k];
     }
   }
 #pragma unroll
@@ -292,18 +432,150 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
   }
 }
 
-// out[i] = sum over p in order of part[p, i]: the fixed-order reduction of
-// the per-block partials.
-__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                 int n_parts, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < n_parts; ++p) s += part[static_cast<long long>(p) * n + i];
-  out[i] = s;
+// ---------------------------------------------------------------------------
+// dW2 = sum over the live steps of h^T ds, from the scratch tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kDw2Threads = 128;   // one warpgroup
+constexpr int kDw2Stages = 3;
+
+template <int H>
+struct Dw2Layout {
+  static constexpr int kMW = H < 64 ? H : 64;          // h columns of a block's slab
+  static constexpr int kNW = H < 128 ? H : 128;        // columns of one product
+  static constexpr size_t kA = 8 * kMW * 16;           // the slab's h^T in a stage
+  static constexpr size_t kStage = kA + 8 * H * 16;    // then ds
+  static constexpr size_t kBytes = kDw2Stages * kStage;
+};
+
+// Block (split, slab): dW2 rows 64 slab .. + 63 (all H rows below 64) over
+// the live steps t = split, split + S, ... of n_steps; writes its rows of
+// part[split] (H x H fp32).  live[t] != 0 marks a step whose tile was
+// written.
+template <int H>
+__global__ void __launch_bounds__(kDw2Threads) edge_mlp_dw2_kernel(
+    const uint4* __restrict__ scratch, const unsigned char* __restrict__ live, int n_steps,
+    float* __restrict__ part) {
+  using L = Dw2Layout<H>;
+  constexpr int NP = H / L::kNW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
+  const int split = blockIdx.x, slab = blockIdx.y, S = gridDim.x;
+  auto next_live = [&](int t) {
+    while (t < n_steps && !live[t]) t += S;
+    return t;
+  };
+  auto load = [&](int stage, int t) {
+    unsigned char* st = smem + stage * L::kStage;
+    const uint4* tile = scratch + static_cast<long long>(t) * 16 * H;
+    for (int e = tid; e < 8 * L::kMW; e += kDw2Threads)
+      wg::cp_async16(st + e * 16, tile + (e / L::kMW) * H + slab * 64 + e % L::kMW);
+    for (int e = tid; e < 8 * H; e += kDw2Threads)
+      wg::cp_async16(st + L::kA + e * 16, tile + 8 * H + e);
+  };
+
+  float acc[NP][L::kNW / 2];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < L::kNW / 2; ++j) acc[p][j] = 0.f;
+
+  // the ring's first stages, one commit group each
+  int t_next = next_live(split), issued = 0;
+#pragma unroll
+  for (int s = 0; s < kDw2Stages - 1; ++s) {
+    if (t_next < n_steps) {
+      load(issued++ % kDw2Stages, t_next);
+      t_next = next_live(t_next + S);
+    }
+    wg::cp_async_commit();
+  }
+  const bool rows_ok = 16 * w < L::kMW;          // warps past H's rows multiply zeros
+  for (int k = 0; k < issued; ++k) {
+    if (t_next < n_steps) {                       // into the stage the last tile freed
+      load(issued++ % kDw2Stages, t_next);
+      t_next = next_live(t_next + S);
+    }
+    wg::cp_async_commit();
+    wg::cp_async_wait_group<kDw2Stages - 1>();        // tile k's copies have landed
+    wg::fence_async_shared();                         // ... and are visible to wgmma
+    __syncthreads();
+    const unsigned char* st = smem + (k % kDw2Stages) * L::kStage;
+    uint32_t afr[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (rows_ok) {
+        const int m = 16 * w + (l / 8 & 1) * 8 + l % 8, g = 2 * c + l / 16;
+        ldmatrix_x4(afr[c], st + (g * L::kMW + m) * 16);
+      } else {
+        afr[c][0] = afr[c][1] = afr[c][2] = afr[c][3] = 0u;
+      }
+    }
+    const uint32_t bu = wg::smem_u32(st + L::kA);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg::fence_operands(acc[p]);
+    wg::fence_operands(afr);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        wg::Wgmma<L::kNW>::mma(acc[p], afr[c],
+                               wg::kmajor_desc(bu + (2 * c * H + p * L::kNW) * 16, 16 * H, 128), 1);
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) wg::fence_operands(acc[p]);
+    wg::fence_operands(afr);
+    __syncthreads();                              // every warp is done with this stage
+  }
+
+  if (rows_ok) {
+    float* out = part + static_cast<long long>(split) * H * H;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < L::kNW / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = slab * 64 + 16 * w + l / 4 + 8 * h;
+          const int o = p * L::kNW + 8 * j + 2 * (l % 4);
+          *reinterpret_cast<float2*>(out + i * H + o) =
+              make_float2(acc[p][4 * j + 2 * h], acc[p][4 * j + 2 * h + 1]);
+        }
+  }
 }
 
-// The persistent grid of K6 at width H for B*V vertices of degree D.
+// out[i] = sum over p in order of part[p, i]: the fixed-order reduction of
+// the per-block partials.  A block takes 32 consecutive i; its 8 warps sum
+// the parts p = warp, warp + 8, ... in order, then the 8 sums are added in
+// warp order.
+__global__ void __launch_bounds__(256) sum_parts_kernel(const float* __restrict__ part,
+                                                        float* __restrict__ out, int n_parts,
+                                                        int n) {
+  __shared__ float red[8][32];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  float s = 0.f;
+  if (i < n)
+    for (int p = w; p < n_parts; p += 8) s += part[static_cast<long long>(p) * n + i];
+  red[w][lane] = s;
+  __syncthreads();
+  if (w == 0 && i < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t += red[k][lane];
+    out[i] = t;
+  }
+}
+
+cudaError_t sum_parts(const float* part, float* out, int n_parts, int n, cudaStream_t s) {
+  sum_parts_kernel<<<(n + 31) / 32, 256, 0, s>>>(part, out, n_parts, n);
+  return cudaGetLastError();
+}
+
+// The persistent grid of K6's main kernel at width H for B*V vertices of
+// degree D.
 template <int H>
 cudaError_t bwd_grid(int B, int V, int D, int* grid) {
   static GridCache cache;
@@ -312,21 +584,61 @@ cudaError_t bwd_grid(int B, int V, int D, int* grid) {
                          static_cast<long long>(B) * ((V + vpt - 1) / vpt), cache, grid);
 }
 
-cudaError_t sum_parts(const float* part, float* out, int n_parts, int n, cudaStream_t s) {
-  sum_parts_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, out, n_parts, n);
-  return cudaGetLastError();
+// The dW2 kernel's splits at width H: one wave of blocks over the SMs, H/64
+// slabs each (one below 64).  Sets its shared-memory size once.
+template <int H>
+cudaError_t dw2_grid(int* splits) {
+  static int cached = 0;
+  if (cached == 0) {
+    cudaError_t err = cudaFuncSetAttribute(edge_mlp_dw2_kernel<H>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(Dw2Layout<H>::kBytes));
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int slabs = H < 64 ? 1 : H / 64;
+    cached = sms / slabs > 0 ? sms / slabs : 1;
+  }
+  *splits = cached;
+  return cudaSuccess;
+}
+
+template <int H>
+cudaError_t grids(int B, int V, int D, int* grid, int* splits) {
+  cudaError_t err = bwd_grid<H>(B, V, D, grid);
+  return err != cudaSuccess ? err : dw2_grid<H>(splits);
+}
+
+template <int H>
+cudaError_t launch_dw2(const void* scratch, const void* live, int n_steps, void* dw2_part,
+                       void* dw2, int splits, cudaStream_t s) {
+  int g = 0;
+  cudaError_t err = dw2_grid<H>(&g);
+  if (err != cudaSuccess) return err;
+  if (g != splits) return cudaErrorInvalidValue;   // partials sized for another grid
+  edge_mlp_dw2_kernel<H><<<dim3(g, H < 64 ? 1 : H / 64), kDw2Threads, Dw2Layout<H>::kBytes, s>>>(
+      static_cast<const uint4*>(scratch), static_cast<const unsigned char*>(live), n_steps,
+      static_cast<float*>(dw2_part));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_parts(static_cast<const float*>(dw2_part), static_cast<float*>(dw2), g, H * H, s);
 }
 
 template <int H>
 cudaError_t launch_bwd(const void* a, const void* b, const void* nbr, const void* mask,
                        const void* w2, const void* b2, const void* g1, const void* be1,
                        const void* g2, const void* be2, const void* dout, void* da, void* db,
-                       void* dw2, void* vec, void* dw2_part, void* vec_part, int B, int V,
-                       int D, int grid, cudaStream_t s) {
+                       void* dw2, void* vec, void* scratch, void* live, void* dw2_part,
+                       void* vec_part, int B, int V, int D, int grid, int splits,
+                       cudaStream_t s) {
   int g = 0;
   cudaError_t err = bwd_grid<H>(B, V, D, &g);
   if (err != cudaSuccess) return err;
   if (g != grid) return cudaErrorInvalidValue;   // partials sized for another grid
+  const int vpt = kRows / D;
+  const long long n_steps = static_cast<long long>(B) * ((V + vpt - 1) / vpt);
+  if (n_steps > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (g > 0) {
     edge_mlp_bwd_kernel<H, H><<<g, kThreads, BwdLayout<H, H>::kBytes, s>>>(
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
@@ -335,12 +647,14 @@ cudaError_t launch_bwd(const void* a, const void* b, const void* nbr, const void
         static_cast<const float*>(g1), static_cast<const float*>(be1),
         static_cast<const float*>(g2), static_cast<const float*>(be2),
         static_cast<const float*>(dout), static_cast<float*>(da), static_cast<float*>(db),
-        static_cast<float*>(dw2_part), static_cast<float*>(vec_part), B, V, D);
+        static_cast<uint4*>(scratch), static_cast<unsigned char*>(live),
+        static_cast<float*>(vec_part), B, V, D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  // with no blocks (an empty batch) the sums of zero partials write zeros
-  err = sum_parts(static_cast<const float*>(dw2_part), static_cast<float*>(dw2), g, H * H, s);
+  // with no steps (an empty batch) the dW2 blocks find no tile and the sums
+  // of zero partials write zeros
+  err = launch_dw2<H>(scratch, live, static_cast<int>(n_steps), dw2_part, dw2, splits, s);
   if (err != cudaSuccess) return err;
   return sum_parts(static_cast<const float*>(vec_part), static_cast<float*>(vec), g,
                    BwdLayout<H, H>::kVec, s);
@@ -348,44 +662,67 @@ cudaError_t launch_bwd(const void* a, const void* b, const void* nbr, const void
 
 }  // namespace
 
-// The grid K6 will launch for these shapes: the wrapper sizes the partial
-// buffers with it (dw2_part (grid, H1, H2), vec_part (grid, 2*H1 + 3*H2)).
-extern "C" int edge_mlp_backward_grid(int B, int V, int D, int H1, int H2, int* grid) {
-  if (H1 != H2 || D < 1 || D > 16) return static_cast<int>(cudaErrorInvalidValue);
-  switch (H1) {
-    case 16: return bwd_grid<16>(B, V, D, grid);
-    case 32: return bwd_grid<32>(B, V, D, grid);
-    case 64: return bwd_grid<64>(B, V, D, grid);
-    case 128: return bwd_grid<128>(B, V, D, grid);
-    case 256: return bwd_grid<256>(B, V, D, grid);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define MORIG_BWD_WIDTHS(CALL) \
+  switch (H1) {                \
+    case 16: return CALL(16);  \
+    case 32: return CALL(32);  \
+    case 64: return CALL(64);  \
+    case 128: return CALL(128); \
+    case 256: return CALL(256); \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
   }
+
+// The grids K6 will launch for these shapes: the main kernel's `grid` (the
+// wrapper sizes vec_part (grid, 2*H1 + 3*H2) with it) and the dW2 kernel's
+// `splits` (dw2_part (splits, H1, H2)).
+extern "C" int edge_mlp_backward_grid(int B, int V, int D, int H1, int H2, int* grid,
+                                      int* splits) {
+  if (H1 != H2 || D < 1 || D > 16) return static_cast<int>(cudaErrorInvalidValue);
+#define MORIG_GRID(H) grids<H>(B, V, D, grid, splits)
+  MORIG_BWD_WIDTHS(MORIG_GRID)
+#undef MORIG_GRID
 }
 
 // a, b (B,V,H) bf16; nbr (B,V,D) int64; mask (B,V,D) bool; w2 (H,H) bf16;
 // b2, g1, be1, g2, be2 (H,) fp32; dout (B,V,H) fp32.  Writes da (B,V,H),
 // adds into db (B,V,H, zeroed by the caller), writes dw2 (H,H) and vec
-// (5H: dg1 | dbe1 | db2 | dg2 | dbe2), all fp32, using the partial buffers.
-// Requires H1 == H2 in {16, 32, 64, 128, 256}, 1 <= D <= 16, every nbr entry
-// in [0, V) and `grid` from edge_mlp_backward_grid.  Returns the first
-// cudaGetLastError() of its three launches.
+// (5H: dg1 | dbe1 | db2 | dg2 | dbe2), all fp32, using scratch (per step
+// 256 H bytes: B * ceil(V / (64 / D)) steps), live (a byte per step) and the
+// partial buffers.  Requires H1 == H2 in {16, 32, 64, 128, 256}, 1 <= D <=
+// 16, every nbr entry in [0, V) and `grid`, `splits` from
+// edge_mlp_backward_grid.  Returns the first cudaGetLastError() of its four
+// launches.
 extern "C" int edge_mlp_backward(const void* a, const void* b, const void* nbr, const void* mask,
                                  const void* w2, const void* b2, const void* g1, const void* be1,
                                  const void* g2, const void* be2, const void* dout, void* da,
-                                 void* db, void* dw2, void* vec, void* dw2_part, void* vec_part,
-                                 int B, int V, int D, int H1, int H2, int grid, void* stream) {
+                                 void* db, void* dw2, void* vec, void* scratch, void* live,
+                                 void* dw2_part, void* vec_part, int B, int V, int D, int H1,
+                                 int H2, int grid, int splits, void* stream) {
   if (H1 != H2 || D < 1 || D > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MORIG_BWD(H)                                                                       \
-  launch_bwd<H>(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, da, db, dw2, vec, dw2_part, \
-                vec_part, B, V, D, grid, s)
-  switch (H1) {
-    case 16: return MORIG_BWD(16);
-    case 32: return MORIG_BWD(32);
-    case 64: return MORIG_BWD(64);
-    case 128: return MORIG_BWD(128);
-    case 256: return MORIG_BWD(256);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  launch_bwd<H>(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, da, db, dw2, vec, scratch, \
+                live, dw2_part, vec_part, B, V, D, grid, splits, s)
+  MORIG_BWD_WIDTHS(MORIG_BWD)
 #undef MORIG_BWD
 }
+
+// The dW2 kernel alone: dw2 (H,H) fp32 = sum over the steps t < n_steps with
+// live[t] != 0 of h_t^T ds_t from scratch (per step an h and a ds part of 64
+// x H bf16 in the chunk layout above; kernels/edge_fused.py
+// `pack_dw2_scratch`), through dw2_part (splits, H, H).
+extern "C" int edge_mlp_dw2_grid(int H1, int* splits) {
+#define MORIG_SPLITS(H) dw2_grid<H>(splits)
+  MORIG_BWD_WIDTHS(MORIG_SPLITS)
+#undef MORIG_SPLITS
+}
+
+extern "C" int edge_mlp_dw2(const void* scratch, const void* live, void* dw2_part, void* dw2,
+                            int n_steps, int H1, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define MORIG_DW2(H) launch_dw2<H>(scratch, live, n_steps, dw2_part, dw2, splits, s)
+  MORIG_BWD_WIDTHS(MORIG_DW2)
+#undef MORIG_DW2
+}
+
+#undef MORIG_BWD_WIDTHS

@@ -91,15 +91,6 @@ constexpr size_t kSmem =
 constexpr float kNeg = -1e30f;
 static_assert(kNC % 32 == 0 && kNC <= kThreads && (8 * kNC) % kThreads == 0, "tile shape");
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // Candidate rows [p0, p0 + kNC) of one batch row into a ring stage: chunk g
 // (channels 8g..8g+7) of row n to byte (g * kNC + n) * 16.  A warp copies 8
 // rows x 4 chunks per instruction, so each 8-lane phase writes 8 rows' chunks
@@ -297,8 +288,8 @@ __global__ void __launch_bounds__(kThreads) knn_wgmma_kernel(
       m_ahead = read_mask(mask_b, ahead * kNC, P, tid);
     }
     wg::cp_async_commit();
-    cp_async_wait_group<kStages - 1>();      // this tile's copies have landed
-    fence_async_shared();                    // ... and are visible to wgmma
+    wg::cp_async_wait_group<kStages - 1>();      // this tile's copies have landed
+    wg::fence_async_shared();                    // ... and are visible to wgmma
     __syncthreads();
     const int stage = tile % kStages;
     const uint32_t base = wg::smem_u32(smem + stage * kTileBytes);

@@ -14,11 +14,13 @@ whole table; K5 (`fused_edge_mlp_windowed`) reads it from its vertex tile's
 window of 3 tiles, for meshes whose neighbours are local
 (`check_neighbor_locality`).  Both run the wgmma step code
 (csrc/edge_wgmma.cuh).  K6 (`fused_edge_mlp_bwd`) is the one-pass backward
-with an in-kernel recompute of the forward, and `fused_edge_mlp_trainable`
-the autograd Function of the training path: its forward is K1's training
-twin (`_edge_mlp_k6_twin`, on csrc/edge_tail.cuh's WMMA step code, which
-K6's recompute repeats bit for bit so that its max routes by exact
-equality), its backward K6.  Each launches its CUDA kernel
+with an in-kernel recompute of the forward (dW2 in a kernel of its own over
+scratch tiles the main kernel writes; `fused_edge_mlp_dw2` runs it alone),
+and `fused_edge_mlp_trainable` the autograd Function of the training path:
+its forward is K1's training twin (`_edge_mlp_k6_twin`, on
+csrc/edge_tail.cuh's WMMA step code, which K6's recompute repeats bit for
+bit so that its max routes by exact equality), its backward K6.  Each
+launches its CUDA kernel
 (csrc/edge_mlp.cu, csrc/edge_mlp_bwd.cu) for a CUDA tensor and runs its
 plain version (`edge_mlp_plain`, `edge_mlp_windowed_plain`,
 `edge_mlp_bwd_plain`) for a CPU tensor.
@@ -255,18 +257,9 @@ fused_edge_mlp_windowed.launches = 0
 # K6: the backward of K1, and the trainable tail
 # ---------------------------------------------------------------------------
 
-def edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: bool = False):
-    """Plain PyTorch version of K6: the gradients of `edge_mlp_plain` given
-    dout (B,V,H2), as (da, db_table, dw2, db2, dg1, dbe1, dg2, dbe2), fp32.
-
-    The forward is recomputed with edge_mlp_plain's own operations, so the
-    max backward routes dout to the valid edges equal to the max the loss
-    saw, split equally between ties (0 where a row has no valid edge).
-    Precision as the TPU kernel's `precise=False`: a, b rounded to bf16,
-    bf16 operands with fp32 sums for dh = ds W2^T, dW2 = h^T ds and the
-    scatter of bf16(dx) into db_table; da and the vector sums in fp32.
-    `precise=True` takes a and b as given and runs every product in fp32
-    (the TPU kernel's formula check)."""
+def _bwd_plain_parts(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: bool = False):
+    """`edge_mlp_bwd_plain`'s gradients and its per-edge h and ds (B,V,D,H),
+    rounded as the products take them."""
     mx = torch.float32 if precise else torch.bfloat16
 
     def rnd(t):
@@ -290,16 +283,150 @@ def edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise:
     dx = torch.where(x > 0, _ln_bwd(dh, g1, xn1, inv1), torch.zeros_like(x))
     db = scatter_rows(nbr, rnd(dx), b.shape[1])
     dims = (0, 1, 2)
-    return (dx.sum(2), db, dw2, ds.sum(dims), (dh * xn1).sum(dims), dh.sum(dims),
-            (dy * xn2).sum(dims), dy.sum(dims))
+    grads = (dx.sum(2), db, dw2, ds.sum(dims), (dh * xn1).sum(dims), dh.sum(dims),
+             (dy * xn2).sum(dims), dy.sum(dims))
+    return grads, rnd(h), rnd(ds)
+
+
+def edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: bool = False):
+    """Plain PyTorch version of K6: the gradients of `edge_mlp_plain` given
+    dout (B,V,H2), as (da, db_table, dw2, db2, dg1, dbe1, dg2, dbe2), fp32.
+
+    The forward is recomputed with edge_mlp_plain's own operations, so the
+    max backward routes dout to the valid edges equal to the max the loss
+    saw, split equally between ties (0 where a row has no valid edge).
+    Precision as the TPU kernel's `precise=False`: a, b rounded to bf16,
+    bf16 operands with fp32 sums for dh = ds W2^T, dW2 = h^T ds and the
+    scatter of bf16(dx) into db_table; da and the vector sums in fp32.
+    `precise=True` takes a and b as given and runs every product in fp32
+    (the TPU kernel's formula check)."""
+    return _bwd_plain_parts(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise)[0]
+
+
+# K6's dW2 runs in its own kernel (csrc/edge_mlp_bwd.cu `edge_mlp_dw2_kernel`)
+# over a scratch tile per 64-edge-row step that the main kernel writes: the
+# step's h and ds (64 x H bf16 each, zero rows for masked edges and past the
+# step's vertices), each in wgmma's no-swizzle K-major core-matrix layout.
+
+STEP_ROWS = 64
+
+
+def dw2_scratch_index(h: int) -> torch.Tensor:
+    """(64, h) int64: where (row r, column c) of a step's h or ds lies in its
+    64*h-element part of the scratch tile.  16-byte chunk (g, c), at element
+    8 (g h + c), holds rows 8g .. 8g + 7 of column c, so the chunks of
+    columns 8n .. 8n + 7 of row group g are one 128-byte core matrix: the
+    K-major layout of h^T (M = columns, K = rows) and of ds (K = rows, N =
+    columns) that the dW2 kernel reads by ldmatrix and by descriptor."""
+    r = torch.arange(STEP_ROWS)[:, None]
+    c = torch.arange(h)[None, :]
+    return ((r // 8) * h + c) * 8 + r % 8
+
+
+def dh_operand_index(h: int) -> torch.Tensor:
+    """(64, h) int64: where (row r, column c) of a step's ds lies in K6's
+    shared-memory B operand of dh^T = W2 ds^T (K = columns, N = rows,
+    K-major; csrc/edge_mlp_bwd.cu `dsb_index`): core matrix (c // 8, r // 8)
+    at element 64 (8 (c // 8) + r // 8), its row r % 8 holding columns
+    8 (c // 8) .. + 7."""
+    r = torch.arange(STEP_ROWS)[:, None]
+    c = torch.arange(h)[None, :]
+    return ((c // 8) * 8 + r // 8) * 64 + (r % 8) * 8 + c % 8
+
+
+def step_rows(x: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-edge rows x (B,V,D,H) as K6's steps see them: (n_steps, 64, H)
+    with step t = (batch row t // S, vertices (t % S) * (64 // D) ..) for S
+    steps per batch row, row vl * D + d the edge d of its vertex vl, zero
+    rows for masked edges and past the step's vertices; and live (n_steps,)
+    bool, whether the step has a valid edge."""
+    B, V, D, H = x.shape
+    vpt = STEP_ROWS // D
+    S = -(-V // vpt)
+    pad = S * vpt - V
+    xm = torch.nn.functional.pad(x * mask[..., None], (0, 0, 0, 0, 0, pad))
+    mm = torch.nn.functional.pad(mask, (0, 0, 0, pad))
+    rows = xm.reshape(B * S, vpt * D, H)
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, STEP_ROWS - vpt * D))
+    return rows, mm.reshape(B * S, vpt * D).any(dim=1)
+
+
+def pack_dw2_scratch(h: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
+    """Scratch tiles (n_steps, 128 H) bf16 from the steps' h and ds
+    (n_steps, 64, H): the h part, then the ds part, each in
+    `dw2_scratch_index` order."""
+    n, _, H = h.shape
+    idx = dw2_scratch_index(H).to(h.device).reshape(-1)
+    out = torch.empty((n, 2, STEP_ROWS * H), dtype=torch.bfloat16, device=h.device)
+    out[:, 0, idx] = h.reshape(n, -1).to(torch.bfloat16)
+    out[:, 1, idx] = ds.reshape(n, -1).to(torch.bfloat16)
+    return out.reshape(n, -1)
+
+
+def bwd_step_tiles(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
+    """The scratch tiles and live flags K6's main kernel writes for these
+    inputs (`edge_mlp_bwd_plain`'s arguments), from the plain backward's own
+    h and ds: (tiles (n_steps, 128 H) bf16, live (n_steps,) bool)."""
+    _, h, ds = _bwd_plain_parts(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout)
+    (h_steps, live), (ds_steps, _) = step_rows(h, mask), step_rows(ds, mask)
+    return pack_dw2_scratch(h_steps, ds_steps), live
+
+
+def edge_mlp_dw2_plain(scratch: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6's dW2 kernel: the sum over the live steps
+    of h^T ds from scratch tiles (n_steps, 128 H) bf16 (`pack_dw2_scratch`),
+    fp32 (H, H); the tiles of dead steps are not read."""
+    H = scratch.shape[1] // (2 * STEP_ROWS)
+    idx = dw2_scratch_index(H).to(scratch.device).reshape(-1)
+    tiles = scratch[live].reshape(-1, 2, STEP_ROWS * H)[:, :, idx].float()
+    tiles = tiles.reshape(-1, 2, STEP_ROWS, H)
+    return torch.einsum("tri,tro->io", tiles[:, 0], tiles[:, 1])
+
+
+def _dw2_splits(lib, H: int) -> int:
+    splits = ctypes.c_int(0)
+    kb.check(lib.edge_mlp_dw2_grid(H, ctypes.byref(splits)), "edge_mlp_dw2_grid")
+    return splits.value
+
+
+def fused_edge_mlp_dw2(scratch: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """K6's dW2 kernel on its own (the backward launches it itself).  Same
+    arguments and result as `edge_mlp_dw2_plain`; live is bool.
+    Deterministic for a given grid."""
+    if not scratch.is_cuda:
+        return edge_mlp_dw2_plain(scratch, live)
+    n = scratch.shape[0]
+    H = scratch.shape[1] // (2 * STEP_ROWS)
+    if (scratch.dtype != torch.bfloat16 or H not in WIDTHS or scratch.shape[1] != 2 * STEP_ROWS * H
+            or live.shape != (n,) or live.dtype != torch.bool or live.device != scratch.device):
+        raise ValueError("edge_mlp dW2 kernel takes bf16 (n, 128 H) tiles and a bool (n,) live")
+    scratch = scratch.contiguous()
+    lib = kb.library()
+    splits = _dw2_splits(lib, H)
+    part = torch.empty((splits, H, H), dtype=torch.float32, device=scratch.device)
+    dw2 = torch.empty((H, H), dtype=torch.float32, device=scratch.device)
+    flags = live.to(torch.uint8)
+    err = lib.edge_mlp_dw2(scratch.data_ptr(), flags.data_ptr(), part.data_ptr(), dw2.data_ptr(),
+                           n, H, splits, kb.stream(scratch.device))
+    kb.check(err, "edge_mlp_dw2")
+    fused_edge_mlp_dw2.launches += 1
+    return dw2
+
+
+fused_edge_mlp_dw2.launches = 0
 
 
 def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
     """K6.  Same arguments (a, b bf16) and result as `edge_mlp_bwd_plain`;
     db_table is summed with fp32 atomics, so its last bits vary between
-    runs; the other gradients are deterministic."""
+    runs; the other gradients are deterministic.  Four launches (the main
+    kernel, the dW2 kernel over its scratch tiles and two fixed-order sums),
+    counted as one."""
     if not a.is_cuda:
         return edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout)
+    # the LN1 backward reads a and b rows 16 bytes at a time
+    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format) for t in (a, b))
     args, _ = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, H1 = a.shape
     D, H2 = nbr.shape[-1], w2.shape[1]
@@ -307,17 +434,21 @@ def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
         raise ValueError("edge_mlp backward kernel takes an fp32 (B,V,H2) dout on a's device")
     dout = dout.contiguous()
     lib = kb.library()
-    grid = ctypes.c_int(0)
-    kb.check(lib.edge_mlp_backward_grid(B, V, D, H1, H2, ctypes.byref(grid)),
+    grid, splits = ctypes.c_int(0), ctypes.c_int(0)
+    kb.check(lib.edge_mlp_backward_grid(B, V, D, H1, H2, ctypes.byref(grid), ctypes.byref(splits)),
              "edge_mlp_backward_grid")
+    vpt = STEP_ROWS // D
+    n_steps = B * -(-V // vpt)
     f32 = dict(dtype=torch.float32, device=a.device)
     da, db = torch.empty((B, V, H1), **f32), torch.zeros((B, V, H1), **f32)
     dw2, vec = torch.empty((H1, H2), **f32), torch.empty(2 * H1 + 3 * H2, **f32)
-    dw2_part = torch.empty((grid.value, H1, H2), **f32)
+    scratch = torch.empty((n_steps, 2 * STEP_ROWS * H1), dtype=torch.bfloat16, device=a.device)
+    live = torch.empty(n_steps, dtype=torch.uint8, device=a.device)
+    dw2_part = torch.empty((splits.value, H1, H2), **f32)
     vec_part = torch.empty((grid.value, vec.numel()), **f32)
-    outs = [dout, da, db, dw2, vec, dw2_part, vec_part]
+    outs = [dout, da, db, dw2, vec, scratch, live, dw2_part, vec_part]
     err = lib.edge_mlp_backward(*(t.data_ptr() for t in args + outs), B, V, D, H1, H2,
-                                grid.value, kb.stream(a.device))
+                                grid.value, splits.value, kb.stream(a.device))
     kb.check(err, "edge_mlp_backward")
     fused_edge_mlp_bwd.launches += 1
     dg1, dbe1, db2, dg2, dbe2 = torch.split(vec, [H1, H1, H2, H2, H2])

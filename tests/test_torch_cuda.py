@@ -25,7 +25,9 @@ with dead upper slabs at every width, in both of its routes (window staged
 in shared memory at H <= 128, rows gathered per slab at H = 256), the row
 gather K3 at every row class and the main path's shapes, and for the edge
 backward K6 exact ties in the max (a
-duplicated neighbour column) and rows with no valid edge.  Shapes and types
+duplicated neighbour column), rows with no valid edge, whole dead steps, an
+all-masked batch and ragged last steps, and K6's dW2 kernel alone at 1, 2
+and its grid +- 1 live tiles.  Shapes and types
 a kernel does not take raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -230,6 +232,112 @@ def test_trainable_tail_on_card_matches_cpu_plain(cuda):
         grads.append([t.grad.cpu() for t in leaves])
     torch.cuda.synchronize()
     assert_k6_close(grads[0], grads[1])
+
+
+WIDTHS = [16, 32, 64, 128, 256]
+
+
+@pytest.mark.parametrize("H", WIDTHS)
+def test_edge_mlp_bwd_skips_dead_steps(cuda, H):
+    """Whole dead 64-row steps: 80 consecutive vertices of batch row 0 with
+    no valid edge (960 masked rows at D=12) and batch row 1 all padding.
+    K6 against its plain version; the dead vertices' da rows and batch row
+    1's db_table rows are exactly 0."""
+    args, dout = _bwd_args(cuda, H, seed=H + 40)
+    args[3][0, 100:180] = False
+    args[3][1] = False
+    got = ef.fused_edge_mlp_bwd(*args, dout)
+    ref = ef.edge_mlp_bwd_plain(*args, dout)
+    torch.cuda.synchronize()
+    assert_k6_close(got, ref)
+    assert (got[0][0, 100:180] == 0).all() and (got[0][1] == 0).all() and (got[1][1] == 0).all()
+
+
+@pytest.mark.parametrize("H", WIDTHS)
+def test_edge_mlp_bwd_all_masked_is_zero(cuda, H):
+    """A batch with no valid edge: no step is live, no dW2 tile exists, and
+    every gradient is exactly 0."""
+    args, dout = _bwd_args(cuda, H, seed=H + 50)
+    args[3].fill_(False)
+    got = ef.fused_edge_mlp_bwd(*args, dout)
+    torch.cuda.synchronize()
+    for name, x in zip(K6_NAMES, got):
+        assert (x == 0).all(), name
+
+
+@pytest.mark.parametrize("V,D", [(302, 12), (67, 16), (33, 4), (13, 12)])
+@pytest.mark.parametrize("H", [32, 256])
+def test_edge_mlp_bwd_ragged_last_step(cuda, H, V, D):
+    """V not a multiple of a step's 64 // D vertices: the last step of each
+    batch row holds 2 of 5 (V=302, D=12), 3 of 4 (V=67, D=16), 1 of 16 (V=33,
+    D=4) or 3 of 5 (V=13) vertices.  Against the same inputs with the last
+    step filled by vertices with no valid edge (the same steps, tiles, grid
+    and recomputed bits, so the same routes): da, dW2 and the vector
+    gradients bit for bit, db_table to its atomics' order, the filler's da
+    rows 0.  The plain version is held in test_edge_mlp_bwd_kernel_matches_plain
+    (V=301 is ragged too): here a near-tie of the max that the kernel's and
+    the plain version's bf16 roundings route apart would move a whole
+    vertex's rows, more than K6_FRAC_TOL at V=67, so a plain comparison
+    would hold only for chosen seeds."""
+    args, dout = _bwd_args(cuda, H, D=D, V=V, seed=H + V)
+    got = ef.fused_edge_mlp_bwd(*args, dout)
+    vpt = 64 // D
+    pad = -V % vpt
+    a, b, nbr, mask, *rest = args
+    full = [torch.cat([t, torch.zeros_like(t[:, :pad])], 1) for t in (a, b, nbr, mask)]
+    fill = ef.fused_edge_mlp_bwd(*full, *rest, torch.cat([dout, dout[:, :pad]], 1))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in got)
+    assert (fill[0][:, V:] == 0).all()
+    for name, x, y in zip(K6_NAMES, got, fill):
+        y = y[:, :V] if name in ("da", "db_table") else y
+        if name == "db_table":
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("H", [64, 128, 256])
+def test_edge_mlp_bwd_misaligned_views(cuda, H):
+    """a and b views 2 bytes past a 16-byte boundary (the LN1 backward reads
+    their rows in 4-16-byte pieces, so the wrapper copies them)."""
+    args, dout = _bwd_args(cuda, H, seed=H + 60)
+    a, b = (torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape) for t in args[:2])
+    assert a.data_ptr() % 16 == 2 and b.data_ptr() % 16 == 2
+    got = ef.fused_edge_mlp_bwd(a, b, *args[2:], dout)
+    ref = ef.edge_mlp_bwd_plain(*args, dout)
+    torch.cuda.synchronize()
+    assert_k6_close(got, ref)
+
+
+@pytest.mark.parametrize("which", ["1", "2", "grid-1", "grid", "grid+1"])
+@pytest.mark.parametrize("H", WIDTHS)
+def test_edge_mlp_dw2_kernel_matches_plain(cuda, H, which):
+    """K6's dW2 kernel alone over packed scratch tiles with 1, 2, and its
+    grid's split count - 1, + 0, + 1 live tiles among dead ones (whose tiles
+    hold NaN: they must not be read), against its plain version (fp32 sums
+    of the same bf16 products in another order); twice, bit for bit."""
+    from morig_tpu_torch.kernels import build as kb
+
+    splits = ef._dw2_splits(kb.library(), H)
+    n_live = max(1, {"1": 1, "2": 2, "grid-1": splits - 1, "grid": splits,
+                     "grid+1": splits + 1}[which])
+    g = torch.Generator(device=cuda).manual_seed(H + n_live)
+    n = 2 * n_live + 3
+    live = torch.zeros(n, dtype=torch.bool, device=cuda)
+    live[torch.randperm(n, device=cuda, generator=g)[:n_live]] = True
+    h = torch.randn(n, 64, H, device=cuda, generator=g)
+    ds = torch.randn(n, 64, H, device=cuda, generator=g)
+    scratch = ef.pack_dw2_scratch(h, ds)
+    scratch[~live] = float("nan")
+    before = ef.fused_edge_mlp_dw2.launches
+    got = ef.fused_edge_mlp_dw2(scratch, live)
+    again = ef.fused_edge_mlp_dw2(scratch, live)
+    ref = ef.edge_mlp_dw2_plain(scratch, live)
+    torch.cuda.synchronize()
+    assert ef.fused_edge_mlp_dw2.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
 
 
 # One parameter's gradient after a CorrNet training step, and the whole

@@ -1,6 +1,8 @@
 """The port's kernel functions (K1 edge MLP, K2 kNN + gather, K3 row gather,
 K4 kNN, K5 windowed edge MLP) against the JAX package's Pallas kernels, run
-in interpret mode on the CPU.
+in interpret mode on the CPU; the layouts the wgmma kernels read (K1/K5's
+W2, K6's dW2 scratch tiles and dh operand) written out on the CPU, and
+K6's dW2 plain version against the plain backward's dW2.
 
 On a CPU tensor each port wrapper runs its plain PyTorch version, which is
 what these tests hold against JAX; the CUDA kernels themselves are checked
@@ -165,6 +167,108 @@ def test_wgmma_w2_layout_matches_fragment_order(H):
                                    atol=1e-4)
 
 
+def _bf16(x):
+    return torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_dw2_scratch_layout_matches_descriptor_reads(H):
+    """K6's dW2 kernel (csrc/edge_mlp_bwd.cu `edge_mlp_dw2_kernel`) written
+    out on the CPU over one `pack_dw2_scratch` tile: block slab s copies
+    chunk (g, 64 s + c) of the h part to stage chunk g * MW + c (MW = min(H,
+    64)); warp w's ldmatrix reads, for k-chunk c, matrix j = lane / 8 at
+    stage chunk (2c + j // 2) * MW + 16 w + 8 (j % 2) + row, which gives A =
+    h^T (rows of the slab, k = the step's rows); B = ds is read through the
+    descriptor (start 16 (2c H + n0) bytes into the ds part, 16 H bytes
+    between the two 8-k groups, 128 between 8-column core matrices).  A @ B
+    must be the slab's rows of h^T ds."""
+    rng = np.random.default_rng(H)
+    h = _bf16(rng.standard_normal((64, H)).astype(np.float32))
+    ds = _bf16(rng.standard_normal((64, H)).astype(np.float32))
+    tile = tef.pack_dw2_scratch(torch.as_tensor(h)[None], torch.as_tensor(ds)[None])
+    tile = tile.float().numpy().reshape(2, 64 * H)
+    hpart, dspart = tile[0].reshape(8 * H, 8), tile[1]
+    MW, NW = min(H, 64), min(H, 128)
+    for s in range(max(1, H // 64)):
+        stage = np.stack([hpart[(e // MW) * H + s * 64 + e % MW] for e in range(8 * MW)])
+        A = np.zeros((64, 64), np.float32)
+        for w in range(MW // 16):
+            for c in range(4):
+                for j in range(4):
+                    for row in range(8):
+                        chunk = (2 * c + j // 2) * MW + 16 * w + 8 * (j % 2) + row
+                        A[16 * w + 8 * (j % 2) + row, 16 * c + 8 * (j // 2):][:8] = stage[chunk]
+        for n0 in range(0, H, NW):
+            B = np.empty((64, NW), np.float32)
+            for k in range(64):
+                c, kk, kin = k // 16, (k % 16) // 8, k % 8
+                for n in range(NW):
+                    byte = (2 * c * H + n0) * 16 + kk * 16 * H + (n // 8) * 128 + (n % 8) * 16 + kin * 2
+                    B[k, n] = dspart[byte // 2]
+            ref = h.T @ ds
+            np.testing.assert_allclose((A @ B)[:MW], ref[64 * s:64 * s + MW, n0:n0 + NW],
+                                       rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_dh_operand_layout_matches_descriptor_reads(H):
+    """K6's dh^T = W2 ds^T written out on the CPU: A = W2's rows by ldmatrix
+    from the row-major staging (warp w of slab s, k-chunk c: lane l gives row
+    64 s + 16 w + 8 (l / 8 % 2) + l % 8, column 16 c + 8 (l / 16)), B = ds
+    placed by `dh_operand_index` and read through the descriptor (start 128
+    (16 c + n0 / 8) bytes, 1024 between the two 8-k groups, 128 between
+    8-row core matrices), for each warpgroup's edge rows n0 .. n0 + N - 1
+    (N = 64 at H >= 128, else 32)."""
+    rng = np.random.default_rng(H + 1)
+    w2 = _bf16(rng.standard_normal((H, H)).astype(np.float32))
+    ds = _bf16(rng.standard_normal((64, H)).astype(np.float32))
+    dsb = np.zeros(64 * H, np.float32)
+    dsb[tef.dh_operand_index(H).numpy().reshape(-1)] = ds.reshape(-1)
+    assert sorted(tef.dh_operand_index(H).numpy().reshape(-1)) == list(range(64 * H))
+    N = 64 if H >= 128 else 32
+    rows = 64 * max(1, H // 64)
+    A = np.zeros((rows, H), np.float32)
+    for s in range(max(1, H // 64)):
+        for w in range(4):
+            if 64 * s + 16 * w >= H:
+                continue
+            for c in range(H // 16):
+                for lane in range(32):
+                    r = 64 * s + 16 * w + 8 * (lane // 8 % 2) + lane % 8
+                    col = 16 * c + 8 * (lane // 16)
+                    A[r, col:col + 8] = w2[r, col:col + 8]
+    for n0 in range(0, 64, N):
+        B = np.empty((H, N), np.float32)
+        for k in range(H):
+            c, kk, kin = k // 16, (k % 16) // 8, k % 8
+            for n in range(N):
+                byte = (16 * c + n0 // 8) * 128 + kk * 1024 + (n // 8) * 128 + (n % 8) * 16 + kin * 2
+                B[k, n] = dsb[byte // 2]
+        np.testing.assert_allclose((A @ B)[:H], (ds @ w2.T).T[:, n0:n0 + N], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
+def test_dw2_plain_over_packed_scratch_is_the_plain_backward_dw2(H):
+    """K6's dW2 kernel's plain version over the scratch tiles packed from
+    the plain backward's own h and ds (`bwd_step_tiles`: the tiles the
+    main kernel writes) equals `edge_mlp_bwd_plain`'s dW2,
+    with whole dead steps (vertices 40-99 have no valid edge) and a ragged
+    last step (V=128 is not a multiple of 64 // 12 = 5): the same fp32 sums
+    of bf16 products in another order, 1e-5 of the largest entry."""
+    a, b, nbr, mask, w2, vecs = _edge_inputs(H, seed=H + 7)
+    mask[0, 40:100] = False
+    t = torch.as_tensor
+    args = (t(a).to(torch.bfloat16), t(b).to(torch.bfloat16), t(nbr).long(), t(mask), t(w2),
+            *map(t, vecs))
+    dout = t(np.random.default_rng(H).standard_normal((B, V, H)).astype(np.float32))
+    tiles, live = tef.bwd_step_tiles(*args, dout)
+    assert tiles.shape == (B * 26, 128 * H) and live.shape == (B * 26,)
+    assert live.sum() <= B * 26 - 12                                 # whole dead steps
+    ref = tef.edge_mlp_bwd_plain(*args, dout)[2]
+    got = tef.fused_edge_mlp_dw2(tiles, live)
+    assert_close(got, ref, atol=1e-5 * float(ref.abs().max()), what="dw2")
+
+
 def test_edge_wrapper_on_cpu_is_the_plain_version():
     a, b, nbr, mask, w2, vecs = _edge_inputs(32, seed=1)
     t = torch.as_tensor
@@ -174,6 +278,23 @@ def test_edge_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(tef.fused_edge_mlp(*args), tef.edge_mlp_plain(*args))
     assert torch.equal(tef._edge_mlp_k6_twin(*args), tef.edge_mlp_plain(*args))
     assert (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches) == before
+
+
+def test_dw2_wrapper_on_cpu_is_the_plain_version():
+    """On CPU tiles K6's dW2 wrapper is its plain version and launches
+    nothing; a dead step's tile is not read (NaN there changes nothing)."""
+    rng = np.random.default_rng(3)
+    h, ds = (torch.as_tensor(rng.standard_normal((5, 64, 32)).astype(np.float32))
+             for _ in range(2))
+    scratch = tef.pack_dw2_scratch(h, ds)
+    live = torch.tensor([True, False, True, True, False])
+    ref = tef.edge_mlp_dw2_plain(scratch, live)
+    scratch[~live] = float("nan")
+    before = tef.fused_edge_mlp_dw2.launches
+    assert torch.equal(tef.fused_edge_mlp_dw2(scratch, live), ref)
+    assert tef.fused_edge_mlp_dw2.launches == before
+    h16, ds16 = (x.to(torch.bfloat16).float()[live] for x in (h, ds))
+    assert_close(ref, torch.einsum("tri,tro->io", h16, ds16), atol=1e-4, what="dw2")
 
 
 def _unit(rng, shape):
