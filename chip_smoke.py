@@ -7,16 +7,18 @@ Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
   2. build   — compiles the kernels from csrc/ with nvcc (sm_90a), one
                process per source, all started together;
-  3. kernels — each of K1 (edge MLP, serving), K1-train (K1's training
-               twin, the trainable tail's forward), K2 (kNN + gather), K3
-               (row gather), K4 (kNN), K5 (windowed edge MLP) and K6 (edge
-               MLP backward) against its plain PyTorch version on the card,
-               at the shapes the paths give it (K1 also on random
-               full-table neighbours at H=128 and 256; K5 also against K1,
-               at B*T=20 and B=4; K1-train and K6 at the training path's
-               tables, K6 with exact ties, and K6's dW2 kernel alone against
-               its plain version; K2 also at the training step's
-               vismask shape, printed apart from its three serving cases),
+  3. kernels — each of K1 (edge MLP, the forward of serving and of
+               training), K2 (kNN + gather), K3 (row gather), K4 (kNN), K5
+               (windowed edge MLP) and K6 (edge MLP backward) against its
+               plain PyTorch version on the card, at the shapes the paths
+               give it (K1 also on random full-table neighbours at H=128
+               and 256 and at the training path's tables, printed apart
+               from its serving sum; K5 also against K1, at B*T=20 and B=4;
+               K6 at the training path's tables with exact ties, its
+               recomputed forward against K1's output bit for bit, and
+               K6's dW2 kernel alone against its plain version; K2 also at
+               the training step's vismask shape, printed apart from its
+               three serving cases),
                with errors, tolerances, the least time the card could take
                (`bound_ms`) and two times per kernel: its device ms (the
                summed durations of its own launches under torch.profiler
@@ -33,7 +35,7 @@ Phases, each printing its own lines:
                (V=1298 padded to 1536, degree-12 tables, P=1024, T=5) with
                seeded random weights (heads included), in two
                configurations.  Path 1: no voxels, euclidean skin
-               distances, every edge layer on K1 (K1-train = 0).  Path 2
+               distances, every edge layer on K1 (K6 = 0).  Path 2
                (bench.py phase A's serving configuration): an 88^3 voxel
                grid and the surface-geodesic matrix per mesh, a device
                cache, the edge dispatch `auto_select_edge_impl(entries,
@@ -57,12 +59,12 @@ Phases, each printing its own lines:
                steps on the same batch, each checked (finite loss and
                gradient norm, parameters moved); the kernel counts are
                zeroed just before the first timed step and read just after
-               it (K1-train = K6 = 8, K2 = 1, K1 = K3 = K4 = K5 = 0); then
+               it (K1 = K6 = 8, K2 = 1, K3 = K4 = K5 = 0); then
                one `eval_step`.  Prints the step's median and quartiles,
                steps/s, peak device memory and the first and last total
                loss, which must be lower; with --profile also the step's
-               device ops, busy time and idle share and K1-train's and K6's
-               time.
+               device ops, busy time and idle share and K1's, K6's and
+               K2's time.
 Then a JSON line of kernel results (launches counted in the main paths'
 counted runs: path 1, path 2 and the training step; `ms` and `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
@@ -89,7 +91,7 @@ from morig_tpu_torch.geometry.geodesic import surface_geodesic
 from morig_tpu_torch.geometry.voxel import voxelize_mesh
 from morig_tpu_torch.kernels import build as kb
 from morig_tpu_torch.kernels.edge_fused import (
-    _edge_mlp_k6_twin, bwd_step_tiles, edge_mlp_bwd_plain, edge_mlp_dw2_plain, edge_mlp_plain,
+    bwd_step_tiles, edge_mlp_bwd_plain, edge_mlp_dw2_plain, edge_mlp_plain,
     edge_mlp_windowed_plain, fused_edge_mlp, fused_edge_mlp_bwd, fused_edge_mlp_dw2,
     fused_edge_mlp_windowed)
 from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows
@@ -107,9 +109,9 @@ EDGE_TILE, VOX_DIMS = 128, 88
 # an O(1) output by up to ~2e-2.  The mean error stays at fp32 level
 # (below 7e-7 at every width on the H100), so it is held to 1e-5.
 K1_TOL, K1_MEAN_TOL = 3e-2, 1e-5
-# K5 is K1's arithmetic with the rows read from the window, and K1-train
-# K1's function on another step code: the same bounds, K5 against its plain
-# version and against K1 (the tables are local).
+# K5 is K1's arithmetic with the rows read from the window: the same
+# bounds, K5 against its plain version and against K1 (the tables are
+# local).
 K2_TOL = 1e-5     # fp32 sums of exact bf16 products, in another order; K4 too
 # K6 against its plain version.  Both round h, ds and dx to bf16 from fp32
 # values summed in another order, so a rare element lands one bf16 ulp
@@ -308,7 +310,7 @@ def kernel_ms(fn, name=None, split=None) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 
 EDGE_WIDTHS = (16, 32, 64, 128, 256)
-TRAIN_WIDTHS = (16, 32, 128, 256)      # CorrNet's edge layers (K1-train and K6 in training)
+TRAIN_WIDTHS = (16, 32, 128, 256)      # CorrNet's edge layers (K1 and K6 in training)
 RANDOM_WIDTHS = (128, 256)             # K1 on random full-table neighbours
 
 
@@ -383,17 +385,21 @@ def check_k1(dev, mesh_bt):
     return res
 
 
-def check_k1_train(dev, mesh):
-    """K1's training twin at the training path's widths over its tables (B=4,
-    V=2048, D=12, the capsules PoseDataset pads)."""
+def check_k1_training(dev, mesh):
+    """K1 as the training forward: the training path's widths over its
+    tables (B=4, V=2048, D=12, the capsules PoseDataset pads), summed and
+    printed apart from K1's serving row."""
     g = torch.Generator(device=dev).manual_seed(7)
     res = Timings()
     for H in TRAIN_WIDTHS:
         args = edge_args(dev, mesh.tpl_nbr, mesh.tpl_mask, H, g)
-        e, t_k, t_p, got = _edge_check("edge_mlp twin", _edge_mlp_k6_twin, edge_mlp_plain, args,
-                                       H, "training tables", "K1-train")
+        e, t_k, t_p, got = _edge_check("edge_mlp", fused_edge_mlp, edge_mlp_plain, args, H,
+                                       "training tables", "K1")
         res.add(e, t_k, t_p, *edge_cost(args, nbytes(got), 1))
-    return res
+    print(f"K1 over the four training widths at the training tables: device "
+          f"{res.device_ms:.4f} ms (the training forward before it ran K1: "
+          f"{TRAIN_FWD_DEVICE_MS_BEFORE} ms), call {res.call_ms:.4f} ms; plain "
+          f"{res.plain_ms:.4f} ms; bound {res.bound_ms:.4f} ms")
 
 
 def check_k5(dev, mesh_bt, mesh_b):
@@ -441,8 +447,10 @@ def check_k6(dev, mesh):
     """The training path's edge widths over its tables (B=4, V=2048, D=12,
     the capsules PoseDataset pads), with neighbour column 1 a copy of column
     0 (exact ties in the max) and a seeded dout: every gradient against the
-    plain version's, and K6's dW2 kernel alone against its plain version over
-    the tiles packed from the plain backward's h and ds.  Prints the device
+    plain version's, K6's recomputed forward against K1's output bit for bit
+    (the invariant of its max routing), and K6's dW2 kernel alone against its
+    plain version over the tiles packed from the plain backward's h and ds.
+    Prints the device
     ms of each of K6's kernels (main, dW2, the fixed-order sums) and their
     sum over the four widths beside the kernel's before its redesign."""
     g = torch.Generator(device=dev).manual_seed(6)
@@ -453,9 +461,12 @@ def check_k6(dev, mesh):
     for H in TRAIN_WIDTHS:
         args = edge_args(dev, nbr, mask, H, g)
         dout = torch.randn(Bn, V, H, device=dev, generator=g)
-        got = fused_edge_mlp_bwd(*args, dout)
+        got, fwd = fused_edge_mlp_bwd(*args, dout, return_forward=True)
         ref = edge_mlp_bwd_plain(*args, dout)
+        same = torch.equal(fwd, fused_edge_mlp(*args))
         torch.cuda.synchronize()
+        if not same:
+            raise AssertionError(f"K6's recomputed forward is not K1's output at H={H}")
         worst, parts = 0.0, []
         for name, x, y in zip(K6_NAMES, got, ref):
             err = (x - y).abs()
@@ -483,9 +494,11 @@ def check_k6(dev, mesh):
               f"{int(live.sum())} of {live.numel()} steps live): " + "; ".join(parts)
               + f"; dW2 kernel alone rel L2 {dw2_err:.3g} (tol {K6_DW2_TOL}); kernel device "
               f"{t_k[0]:.4f} ms (" + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
-              + f") call {t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms")
+              + f") call {t_k[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms; recomputed "
+              f"forward equals K1's: {same}")
     print(f"K6 over the four widths at the training tables: device {res.device_ms:.4f} ms (the "
-          f"kernel before its redesign: {K6_DEVICE_MS_BEFORE} ms), call {res.call_ms:.4f} ms")
+          f"kernel before its recompute moved to K1's step code: {K6_DEVICE_MS_BEFORE} ms), "
+          f"call {res.call_ms:.4f} ms")
     return res
 
 
@@ -659,12 +672,10 @@ def check_rigs(rigs, entries):
 # Substrings of each kernel's device-op names (K6: its main kernel, its dW2
 # kernel and the fixed-order sums it launches after them); no name holds
 # another's.
-DEVICE_NAMES = {"K1": "edge_mlp_table_kernel", "K1-train": "edge_mlp_kernel",
-                "K2": "knn_wgmma_kernel", "K3": "gather_rows_kernel", "K4": "knn_wgmma_kernel",
+DEVICE_NAMES = {"K1": "edge_mlp_table_kernel", "K2": "knn_wgmma_kernel", "K3": "gather_rows_kernel", "K4": "knn_wgmma_kernel",
                 "K5": "edge_mlp_windowed_kernel",
                 "K6": ("edge_mlp_bwd_kernel", "edge_mlp_dw2_kernel", "sum_parts_kernel")}
-COUNTERS = {"K1": fused_edge_mlp, "K1-train": _edge_mlp_k6_twin, "K2": knn_batched,
-            "K3": gather_rows, "K4": knn_topk, "K5": fused_edge_mlp_windowed,
+COUNTERS = {"K1": fused_edge_mlp, "K2": knn_batched, "K3": gather_rows, "K4": knn_topk, "K5": fused_edge_mlp_windowed,
             "K6": fused_edge_mlp_bwd}
 
 
@@ -733,8 +744,11 @@ K1_DEVICE_MS_BEFORE = 3.3017  # K1's phase-3 five-width device ms before its red
 K2_DEVICE_MS_BEFORE = 0.9375  # K2's phase-3 three-case device ms before its redesign (PERF.md)
 K4_DEVICE_MS_BEFORE = 0.5933  # K4's phase-3 two-case device ms before its redesign (PERF.md)
 K2_PATH_MS_BEFORE = {"path 1": 0.967, "path 2": 0.968}  # K2 per call before (PERF.md)
-K6_DEVICE_MS_BEFORE = 2.6982  # K6's phase-3 four-width device ms before its redesign (PERF.md)
-K6_STEP_MS_BEFORE = 5.29     # K6's device ms per training step before its redesign (PERF.md)
+K6_DEVICE_MS_BEFORE = 1.1680  # K6's phase-3 four-width device ms on the WMMA recompute (PERF.md)
+K6_STEP_MS_BEFORE = 2.45     # K6's device ms per training step on the WMMA recompute (PERF.md)
+# The training forward before it ran K1 (the WMMA kernel K6 recomputed; PERF.md): its
+# phase-3 four-width device ms and its device ms per training step
+TRAIN_FWD_DEVICE_MS_BEFORE, TRAIN_FWD_STEP_MS_BEFORE = 0.8237, 1.69
 
 
 def device_events(prof):
@@ -858,10 +872,10 @@ def phase_a_inputs(entries):
 # phase 6: training CorrNet (CorrPoseStage)
 # ---------------------------------------------------------------------------
 
-# K1-train and K6: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo); K2:
-# the vismask 1-NN; K1: none (serving only); K3: none (training gathers with
-# plain indexing).
-EXPECTED_TRAIN = {"K1": 0, "K1-train": 8, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 8}
+# K1 and K6: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo), forward
+# and backward; K2: the vismask 1-NN; K3: none (training gathers with plain
+# indexing).
+EXPECTED_TRAIN = {"K1": 8, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 8}
 
 
 def train_batch():
@@ -932,8 +946,8 @@ def train(batch, dev, profile_phase: bool):
 
 def profile_step(stage, state, batch, gen):
     """One training step under torch.profiler: its device ops, busy time and
-    idle share against its CUDA-event time, and K1-train's, K6's and K2's
-    device time."""
+    idle share against its CUDA-event time, and K1's, K6's and K2's device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = median_ms(lambda: stage.train_step(state, batch, gen))
@@ -946,12 +960,13 @@ def profile_step(stage, state, batch, gen):
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     ported = []
-    for k in ("K1-train", "K6", "K2"):
+    before = {"K1": f" (the training forward before it ran K1: {TRAIN_FWD_STEP_MS_BEFORE} ms)",
+              "K6": f" (on the WMMA recompute: {K6_STEP_MS_BEFORE} ms)"}
+    for k in ("K1", "K6", "K2"):
         subs = DEVICE_NAMES[k] if isinstance(DEVICE_NAMES[k], tuple) else (DEVICE_NAMES[k],)
         n = sum(subs[0] in e.name for e in dev)
         t = sum(v for op, v in by_name.items() if any(sub in op for sub in subs))
-        ported.append(f"{k} {n} launches {t:.2f} ms"
-                      + (f" (before its redesign: {K6_STEP_MS_BEFORE} ms)" if k == "K6" else ""))
+        ported.append(f"{k} {n} launches {t:.2f} ms" + before.get(k, ""))
     idle = f"{1 - busy / wall:.3f}" if dev else "not measured (no device events)"
     print(f"profile train step: CUDA-event median {wall:.2f} ms; {len(dev)} device ops, busy "
           f"{busy:.2f} ms, idle share {idle}; " + "; ".join(ported))
@@ -960,13 +975,10 @@ def profile_step(stage, state, batch, gen):
           + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
 
 
-# kernel: (route, source, the TPU kernel it replaces).  The serving edge
-# kernels K1 and K5 run the wgmma step code of csrc/edge_wgmma.cuh; the
-# training pair K1-train and K6 the WMMA step code of csrc/edge_tail.cuh.
+# kernel: (route, source, the TPU kernel it replaces).  The edge kernels K1,
+# K5 and K6's recompute run the wgmma step code of csrc/edge_wgmma.cuh.
 SOURCES = {
     "K1": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu", "morig_tpu/kernels/edge_fused.py:102"),
-    "K1-train": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu",
-                 "morig_tpu/kernels/edge_fused.py:102"),
     "K2": ("cuda", "morig_tpu_torch/csrc/knn_topk.cu", "morig_tpu/kernels/knn_fused.py:109"),
     "K3": ("cuda", "morig_tpu_torch/csrc/gather_rows.cu",
            "morig_tpu/kernels/gather_fused.py:88"),
@@ -994,10 +1006,10 @@ def main(profile_phase: bool = False):
     entries, frames = capsule_batch(B_MESH, T, P, V_PAD, DEGREE)
     mesh_bt = stack_meshes([e for e in entries for _ in range(T)])
     batch = train_batch()
-    results = {"K1": check_k1(dev, mesh_bt), "K1-train": check_k1_train(dev, batch.mesh),
-               "K2": check_k2(dev), "K3": check_k3(dev), "K4": check_k4(dev),
+    results = {"K1": check_k1(dev, mesh_bt), "K2": check_k2(dev), "K3": check_k3(dev), "K4": check_k4(dev),
                "K5": check_k5(dev, mesh_bt, stack_meshes(entries)),
                "K6": check_k6(dev, batch.mesh)}
+    check_k1_training(dev, batch.mesh)
     st = PROFILER_STATS
     print(f"profiler: {st['timings']} device timings, {st['retried']} taken again, "
           f"{st['fell_back']} from events behind a spin; least device-op start - launch "
@@ -1006,13 +1018,13 @@ def main(profile_phase: bool = False):
     pred = RigPredictor.random(0)                   # on the card
     edge = expected_edge_launches(pred)
     path1 = serve("path 1", pred, entries, frames,
-                  {"K1": edge, "K1-train": 0, "K2": EXPECTED_KNN_LAUNCHES,
+                  {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES,
                    "K3": EXPECTED_GATHER_LAUNCHES, "K4": 0, "K5": 0, "K6": 0})
     phase_a = phase_a_inputs(entries)
     pred2 = phase_a_predictor(0)
     cache: dict = {}
     path2 = serve("path 2", pred2, entries, frames,
-                  {"K1": 0, "K1-train": 0, "K2": EXPECTED_KNN_LAUNCHES,
+                  {"K1": 0, "K2": EXPECTED_KNN_LAUNCHES,
                    "K3": EXPECTED_GATHER_LAUNCHES, "K4": 0, "K5": edge, "K6": 0},
                   device_cache=cache, **phase_a)
     if profile_phase:

@@ -1,7 +1,7 @@
-// K1, K5 and K1's training twin — fused EdgeMLP tail for Hopper (sm_90a).
+// K1 and K5 — fused EdgeMLP tail for Hopper (sm_90a).
 //
 // K1 replaces the TPU kernel morig_tpu/kernels/edge_fused.py `fused_edge_mlp`
-// (:102; body `_kernel` :74, tail `_edge_tail` :51); K5 replaces
+// (:102; body `_kernel` :74, its tail :51); K5 replaces
 // `fused_edge_mlp_windowed` (:235; body `_kernel_windowed` :191).  Both are
 // reached from every GCU/GCUMotion layer through nn/gcu.py EdgeMLP: K1 for
 // any mesh, K5 for a mesh batch whose neighbour tables are local at the
@@ -16,15 +16,12 @@
 // rows from ws = clip(i-1, 0, NB-3)*TV; a neighbour outside it reads a zero
 // row, as the TPU kernel's one-hot finds no hit there.
 //
-// Which kernel runs where.  Serving (kernels/edge_fused.py `fused_edge_mlp`)
-// runs K1, `edge_mlp_table_kernel`; the windowed dispatch runs K5,
-// `edge_mlp_windowed_kernel`; both on edge_wgmma.cuh's step code.  Training
-// runs the twin, `edge_mlp_kernel` on edge_tail.cuh's WMMA step code, as the
-// forward of the trainable tail, because the backward K6 (edge_mlp_bwd.cu)
-// recomputes the forward with that step code and routes the max by exact
-// equality with the forward's outputs; K1 sums its LayerNorm statistics in
-// another order, so it agrees with the twin within bf16 rounding, not bit
-// for bit.  The twin goes when K6 moves to edge_wgmma.cuh.
+// Which kernel runs where.  `fused_edge_mlp` runs K1,
+// `edge_mlp_table_kernel`, for serving and as the forward of the trainable
+// tail; the windowed dispatch runs K5, `edge_mlp_windowed_kernel`; both on
+// edge_wgmma.cuh's step code.  The backward K6 (edge_mlp_bwd.cu) recomputes
+// K1's per-edge outputs with the same step code, row parity and column
+// split, and routes the max by exact equality with them.
 //
 // The design of K1 and K5 (step code in edge_wgmma.cuh): the TPU kernel's
 // degree-major order.  A work unit is 64 vertices, run as one 64-row slab
@@ -55,50 +52,13 @@
 // on an mbarrier (12-96 KB at TV=128) and builds the LN1 rows from shared
 // memory; at H=256 the window (192 KB) does not fit beside W2 (128 KB), so it
 // runs K1's split route on the window's rows.
-//
-// The twin (edge_tail.cuh, shared with K6): the (D, H1) and (D, H2) per-edge
-// intermediates never leave shared memory; W2 stays in shared memory for a
-// block's whole life, each block walks many 64-edge-row steps (persistent
-// grid), and the product is WMMA 16x16x16.
-#include "edge_tail.cuh"
 #include "edge_wgmma.cuh"
 
 namespace {
 
-using namespace morig_edge;
-
-// The twin and its shared-memory layout: the step's ys buffer lies over hs.
-template <int H1, int H2>
-__device__ __forceinline__ Tail<H1, H2> forward_tail(
-    unsigned char* smem, const __nv_bfloat16* w2, const float* b2, const float* g1,
-    const float* be1, const float* g2, const float* be2) {
-  unsigned char* step = smem + Tail<H1, H2>::kW2Bytes;
-  return Tail<H1, H2>(reinterpret_cast<__nv_bfloat16*>(smem),
-                      reinterpret_cast<__nv_bfloat16*>(step), reinterpret_cast<float*>(step),
-                      w2, b2, g1, be1, g2, be2);
-}
-
-// The twin: the work unit is one step of vpt = kRows / D vertices.
-template <int H1, int H2>
-__global__ void __launch_bounds__(kThreads) edge_mlp_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    const long long* __restrict__ nbr, const unsigned char* __restrict__ mask,
-    const __nv_bfloat16* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ g1, const float* __restrict__ be1,
-    const float* __restrict__ g2, const float* __restrict__ be2,
-    float* __restrict__ out, int B, int V, int D) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tail<H1, H2> tail = forward_tail<H1, H2>(smem, w2, b2, g1, be1, g2, be2);
-  const int vpt = kRows / D;
-  const int tiles_per_batch = (V + vpt - 1) / vpt;
-  const long long total = static_cast<long long>(B) * tiles_per_batch;
-  for (long long t = blockIdx.x; t < total; t += gridDim.x) {
-    const int bi = static_cast<int>(t / tiles_per_batch);
-    const int v0 = static_cast<int>(t % tiles_per_batch) * vpt;
-    tail.step(bi, v0, min(vpt, V - v0), V, D, a, b + static_cast<long long>(bi) * V * H1,
-              0, V, 0, nbr, mask, out);
-  }
-}
+using morig_wg::GridCache;
+using morig_wg::kMaxSmem;
+using morig_wg::persistent_grid;
 
 // The threads that run one unit: the whole block (kBlock) or warpgroup g.
 template <bool kBlock>
@@ -357,21 +317,6 @@ __global__ void __launch_bounds__(morig_wg::kThreads, (H <= 64 ? 2 : 1)) edge_ml
       const void *b2, const void *g1, const void *be1, const void *g2, const void *be2,     \
       void *out
 
-template <int H>
-cudaError_t launch_twin(MORIG_EDGE_PARAMS, int B, int V, int D, cudaStream_t stream) {
-  auto kern = edge_mlp_kernel<H, H>;
-  const size_t smem = Tail<H, H>::kW2Bytes + Tail<H, H>::kStepBytes;
-  const int vpt = kRows / D;
-  static GridCache cache;
-  int grid = 0;
-  const cudaError_t err = persistent_grid(
-      kern, smem, static_cast<long long>(B) * ((V + vpt - 1) / vpt), cache, &grid);
-  if (err != cudaSuccess) return err;
-  if (grid == 0) return cudaSuccess;
-  kern<<<grid, kThreads, smem, stream>>>(MORIG_EDGE_ARGS, B, V, D);
-  return cudaGetLastError();
-}
-
 // Shared-memory bytes of the wgmma kernels (their carve order): W2, `row_slots` rows of H
 // (K1's rings, K5's window or ring), the vectors, codes, exchange, live words and barriers.
 template <int H>
@@ -457,14 +402,6 @@ cudaError_t launch_windowed_h(MORIG_EDGE_PARAMS, int B, int V, int D, int TV,
 extern "C" int edge_mlp_table_forward(MORIG_EDGE_PARAMS, int B, int V, int D, int H1, int H2,
                                       void* stream) {
   MORIG_EDGE_DISPATCH(launch_table, a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D,
-                      static_cast<cudaStream_t>(stream));
-}
-
-// The training twin: K1's arguments, but w2 (H,H) bf16 row-major (in, out)
-// and no alignment needed.
-extern "C" int edge_mlp_train_forward(MORIG_EDGE_PARAMS, int B, int V, int D, int H1, int H2,
-                                      void* stream) {
-  MORIG_EDGE_DISPATCH(launch_twin, a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D,
                       static_cast<cudaStream_t>(stream));
 }
 

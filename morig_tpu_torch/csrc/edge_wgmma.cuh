@@ -1,7 +1,11 @@
 // The fused EdgeMLP tail's step code on Hopper's warpgroup product, used by
-// the serving kernels K1 (edge_mlp.cu `edge_mlp_table_kernel`) and K5
-// (`edge_mlp_windowed_kernel`).  K6 and K1's training twin keep the WMMA step
-// code of edge_tail.cuh (K6's max routing needs the twin's bits).
+// K1 (edge_mlp.cu `edge_mlp_table_kernel`, the forward of serving and of
+// training), K5 (`edge_mlp_windowed_kernel`) and K6's recompute
+// (edge_mlp_bwd.cu).  K6 routes its max by exact equality against K1's
+// outputs, so both run `slab_product` and `ln2_stats` below on each row with
+// the same parity, k order and column split, and every LayerNorm expression
+// is written with explicitly rounded intrinsics, so that no inlining context
+// contracts it differently.
 //
 // A work unit is 64 vertices of one vertex tile; it runs degree-major, one
 // 64-row "slab" per neighbour slot d: row r of slab d is edge d of vertex
@@ -155,8 +159,27 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float (&x)[P])
 }
 
 __device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+  x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// A LayerNorm's statistics over H values (a power of two, so that a product
+// with 1 / H is the quotient by H exactly) from their sum s and sum of
+// squares s2: mu, and inv = rsqrt(max(E[x^2] - mu^2, 0) + eps).
+template <int H>
+__device__ __forceinline__ void ln_mu_inv(float s, float s2, float& mu, float& inv) {
+  static_assert((H & (H - 1)) == 0, "a power-of-two width");
+  constexpr float kInvH = 1.f / H;
+  mu = __fmul_rn(s, kInvH);
+  inv = rsqrtf(__fadd_rn(fmaxf(__fmaf_rn(-mu, mu, __fmul_rn(s2, kInvH)), 0.f), kEps));
+}
+
+// (x - mu) * inv, and its affine output xn * g + be.
+__device__ __forceinline__ float ln_xn(float x, float mu, float inv) {
+  return __fmul_rn(__fsub_rn(x, mu), inv);
+}
+__device__ __forceinline__ float ln_affine(float x, float mu, float inv, float g, float be) {
+  return __fmaf_rn(ln_xn(x, mu, inv), g, be);
 }
 
 // The descriptor of W2's B operand for k-chunk c (16 k) and output columns
@@ -241,7 +264,7 @@ __device__ __forceinline__ void relu_sum(const __nv_bfloat16* __restrict__ ar,
     for (int e = 0; e < P; ++e) y[e] = 0.f;
   }
 #pragma unroll
-  for (int e = 0; e < P; ++e) t[e] = fmaxf(x[e] + y[e], 0.f);
+  for (int e = 0; e < P; ++e) t[e] = fmaxf(__fadd_rn(x[e], y[e]), 0.f);
 }
 
 // The A operand of one slab for this thread's two rows (`lo` = row r, `hi` =
@@ -252,40 +275,46 @@ __device__ __forceinline__ void relu_sum(const __nv_bfloat16* __restrict__ ar,
 // of b, or nullptr for a zero row.  Two passes over the row (statistics,
 // then values) keep only the fragments in registers; with `stat` ([2][64]
 // float2, under one block barrier) each row's statistics are summed with
-// the other warpgroup's half.  Lane q's piece p is columns (4p + q) P ..
-// (P = 8, or 4 at H=16), so a quad reads 4P contiguous values of a row per
-// load; the quads of odd rows (sw = 1) take the two pieces of each pair in
-// swapped order, so the warp's 8 rows fall on both halves of the
-// shared-memory banks.
+// the other warpgroup's half; mu and inv get each row's statistics.  Lane
+// q's piece p is columns (4p + q) P .. (P = 8, or 4 at H=16), so a quad
+// reads 4P contiguous values of a row per load; where a row's parity (sw_lo,
+// sw_hi: the parity of its vertex, r & 1 in K1 and K5) is odd, its quad
+// takes the two pieces of each pair in swapped order, so the warp's 8 rows
+// fall on both halves of the shared-memory banks.  The parity fixes the
+// order of the row's sums, so K6 passes each row's own.
 template <int H, int NPX>
 __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_lo,
                                            const __nv_bfloat16* b_lo, bool ok_lo,
                                            const __nv_bfloat16* __restrict__ a_hi,
                                            const __nv_bfloat16* b_hi, bool ok_hi,
-                                           const Vecs<H>& vec, int q, int sw, int p0,
-                                           float2* stat, int g, int r,
-                                           uint32_t (&afr)[NPX * (H < 32 ? 1 : 2)][4]) {
+                                           const Vecs<H>& vec, int q, int sw_lo, int sw_hi,
+                                           int p0, float2* stat, int g, int r,
+                                           uint32_t (&afr)[NPX * (H < 32 ? 1 : 2)][4],
+                                           float (&mu)[2], float (&inv)[2]) {
   constexpr int P = H < 32 ? 4 : 8;    // columns per piece (one load)
   constexpr int CP = P / 4;            // k-chunks per piece
   static_assert(NPX == 1 || NPX % 2 == 0, "pieces pair up");
   const __nv_bfloat16* ar[2] = {a_lo, a_hi};
   const __nv_bfloat16* br[2] = {b_lo, b_hi};
   const bool ok[2] = {ok_lo, ok_hi};
-  auto piece_col = [&](int p) { return (4 * (p0 + (NPX > 1 ? p ^ sw : p)) + q) * P; };
+  const int sw[2] = {sw_lo, sw_hi};
+  auto piece_col = [&](int p, int h) {
+    return (4 * (p0 + (NPX > 1 ? p ^ sw[h] : p)) + q) * P;
+  };
 
   float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
   for (int p = 0; p < NPX; ++p) {
-    const int col = piece_col(p);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (!ok[h]) continue;
+      const int col = piece_col(p, h);
       float t[P];
       relu_sum<P>(ar[h] + col, br[h] != nullptr ? br[h] + col : nullptr, t);
 #pragma unroll
       for (int e = 0; e < P; ++e) {
-        s[h] += t[e];
-        s2[h] = fmaf(t[e], t[e], s2[h]);
+        s[h] = __fadd_rn(s[h], t[e]);
+        s2[h] = __fmaf_rn(t[e], t[e], s2[h]);
       }
     }
   }
@@ -303,22 +332,15 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float2 o = stat[(1 - g) * kUnit + r + 8 * h];
-      s[h] += o.x;
-      s2[h] += o.y;
+      s[h] = __fadd_rn(s[h], o.x);
+      s2[h] = __fadd_rn(s2[h], o.y);
     }
   }
-  float mu[2], inv[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float m = s[h] / static_cast<float>(H);
-    const float var = fmaxf(s2[h] / static_cast<float>(H) - m * m, 0.f);
-    mu[h] = m;
-    inv[h] = rsqrtf(var + kEps);
-  }
-  // pass 2: the normalised values of the piece at p's load (piece p ^ sw
-  // where pieces pair up), packed as that piece's fragments
+  for (int h = 0; h < 2; ++h) ln_mu_inv<H>(s[h], s2[h], mu[h], inv[h]);
+  // pass 2: each row's normalised values of the piece at p's load (piece
+  // p ^ sw where pieces pair up), packed as fragments
   auto pack_piece = [&](int p, uint32_t (&pk)[CP][4]) {
-    const int col = piece_col(p);
     float hv[2][P];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -327,6 +349,7 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
         for (int e = 0; e < P; ++e) hv[h][e] = 0.f;
         continue;
       }
+      const int col = piece_col(p, h);
       float t[P];
       relu_sum<P>(ar[h] + col, br[h] != nullptr ? br[h] + col : nullptr, t);
 #pragma unroll
@@ -334,10 +357,10 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
         const float4 g1 = *reinterpret_cast<const float4*>(vec.g1() + col + 4 * e4);
         const float4 be = *reinterpret_cast<const float4*>(vec.be1() + col + 4 * e4);
         const float* t4 = t + 4 * e4;
-        hv[h][4 * e4] = fmaf((t4[0] - mu[h]) * inv[h], g1.x, be.x);
-        hv[h][4 * e4 + 1] = fmaf((t4[1] - mu[h]) * inv[h], g1.y, be.y);
-        hv[h][4 * e4 + 2] = fmaf((t4[2] - mu[h]) * inv[h], g1.z, be.z);
-        hv[h][4 * e4 + 3] = fmaf((t4[3] - mu[h]) * inv[h], g1.w, be.w);
+        hv[h][4 * e4] = ln_affine(t4[0], mu[h], inv[h], g1.x, be.x);
+        hv[h][4 * e4 + 1] = ln_affine(t4[1], mu[h], inv[h], g1.y, be.y);
+        hv[h][4 * e4 + 2] = ln_affine(t4[2], mu[h], inv[h], g1.z, be.z);
+        hv[h][4 * e4 + 3] = ln_affine(t4[3], mu[h], inv[h], g1.w, be.w);
       }
     }
 #pragma unroll
@@ -365,35 +388,40 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
       for (int cc = 0; cc < CP; ++cc)
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          afr[2 * m * CP + cc][k] = sw ? pb[cc][k] : pa[cc][k];
-          afr[(2 * m + 1) * CP + cc][k] = sw ? pa[cc][k] : pb[cc][k];
+          const int swk = k & 1 ? sw_hi : sw_lo;     // registers 0, 2: row lo; 1, 3: row hi
+          afr[2 * m * CP + cc][k] = swk ? pb[cc][k] : pa[cc][k];
+          afr[(2 * m + 1) * CP + cc][k] = swk ? pa[cc][k] : pb[cc][k];
         }
     }
   }
 }
 
-// LN2 of one slab's accumulators (this warpgroup's NW columns from n0) and
-// the masked max into best.  With kSplit the two warpgroups of the block
-// hold the two column halves of the same rows, and each row's statistics
-// are the sum of both halves', exchanged through red ([2][64] float2) under
-// one block barrier.
+// LN2's statistics of one slab's accumulators (this warpgroup's NW columns
+// from n0): acc becomes t = relu(acc + b2) in place, and mu, inv get the
+// statistics of the thread's rows r (lo) and r + 8 (hi).  With kSplit the
+// two warpgroups of the block hold the two column halves of the same rows,
+// and each row's statistics are the sum of both halves', exchanged through
+// red ([2][64] float2) under one block barrier.  K1 and K6 both call this,
+// then `ln_affine(t, mu, inv, g2, be2)` per element: the output bits K6's
+// route compares.
 template <int H, int NW, bool kSplit>
-__device__ __forceinline__ void ln2_max(float (&acc)[NW / 2], float (&best)[NW / 2], bool ok_lo,
-                                        bool ok_hi, const Vecs<H>& vec, int n0, int q, int r,
-                                        int wg, float2* red) {
+__device__ __forceinline__ void ln2_stats(float (&acc)[NW / 2], const Vecs<H>& vec, int n0, int q,
+                                          int r, int wg, float2* red, float (&mu)[2],
+                                          float (&inv)[2]) {
   const float* b2 = vec.b2() + n0 + 2 * q;
   float s_lo = 0.f, s2_lo = 0.f, s_hi = 0.f, s2_hi = 0.f;
 #pragma unroll
   for (int i = 0; i < NW / 8; ++i) {
     const float2 bb = *reinterpret_cast<const float2*>(b2 + 8 * i);
-    acc[4 * i] = fmaxf(acc[4 * i] + bb.x, 0.f);
-    acc[4 * i + 1] = fmaxf(acc[4 * i + 1] + bb.y, 0.f);
-    acc[4 * i + 2] = fmaxf(acc[4 * i + 2] + bb.x, 0.f);
-    acc[4 * i + 3] = fmaxf(acc[4 * i + 3] + bb.y, 0.f);
-    s_lo += acc[4 * i] + acc[4 * i + 1];
-    s2_lo = fmaf(acc[4 * i], acc[4 * i], fmaf(acc[4 * i + 1], acc[4 * i + 1], s2_lo));
-    s_hi += acc[4 * i + 2] + acc[4 * i + 3];
-    s2_hi = fmaf(acc[4 * i + 2], acc[4 * i + 2], fmaf(acc[4 * i + 3], acc[4 * i + 3], s2_hi));
+    acc[4 * i] = fmaxf(__fadd_rn(acc[4 * i], bb.x), 0.f);
+    acc[4 * i + 1] = fmaxf(__fadd_rn(acc[4 * i + 1], bb.y), 0.f);
+    acc[4 * i + 2] = fmaxf(__fadd_rn(acc[4 * i + 2], bb.x), 0.f);
+    acc[4 * i + 3] = fmaxf(__fadd_rn(acc[4 * i + 3], bb.y), 0.f);
+    s_lo = __fadd_rn(s_lo, __fadd_rn(acc[4 * i], acc[4 * i + 1]));
+    s2_lo = __fmaf_rn(acc[4 * i], acc[4 * i], __fmaf_rn(acc[4 * i + 1], acc[4 * i + 1], s2_lo));
+    s_hi = __fadd_rn(s_hi, __fadd_rn(acc[4 * i + 2], acc[4 * i + 3]));
+    s2_hi = __fmaf_rn(acc[4 * i + 2], acc[4 * i + 2],
+                      __fmaf_rn(acc[4 * i + 3], acc[4 * i + 3], s2_hi));
   }
   s_lo = quad_sum(s_lo);
   s2_lo = quad_sum(s2_lo);
@@ -406,15 +434,22 @@ __device__ __forceinline__ void ln2_max(float (&acc)[NW / 2], float (&best)[NW /
     }
     __syncthreads();
     const float2 o_lo = red[(1 - wg) * kUnit + r], o_hi = red[(1 - wg) * kUnit + r + 8];
-    s_lo += o_lo.x;
-    s2_lo += o_lo.y;
-    s_hi += o_hi.x;
-    s2_hi += o_hi.y;
+    s_lo = __fadd_rn(s_lo, o_lo.x);
+    s2_lo = __fadd_rn(s2_lo, o_lo.y);
+    s_hi = __fadd_rn(s_hi, o_hi.x);
+    s2_hi = __fadd_rn(s2_hi, o_hi.y);
   }
-  const float n = static_cast<float>(H);
-  const float mu_lo = s_lo / n, mu_hi = s_hi / n;
-  const float inv_lo = rsqrtf(fmaxf(s2_lo / n - mu_lo * mu_lo, 0.f) + kEps);
-  const float inv_hi = rsqrtf(fmaxf(s2_hi / n - mu_hi * mu_hi, 0.f) + kEps);
+  ln_mu_inv<H>(s_lo, s2_lo, mu[0], inv[0]);
+  ln_mu_inv<H>(s_hi, s2_hi, mu[1], inv[1]);
+}
+
+// LN2 of one slab's accumulators and the masked max into best.
+template <int H, int NW, bool kSplit>
+__device__ __forceinline__ void ln2_max(float (&acc)[NW / 2], float (&best)[NW / 2], bool ok_lo,
+                                        bool ok_hi, const Vecs<H>& vec, int n0, int q, int r,
+                                        int wg, float2* red) {
+  float mu[2], inv[2];
+  ln2_stats<H, NW, kSplit>(acc, vec, n0, q, r, wg, red, mu, inv);
   const float* g2 = vec.g2() + n0 + 2 * q;
   const float* be2 = vec.be2() + n0 + 2 * q;
 #pragma unroll
@@ -422,12 +457,12 @@ __device__ __forceinline__ void ln2_max(float (&acc)[NW / 2], float (&best)[NW /
     const float2 g = *reinterpret_cast<const float2*>(g2 + 8 * i);
     const float2 be = *reinterpret_cast<const float2*>(be2 + 8 * i);
     if (ok_lo) {
-      best[4 * i] = fmaxf(best[4 * i], fmaf((acc[4 * i] - mu_lo) * inv_lo, g.x, be.x));
-      best[4 * i + 1] = fmaxf(best[4 * i + 1], fmaf((acc[4 * i + 1] - mu_lo) * inv_lo, g.y, be.y));
+      best[4 * i] = fmaxf(best[4 * i], ln_affine(acc[4 * i], mu[0], inv[0], g.x, be.x));
+      best[4 * i + 1] = fmaxf(best[4 * i + 1], ln_affine(acc[4 * i + 1], mu[0], inv[0], g.y, be.y));
     }
     if (ok_hi) {
-      best[4 * i + 2] = fmaxf(best[4 * i + 2], fmaf((acc[4 * i + 2] - mu_hi) * inv_hi, g.x, be.x));
-      best[4 * i + 3] = fmaxf(best[4 * i + 3], fmaf((acc[4 * i + 3] - mu_hi) * inv_hi, g.y, be.y));
+      best[4 * i + 2] = fmaxf(best[4 * i + 2], ln_affine(acc[4 * i + 2], mu[1], inv[1], g.x, be.x));
+      best[4 * i + 3] = fmaxf(best[4 * i + 3], ln_affine(acc[4 * i + 3], mu[1], inv[1], g.y, be.y));
     }
   }
 }
@@ -438,20 +473,24 @@ __device__ __forceinline__ void ln2_max(float (&acc)[NW / 2], float (&best)[NW /
 // columns) each build half of the k-chunks' fragments and trade them
 // through xfr (H/32 uint4 per thread of the block, 128 H bytes: the slab's
 // own ring stage, free once both halves of LN1 have read it); each then
-// runs its own chunks first.  Below H=64 each builds all of them.
-template <int H, int NW, bool kSplit>
-__device__ __forceinline__ void slab(const __nv_bfloat16* a_lo, const __nv_bfloat16* b_lo,
-                                     bool ok_lo, const __nv_bfloat16* a_hi,
-                                     const __nv_bfloat16* b_hi, bool ok_hi,
-                                     const __nv_bfloat16* w2s, const Vecs<H>& vec, int n0, int q,
-                                     int r, int wg, float2* red, uint4* xfr,
-                                     float (&acc)[NW / 2], float (&best)[NW / 2]) {
+// runs its own chunks first.  Below H=64 each builds all of them.  sw_lo,
+// sw_hi: the rows' parities (`ln1_pieces`); mu1, inv1 get their LN1
+// statistics; `frags(c, f)` is called, once the product is done, with the
+// fragments f of each k-chunk c this warpgroup built.
+template <int H, int NW, bool kSplit, class Frags>
+__device__ __forceinline__ void slab_product(const __nv_bfloat16* a_lo, const __nv_bfloat16* b_lo,
+                                             bool ok_lo, const __nv_bfloat16* a_hi,
+                                             const __nv_bfloat16* b_hi, bool ok_hi, int sw_lo,
+                                             int sw_hi, const __nv_bfloat16* w2s,
+                                             const Vecs<H>& vec, int n0, int q, int r, int wg,
+                                             float2* red, uint4* xfr, float (&acc)[NW / 2],
+                                             float (&mu1)[2], float (&inv1)[2], Frags&& frags) {
   constexpr int KC = H / 16;           // k-chunks
   if constexpr (kSplit && H >= 64) {
     constexpr int HC = KC / 2;         // k-chunks of one warpgroup's half
     uint32_t own[HC][4], other[HC][4];
-    ln1_pieces<H, H / 64>(a_lo, b_lo, ok_lo, a_hi, b_hi, ok_hi, vec, q, r & 1, wg * H / 64,
-                          red, wg, r, own);
+    ln1_pieces<H, H / 64>(a_lo, b_lo, ok_lo, a_hi, b_hi, ok_hi, vec, q, sw_lo, sw_hi,
+                          wg * H / 64, red, wg, r, own, mu1, inv1);
     const int t = threadIdx.x % kWgThreads;
     __syncthreads();                   // both halves of LN1 are done with the ring stage
 #pragma unroll
@@ -481,10 +520,12 @@ __device__ __forceinline__ void slab(const __nv_bfloat16* a_lo, const __nv_bfloa
     fence_operands(acc);
     fence_operands(own);
     fence_operands(other);
+#pragma unroll
+    for (int c = 0; c < HC; ++c) frags(wg * HC + c, own[c]);
   } else {
     uint32_t afr[KC][4];
-    ln1_pieces<H, H < 32 ? 1 : H / 32>(a_lo, b_lo, ok_lo, a_hi, b_hi, ok_hi, vec, q, r & 1, 0,
-                                       nullptr, wg, r, afr);
+    ln1_pieces<H, H < 32 ? 1 : H / 32>(a_lo, b_lo, ok_lo, a_hi, b_hi, ok_hi, vec, q, sw_lo,
+                                       sw_hi, 0, nullptr, wg, r, afr, mu1, inv1);
     wgmma_fence();
     fence_operands(acc);
     fence_operands(afr);
@@ -494,7 +535,23 @@ __device__ __forceinline__ void slab(const __nv_bfloat16* a_lo, const __nv_bfloa
     wgmma_wait_all();
     fence_operands(acc);
     fence_operands(afr);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) frags(c, afr[c]);
   }
+}
+
+// One slab of K1 or K5: `slab_product` with the rows' parity r & 1, then
+// LN2 and the max.
+template <int H, int NW, bool kSplit>
+__device__ __forceinline__ void slab(const __nv_bfloat16* a_lo, const __nv_bfloat16* b_lo,
+                                     bool ok_lo, const __nv_bfloat16* a_hi,
+                                     const __nv_bfloat16* b_hi, bool ok_hi,
+                                     const __nv_bfloat16* w2s, const Vecs<H>& vec, int n0, int q,
+                                     int r, int wg, float2* red, uint4* xfr,
+                                     float (&acc)[NW / 2], float (&best)[NW / 2]) {
+  float mu1[2], inv1[2];
+  slab_product<H, NW, kSplit>(a_lo, b_lo, ok_lo, a_hi, b_hi, ok_hi, r & 1, r & 1, w2s, vec, n0, q,
+                              r, wg, red, xfr, acc, mu1, inv1, [](int, const uint32_t (&)[4]) {});
   ln2_max<H, NW, kSplit>(acc, best, ok_lo, ok_hi, vec, n0, q, r, wg, red);
 }
 
@@ -513,6 +570,35 @@ __device__ __forceinline__ void store_rows(float* out_lo, bool any_lo, float* ou
       *reinterpret_cast<float2*>(out_hi + col) =
           any_hi ? make_float2(best[4 * i + 2], best[4 * i + 3]) : make_float2(0.f, 0.f);
   }
+}
+
+constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may have
+
+// The persistent grid of one kernel instance of kThreads threads at one
+// shared-memory size: its dynamic shared memory is set and its occupancy
+// read once per size.
+struct GridCache {
+  size_t smem = 0;
+  long long cap = 0;
+};
+
+template <class Kernel>
+inline cudaError_t persistent_grid(Kernel kern, size_t smem, long long units, GridCache& cache,
+                                   int* grid) {
+  if (smem != cache.smem) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    cache.cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+    cache.smem = smem;
+  }
+  *grid = static_cast<int>(units < cache.cap ? units : cache.cap);
+  return cudaSuccess;
 }
 
 }  // namespace morig_wg

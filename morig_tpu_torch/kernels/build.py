@@ -32,14 +32,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D, H1, H2, stream
     "edge_mlp_table_forward": [_P] * 11 + [_I] * 5 + [_P],
-    "edge_mlp_train_forward": [_P] * 11 + [_I] * 5 + [_P],
     # the same, then the vertex tile TV, stream
     "edge_mlp_windowed_forward": [_P] * 11 + [_I] * 6 + [_P],
     # B, V, D, H1, H2, out grid, out splits
     "edge_mlp_backward_grid": [_I] * 5 + [ctypes.POINTER(_I)] * 2,
-    # a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, da, db, dw2, vec, scratch,
-    # live, dw2_part, vec_part, B, V, D, H1, H2, grid, splits, stream
-    "edge_mlp_backward": [_P] * 19 + [_I] * 7 + [_P],
+    # a, b, nbr, mask, w2, vecs, dout, da, db, dw2, vec, scratch, live, dw2_part,
+    # vec_part, ymax, B, V, D, H1, H2, grid, splits, stream
+    "edge_mlp_backward": [_P] * 16 + [_I] * 7 + [_P],
     # H, out splits
     "edge_mlp_dw2_grid": [_I, ctypes.POINTER(_I)],
     # scratch, live, dw2_part, dw2, n_steps, H, splits, stream

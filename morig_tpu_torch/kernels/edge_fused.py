@@ -9,18 +9,16 @@ and 0 where no edge of v is valid.  a and b arrive rounded to bf16; the W2
 product takes bf16 operands with fp32 accumulation; both LayerNorms run in
 fp32 (eps 1e-6, variance E[x^2] - E[x]^2) over the true width.
 
-K1 (`fused_edge_mlp`, the serving call) reads each neighbour row from the
-whole table; K5 (`fused_edge_mlp_windowed`) reads it from its vertex tile's
-window of 3 tiles, for meshes whose neighbours are local
-(`check_neighbor_locality`).  Both run the wgmma step code
+K1 (`fused_edge_mlp`, the serving call and the training forward) reads each
+neighbour row from the whole table; K5 (`fused_edge_mlp_windowed`) reads it
+from its vertex tile's window of 3 tiles, for meshes whose neighbours are
+local (`check_neighbor_locality`).  Both run the wgmma step code
 (csrc/edge_wgmma.cuh).  K6 (`fused_edge_mlp_bwd`) is the one-pass backward
-with an in-kernel recompute of the forward (dW2 in a kernel of its own over
-scratch tiles the main kernel writes; `fused_edge_mlp_dw2` runs it alone),
-and `fused_edge_mlp_trainable` the autograd Function of the training path:
-its forward is K1's training twin (`_edge_mlp_k6_twin`, on
-csrc/edge_tail.cuh's WMMA step code, which K6's recompute repeats bit for
-bit so that its max routes by exact equality), its backward K6.  Each
-launches its CUDA kernel
+with an in-kernel recompute of the forward on K1's own step code, bit for
+bit, so that its max routes by exact equality (dW2 in a kernel of its own
+over scratch tiles the main kernel writes; `fused_edge_mlp_dw2` runs it
+alone), and `fused_edge_mlp_trainable` the autograd Function of the
+training path: forward K1, backward K6.  Each launches its CUDA kernel
 (csrc/edge_mlp.cu, csrc/edge_mlp_bwd.cu) for a CUDA tensor and runs its
 plain version (`edge_mlp_plain`, `edge_mlp_windowed_plain`,
 `edge_mlp_bwd_plain`) for a CPU tensor.
@@ -64,7 +62,7 @@ def _ln_bwd(dy, scale, xn, inv):
     return (dxn - m1 - xn * m2) * inv
 
 
-def _edge_tail(a, gathered, mask, w2, b2, g1, be1, g2, be2):
+def _tail_plain(a, gathered, mask, w2, b2, g1, be1, g2, be2):
     h = torch.relu(a.float()[:, :, None, :] + gathered)
     h = layer_norm(h, g1, be1)
     h2 = torch.matmul(h.to(torch.bfloat16).float(), w2.to(torch.bfloat16).float()) + b2
@@ -82,7 +80,7 @@ def _gather(b, nbr):
 def edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
     """Plain PyTorch version of K1.  a, b (B,V,H1) bf16; nbr (B,V,D) int64;
     mask (B,V,D) bool; w2 (H1,H2); vectors fp32.  Returns (B,V,H2) fp32."""
-    return _edge_tail(a, _gather(b, nbr), mask, w2, b2, g1, be1, g2, be2)
+    return _tail_plain(a, _gather(b, nbr), mask, w2, b2, g1, be1, g2, be2)
 
 
 def _check_windowed_shape(V: int, tile_v: int) -> None:
@@ -124,15 +122,16 @@ def edge_mlp_windowed_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
     row, as the TPU kernel's one-hot gather finds no hit there.  Where
     `check_neighbor_locality` holds this equals `edge_mlp_plain`."""
     gathered = _gather(b, nbr) * in_window(nbr, tile_v)[..., None]
-    return _edge_tail(a, gathered, mask, w2, b2, g1, be1, g2, be2)
+    return _tail_plain(a, gathered, mask, w2, b2, g1, be1, g2, be2)
 
 
-def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev=None):
-    """Checks what K1, its twin, K5 and K6 take; returns the contiguous launch
-    arguments and the fp32 (B,V,H2) output of the forward.  w2_dev: W2 as
-    the kernel reads it (default bf16, row-major).  The caller holds the
-    arguments until the launch is queued: a copy made here and freed before
-    then could be handed to a buffer allocated in between."""
+def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """Checks what K1, K5 and K6 take; returns the launch arguments — W2 in
+    `wgmma_w2_layout`, a and b contiguous and 16-byte aligned (the kernels
+    read them in 16-byte pieces and bulk copies; a view that is not gets
+    copied) — and the fp32 (B,V,H2) output of the forward.  The caller
+    holds the arguments until the launch is queued: a copy made here and
+    freed before then could be handed to a buffer allocated in between."""
     B, V, H1 = a.shape
     D = nbr.shape[-1]
     H2 = w2.shape[1]
@@ -142,14 +141,15 @@ def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev=None):
         raise ValueError(f"edge_mlp kernel takes degree <= {MAX_DEGREE}, got {D}")
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError("edge_mlp kernel takes bf16 a and b")
-    if b.shape != a.shape or nbr.shape != (B, V, D) or mask.shape != (B, V, D):
+    if (b.shape != a.shape or w2.shape != (H1, H2) or nbr.shape != (B, V, D)
+            or mask.shape != (B, V, D)):
         raise ValueError("edge_mlp kernel: shape mismatch")
     if nbr.dtype != torch.int64 or mask.dtype != torch.bool:
         raise TypeError("edge_mlp kernel takes int64 nbr and bool mask")
+    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+            else t.clone(memory_format=torch.contiguous_format) for t in (a, b))
     vecs = [v.float().contiguous() for v in (b2, g1, be1, g2, be2)]
-    if w2_dev is None:
-        w2_dev = w2.to(torch.bfloat16).contiguous()
-    args = [a.contiguous(), b.contiguous(), nbr.contiguous(), mask.contiguous(), w2_dev, *vecs]
+    args = [a, b, nbr.contiguous(), mask.contiguous(), wgmma_w2_layout(w2), *vecs]
     for t in args:
         if t.device != a.device:
             raise ValueError("edge_mlp kernel: all tensors must be on one device")
@@ -157,25 +157,8 @@ def _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev=None):
     return args, out
 
 
-def _edge_mlp_k6_twin(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
-    """K1's training twin: the forward of `fused_edge_mlp_trainable`.  Same
-    arguments and result as `edge_mlp_plain`."""
-    if not a.is_cuda:
-        return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
-    args, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
-    B, V, D = nbr.shape
-    err = kb.library().edge_mlp_train_forward(*(t.data_ptr() for t in args + [out]), B, V, D,
-                                              a.shape[2], w2.shape[1], kb.stream(a.device))
-    kb.check(err, "edge_mlp_train_forward")
-    _edge_mlp_k6_twin.launches += 1
-    return out
-
-
-_edge_mlp_k6_twin.launches = 0
-
-
 def wgmma_k_order(h: int) -> np.ndarray:
-    """K1's and K5's k order (csrc/edge_wgmma.cuh): entry k is the W2 row (LN1
+    """K1's, K5's and K6's k order (csrc/edge_wgmma.cuh): entry k is the W2 row (LN1
     column) at the product's physical k.  Lane q of a quad holds LN1 columns
     in pieces of P = 8 (4 at h=16), piece p being columns (4p + q) P ..
     (4p + q) P + P - 1, which fill k-chunks p P/4 ..; wgmma takes k = 16c +
@@ -193,7 +176,7 @@ _W2_INDEX: dict = {}
 
 
 def wgmma_w2_layout(w2: torch.Tensor) -> torch.Tensor:
-    """W2 (H1, H2) as K1 and K5 stage it in shared memory: bf16, rows in
+    """W2 (H1, H2) as K1, K5 and K6 stage it in shared memory: bf16, rows in
     `wgmma_k_order`, in wgmma's interleaved K-major layout — core matrices
     of 8 output columns x 8 k, 128 contiguous bytes each (k fastest), H2/8
     of them per group of 8 k, the groups in k order.  One gather and one
@@ -207,21 +190,11 @@ def wgmma_w2_layout(w2: torch.Tensor) -> torch.Tensor:
     return w2.reshape(-1)[_W2_INDEX[key]].to(torch.bfloat16)
 
 
-def _wgmma_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
-    """`_kernel_args` for the wgmma kernels (K1, K5): W2 in `wgmma_w2_layout`,
-    a and b 16-byte aligned (the kernels read them in 16-byte pieces and bulk
-    copies; a view that is not gets copied)."""
-    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-            else t.clone(memory_format=torch.contiguous_format) for t in (a, b))
-    w2_dev = wgmma_w2_layout(w2) if w2.shape[0] == w2.shape[1] in WIDTHS else None
-    return _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, w2_dev)
-
-
 def fused_edge_mlp(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
     """K1.  Same arguments and result as `edge_mlp_plain`."""
     if not a.is_cuda:
         return edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
-    args, out = _wgmma_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    args, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
     err = kb.library().edge_mlp_table_forward(*(t.data_ptr() for t in args + [out]), B, V, D,
                                               a.shape[2], w2.shape[1], kb.stream(a.device))
@@ -240,7 +213,7 @@ def fused_edge_mlp_windowed(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v: i
     _check_windowed_shape(a.shape[1], tile_v)
     if tile_v % 8:
         raise ValueError(f"windowed edge kernel needs tile % 8 == 0, got {tile_v}")
-    args, out = _wgmma_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    args, out = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, D = nbr.shape
     err = kb.library().edge_mlp_windowed_forward(*(t.data_ptr() for t in args + [out]), B, V, D,
                                                  a.shape[2], w2.shape[1], tile_v,
@@ -416,23 +389,29 @@ def fused_edge_mlp_dw2(scratch: torch.Tensor, live: torch.Tensor) -> torch.Tenso
 fused_edge_mlp_dw2.launches = 0
 
 
-def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
+def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout,
+                       return_forward: bool = False):
     """K6.  Same arguments (a, b bf16) and result as `edge_mlp_bwd_plain`;
     db_table is summed with fp32 atomics, so its last bits vary between
     runs; the other gradients are deterministic.  Four launches (the main
     kernel, the dW2 kernel over its scratch tiles and two fixed-order sums),
-    counted as one."""
+    counted as one.  `return_forward` (for the tests of the route's
+    invariant): also return the forward K6 recomputed, (B,V,H2) fp32 —
+    the per-vertex max its route compares against, which equals
+    `fused_edge_mlp`'s output bit for bit — as (gradients, forward)."""
     if not a.is_cuda:
-        return edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout)
-    # the LN1 backward reads a and b rows 16 bytes at a time
-    a, b = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-            else t.clone(memory_format=torch.contiguous_format) for t in (a, b))
-    args, _ = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+        grads = edge_mlp_bwd_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout)
+        if return_forward:
+            return grads, edge_mlp_plain(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+        return grads
+    args, ymax = _kernel_args(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
     B, V, H1 = a.shape
     D, H2 = nbr.shape[-1], w2.shape[1]
     if dout.shape != (B, V, H2) or dout.dtype != torch.float32 or dout.device != a.device:
         raise ValueError("edge_mlp backward kernel takes an fp32 (B,V,H2) dout on a's device")
     dout = dout.contiguous()
+    b2v, g1v, be1v, g2v, be2v = args[5:]
+    vecs = torch.cat([g1v, be1v, b2v, g2v, be2v])
     lib = kb.library()
     grid, splits = ctypes.c_int(0), ctypes.c_int(0)
     kb.check(lib.edge_mlp_backward_grid(B, V, D, H1, H2, ctypes.byref(grid), ctypes.byref(splits)),
@@ -446,27 +425,30 @@ def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout):
     live = torch.empty(n_steps, dtype=torch.uint8, device=a.device)
     dw2_part = torch.empty((splits.value, H1, H2), **f32)
     vec_part = torch.empty((grid.value, vec.numel()), **f32)
-    outs = [dout, da, db, dw2, vec, scratch, live, dw2_part, vec_part]
-    err = lib.edge_mlp_backward(*(t.data_ptr() for t in args + outs), B, V, D, H1, H2,
-                                grid.value, splits.value, kb.stream(a.device))
+    ptrs = [t.data_ptr() for t in args[:5] + [vecs, dout, da, db, dw2, vec, scratch, live,
+                                              dw2_part, vec_part]]
+    err = lib.edge_mlp_backward(*ptrs, ymax.data_ptr() if return_forward else None, B, V, D, H1,
+                                H2, grid.value, splits.value, kb.stream(a.device))
     kb.check(err, "edge_mlp_backward")
     fused_edge_mlp_bwd.launches += 1
     dg1, dbe1, db2, dg2, dbe2 = torch.split(vec, [H1, H1, H2, H2, H2])
-    return da, db, dw2, db2, dg1, dbe1, dg2, dbe2
+    grads = da, db, dw2, db2, dg1, dbe1, dg2, dbe2
+    return (grads, ymax) if return_forward else grads
 
 
 fused_edge_mlp_bwd.launches = 0
 
 
 class _TrainableTail(torch.autograd.Function):
-    """Forward K1's training twin on bf16(a), bf16(b); backward K6.  The
-    gradients of a and b return to the fp32 inputs as through the cast."""
+    """Forward K1 on bf16(a), bf16(b); backward K6, whose recompute repeats
+    K1's bits.  The gradients of a and b return to the fp32 inputs as
+    through the cast."""
 
     @staticmethod
     def forward(ctx, a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         ctx.save_for_backward(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
-        return _edge_mlp_k6_twin(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
+        return fused_edge_mlp(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
 
     @staticmethod
     def backward(ctx, dout):

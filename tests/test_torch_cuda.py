@@ -12,9 +12,9 @@ Small shapes with the edge cases the main path can produce: rows with no
 valid edge, ragged vertex tiles, for the serving edge kernel K1 partial
 64-vertex units, an all-masked mesh, neighbours that all point at the last
 row and views that are not 16-byte aligned, and K1 against K5 on local
-tables; K1's training twin (the trainable tail's forward) against its
-plain version, and the launch counters of serving and training kept
-apart; duplicate and masked kNN candidates, rows with fewer valid
+tables; K6's recomputed forward against K1's output bit for bit (the
+invariant its max routing rests on), and the launch counters of the
+forward and the backward kept apart; duplicate and masked kNN candidates, rows with fewer valid
 candidates than k, for the kNN kernels K2 and K4 ragged query and
 candidate counts (partial 64-query slabs and 64-candidate tiles) at every
 k from the main path's and both gather widths, exact ties across the
@@ -97,21 +97,28 @@ def test_edge_mlp_kernel_matches_plain(cuda, H, D):
     assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
 
 
+@pytest.mark.parametrize("V", [67, 301, 2048])
 @pytest.mark.parametrize("D", [4, 12, 16])
 @pytest.mark.parametrize("H", [16, 32, 64, 128, 256])
-def test_edge_mlp_twin_kernel_matches_plain(cuda, H, D):
-    """K1's training twin (edge_tail.cuh's WMMA step code), which K6's
-    recompute repeats; at D=4 a 64-row step holds 16 vertices."""
-    args = _edge_args(cuda, H, D=D, seed=H + D)
-    before = (ef._edge_mlp_k6_twin.launches, ef.fused_edge_mlp.launches)
-    got = ef._edge_mlp_k6_twin(*args)
-    ref = ef.edge_mlp_plain(*args)
+def test_k6_recomputed_forward_is_k1_bit_for_bit(cuda, H, D, V):
+    """K6's max routing compares its recomputed per-edge outputs with the
+    forward's by exact equality, so its recomputed per-vertex max must be
+    K1's output bit for bit: on ragged V (the last step and the last
+    64-vertex unit partial), a duplicated neighbour column (exact ties),
+    vertices with no valid edge and a run of them that kills whole steps.
+    At D=4 a 64-row step holds 16 vertices, at D=12 five (rows of odd and
+    even vertices mix in one product row pair)."""
+    args, dout = _bwd_args(cuda, H, D=D, V=V, seed=H + D + V)
+    args[3][0, V // 3:V // 3 + 40] = False
+    before = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches)
+    k1 = ef.fused_edge_mlp(*args)
+    grads, fwd = ef.fused_edge_mlp_bwd(*args, dout, return_forward=True)
     torch.cuda.synchronize()
-    assert (ef._edge_mlp_k6_twin.launches, ef.fused_edge_mlp.launches) == (
-        before[0] + 1, before[1])
-    err = (got - ref).abs()
-    assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
-    assert (got[:, 7] == 0).all() and (got[1, -1] == 0).all()
+    assert (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(fwd, k1)
+    assert (fwd[:, 7] == 0).all() and (fwd[0, V // 3:V // 3 + 40] == 0).all()
+    assert all(torch.isfinite(x).all() for x in grads)
 
 
 def _table_args(dev, H, V, seed, D=12, misaligned=False):
@@ -153,11 +160,11 @@ def test_edge_mlp_kernel_table_cases(cuda, H, case):
         args[2].fill_(V - 1)
     if case == "misaligned":
         assert args[0].data_ptr() % 16 == 2 and args[1].data_ptr() % 16 == 2
-    before = (ef.fused_edge_mlp.launches, ef._edge_mlp_k6_twin.launches)
+    before = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches)
     got = ef.fused_edge_mlp(*args)
     ref = ef.edge_mlp_plain(*args)
     torch.cuda.synchronize()
-    assert (ef.fused_edge_mlp.launches, ef._edge_mlp_k6_twin.launches) == (
+    assert (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches) == (
         before[0] + 1, before[1])
     err = (got - ref).abs()
     assert err.max().item() <= K1_TOL and err.mean().item() <= K1_MEAN_TOL
@@ -165,20 +172,19 @@ def test_edge_mlp_kernel_table_cases(cuda, H, case):
 
 
 def test_serving_and_training_count_apart(cuda):
-    """fused_edge_mlp counts K1 only; the trainable tail's forward counts the
-    twin only, its backward K6."""
+    """Serving's fused_edge_mlp counts K1 only; the trainable tail's forward
+    is K1 too and counts there, its backward counts K6 only."""
     args = _edge_args(cuda, 32)
-    counts = lambda: (ef.fused_edge_mlp.launches, ef._edge_mlp_k6_twin.launches,
-                      ef.fused_edge_mlp_bwd.launches)
-    k1, twin, k6 = counts()
+    counts = lambda: (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches)
+    k1, k6 = counts()
     ef.fused_edge_mlp(*args)
-    assert counts() == (k1 + 1, twin, k6)
+    assert counts() == (k1 + 1, k6)
     a, b = (t.float().requires_grad_() for t in args[:2])
     out = ef.fused_edge_mlp_trainable(a, b, *args[2:])
-    assert counts() == (k1 + 1, twin + 1, k6)
+    assert counts() == (k1 + 2, k6)
     out.sum().backward()
     torch.cuda.synchronize()
-    assert counts() == (k1 + 1, twin + 1, k6 + 1)
+    assert counts() == (k1 + 2, k6 + 1)
 
 
 def _bwd_args(dev, H, D=12, V=301, seed=0):
@@ -219,7 +225,7 @@ def test_edge_mlp_bwd_kernel_matches_plain(cuda, H, D):
 
 
 def test_trainable_tail_on_card_matches_cpu_plain(cuda):
-    """Gradients through fused_edge_mlp_trainable (the twin forward, K6 backward)
+    """Gradients through fused_edge_mlp_trainable (K1 forward, K6 backward)
     on the card against the same Function on the CPU (plain versions)."""
     args, dout = _bwd_args(cuda, 128, seed=5)
     a, b, nbr, mask, *params = args
@@ -357,7 +363,7 @@ def _pose_dataset():
 
 @pytest.mark.parametrize("fin,out", [(3, 32), (32, 64), (64, 256), (256, 512)])
 def test_gcu_train_backward_on_card_matches_cpu(cuda, fin, out):
-    """Each of CorrNet's GCUs in training (two edge layers through the twin + K6 on
+    """Each of CorrNet's GCUs in training (two edge layers through K1 + K6 on
     the card, their plain versions on the CPU; the fuse MLP in fp32) from the
     same weights, input and dout on the valid vertices: the output, the
     input's gradient and every parameter's gradient by relative L2 at
@@ -726,7 +732,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     plain version in the kernel's place."""
     counts = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
               kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
-    k6 = (ef.fused_edge_mlp_bwd.launches, ef._edge_mlp_k6_twin.launches)
+    k6 = ef.fused_edge_mlp_bwd.launches
     with pytest.raises(ValueError, match="widths"):
         ef.fused_edge_mlp(*_edge_args(cuda, 48))
     with pytest.raises(ValueError, match="degree"):
@@ -761,8 +767,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ef.fused_edge_mlp_bwd(*args, dout.double())
     assert counts == (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
                       kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
-    with pytest.raises(ValueError, match="widths"):
-        ef._edge_mlp_k6_twin(*_edge_args(cuda, 48))
-    with pytest.raises(ValueError, match="degree"):
-        ef._edge_mlp_k6_twin(*_edge_args(cuda, 32, D=17))
-    assert (ef.fused_edge_mlp_bwd.launches, ef._edge_mlp_k6_twin.launches) == k6
+    # the trainable tail refuses them in its forward, K1
+    for args in (_edge_args(cuda, 48), _edge_args(cuda, 32, D=17)):
+        a, b = (t.float().requires_grad_() for t in args[:2])
+        with pytest.raises(ValueError, match="widths|degree"):
+            ef.fused_edge_mlp_trainable(a, b, *args[2:])
+    assert counts == (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
+                      kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
+    assert ef.fused_edge_mlp_bwd.launches == k6

@@ -274,10 +274,15 @@ def test_edge_wrapper_on_cpu_is_the_plain_version():
     t = torch.as_tensor
     args = (t(a).to(torch.bfloat16), t(b).to(torch.bfloat16), t(nbr).long(), t(mask),
             t(w2), *map(t, vecs))
-    before = (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches)
+    dout = t(np.random.default_rng(2).standard_normal((B, V, 32)).astype(np.float32))
+    before = (tef.fused_edge_mlp.launches, tef.fused_edge_mlp_bwd.launches)
     assert torch.equal(tef.fused_edge_mlp(*args), tef.edge_mlp_plain(*args))
-    assert torch.equal(tef._edge_mlp_k6_twin(*args), tef.edge_mlp_plain(*args))
-    assert (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches) == before
+    # K6's forward for the route's invariant is, on the CPU, the plain forward
+    grads, fwd = tef.fused_edge_mlp_bwd(*args, dout, return_forward=True)
+    assert torch.equal(fwd, tef.edge_mlp_plain(*args))
+    for g, r in zip(grads, tef.edge_mlp_bwd_plain(*args, dout)):
+        assert torch.equal(g, r)
+    assert (tef.fused_edge_mlp.launches, tef.fused_edge_mlp_bwd.launches) == before
 
 
 def test_dw2_wrapper_on_cpu_is_the_plain_version():

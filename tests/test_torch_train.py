@@ -125,8 +125,7 @@ def test_trainable_tail_grads_are_the_plain_backward():
     a, b = t(args[0]).requires_grad_(), t(args[1]).requires_grad_()
     params = [t(x).requires_grad_() for x in args[4:]]
     nbr, mask = t(args[2]), t(args[3])
-    before = (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches,
-              tef.fused_edge_mlp_bwd.launches)
+    before = (tef.fused_edge_mlp.launches, tef.fused_edge_mlp_bwd.launches)
     out = tef.fused_edge_mlp_trainable(a, b, nbr, mask, *params)
     a16, b16 = a.detach().bfloat16(), b.detach().bfloat16()
     assert torch.equal(out, tef.edge_mlp_plain(a16, b16, nbr, mask, *params))
@@ -134,8 +133,7 @@ def test_trainable_tail_grads_are_the_plain_backward():
     ref = tef.edge_mlp_bwd_plain(a16, b16, nbr, mask, *(p.detach() for p in params), t(dout))
     for name, g, r in zip(K6_NAMES, [a.grad, b.grad] + [p.grad for p in params], ref):
         assert torch.equal(g, r), name
-    assert (tef.fused_edge_mlp.launches, tef._edge_mlp_k6_twin.launches,
-            tef.fused_edge_mlp_bwd.launches) == before
+    assert (tef.fused_edge_mlp.launches, tef.fused_edge_mlp_bwd.launches) == before
 
 
 # ---------------------------------------------------------------------------
