@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (morig_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # what the smoke check runs
-    python3 chip_smoke.py --profile   # plus phase 5 and the training profile
+    python3 chip_smoke.py --profile   # plus phase 5 and the training and tracking profiles
 
 Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
@@ -65,8 +65,37 @@ Phases, each printing its own lines:
                loss, which must be lower; with --profile also the step's
                device ops, busy time and idle share and K1's, K6's and
                K2's time.
+  7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
+               path 1's predictor on the first capsule request (V=1298
+               padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
+               and K3 calls are recorded and each held against its plain
+               version at its shape, then 5 timed calls, each checked
+               (finite joints, skin rows summing to 1 within 1e-3, kernel
+               counts zeroed before and read after each call: K1 one per
+               edge layer call, K2 = 3, K3 = 12); prints the median, the
+               stage medians (flow, shift_attn, joints, skel, skin) and the
+               joint count beside predict_rig_batch's on the same mesh;
+  8. tracking — `make_scanned_tracker(Tracker(...))` with path 1's DeformNet
+               on the capsule sequence at `cli.py track`'s size (V=274
+               padded to 1024, degree-16 tables, P=256) and
+               `BatchedTracker.make_scanned()` on NB=4 creatures at bench.py
+               phase B2's configuration (seeds 100-103, P=512, at most 900
+               vertices, the 1024 bucket, degree-12 tables, joints rounded
+               up to a multiple of 8), each over 6 frames (5 tracked; B2
+               runs 21) with the full 200 + 400 IK iterations: a warm-up
+               run whose kernel calls are held against the plain versions
+               as in phase 7, then a timed run with the counts zeroed
+               before it (per step, one frame of every sequence: K1 one
+               per DeformNet edge layer, K2 = 3, K3 = 6); prints tracked
+               frames/s (all sequences), ms per step split into flow and
+               IK (stage 1, gate, stage 2), peak memory and the counts,
+               and checks that trajectories and vismasks are finite and
+               quaternions of unit norm; with --profile also one step's
+               device ops, busy ms and idle share for the flow and the IK
+               half.
 Then a JSON line of kernel results (launches counted in the main paths'
-counted runs: path 1, path 2 and the training step; `ms` and `device_ms`
+counted runs: path 1, path 2, the training step, the first timed
+single-mesh call and the two timed tracking runs; `ms` and `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
 `library_device_ms` the library call's, `composite_ms` and
 `composite_device_ms` K2's and K4's composite's), the card's name and power limit,
@@ -76,6 +105,7 @@ raises: the exit code is non-zero and the last line is not printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -84,9 +114,11 @@ import time
 import numpy as np
 import torch
 
-from morig_tpu_torch.core.batch import stack_meshes
+from morig_tpu_torch.core.batch import build_mesh, pad_to, stack_meshes
+from morig_tpu_torch.data.creature import make_creature_sequence
 from morig_tpu_torch.data.pose import PoseDataset, capsule_pose_dataset
-from morig_tpu_torch.data.synthetic import capsule_batch, make_capsule_rig
+from morig_tpu_torch.data.synthetic import capsule_batch, make_capsule_rig, make_capsule_sequence
+from morig_tpu_torch.geometry import skeleton as sk
 from morig_tpu_torch.geometry.geodesic import surface_geodesic
 from morig_tpu_torch.geometry.voxel import voxelize_mesh
 from morig_tpu_torch.kernels import build as kb
@@ -96,9 +128,11 @@ from morig_tpu_torch.kernels.edge_fused import (
     fused_edge_mlp_windowed)
 from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows
 from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_topk
+from morig_tpu_torch.nn import corrnet, deformnet, gcu, pointnet
 from morig_tpu_torch.nn.corrnet import l2_normalize
 from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl
-from morig_tpu_torch.pipelines.rig_predict import RigPredictor
+from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer
+from morig_tpu_torch.pipelines.tracking import BatchedTracker, Tracker, make_scanned_tracker
 from morig_tpu_torch.train.stages import CorrPoseStage
 
 B_MESH, T, P, V_PAD, DEGREE = 4, 5, 1024, 1536, 12
@@ -515,11 +549,10 @@ def knn_composite(q, c, k, mask, values):
     return run
 
 
-def _knn_case(dev, res, name, q, c, k, mask, values):
-    """K2 (values given) or K4 (values None) against knn_plain: scores within
-    K2_TOL, indices equal wherever the order is decided, gather exact; its
-    device and call ms beside the composite's.  Adds to `res` unless res is
-    None."""
+def knn_agree(q, c, k, mask, values):
+    """One K2 (values given) or K4 call against knn_plain: (outputs, max score
+    error, rows whose indices differ where the order is decided, decided
+    rows, gather exact)."""
     out = knn_batched(q, c, k, mask, gather_values=values)
     idx, score = out[:2]
     ref_idx, ref_score = knn_plain(q, c, k + 1, mask)
@@ -532,8 +565,17 @@ def _knn_case(dev, res, name, q, c, k, mask, values):
                        (hi - lo).abs())
     decided = gaps.min(-1).values > K2_TOL
     bad = (idx != ref_idx[..., :k]).any(-1) & decided
-    bsel = torch.arange(q.shape[0], device=dev)[:, None, None]
+    bsel = torch.arange(q.shape[0], device=q.device)[:, None, None]
     gather_exact = values is None or torch.equal(out[2], values[bsel, idx])
+    return out, e, bad, decided, gather_exact
+
+
+def _knn_case(dev, res, name, q, c, k, mask, values):
+    """K2 (values given) or K4 (values None) against knn_plain: scores within
+    K2_TOL, indices equal wherever the order is decided, gather exact; its
+    device and call ms beside the composite's.  Adds to `res` unless res is
+    None."""
+    out, e, bad, decided, gather_exact = knn_agree(q, c, k, mask, values)
     kernel = "K4" if values is None else "K2"
     t_k = kernel_ms(lambda: knn_batched(q, c, k, mask, gather_values=values),
                     DEVICE_NAMES[kernel])
@@ -975,6 +1017,255 @@ def profile_step(stage, state, batch, gen):
           + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
 
 
+# ---------------------------------------------------------------------------
+# the kernels at the shapes phases 7 and 8 give them
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recording_kernel_calls(calls: dict):
+    """Record in `calls` the arguments of the first K1, K2 and K3 call of each
+    shape the networks make inside, by wrapping the wrappers where the
+    networks look them up."""
+    sites = ((gcu, "fused_edge_mlp", "K1"), (corrnet, "knn_batched", "K2"),
+             (deformnet, "knn_batched", "K2"), (pointnet, "gather_rows", "K3"))
+    originals = [getattr(mod, name) for mod, name, _ in sites]
+
+    def recorder(fn, kernel):
+        def call(*args, **kw):
+            key = (kernel,) + tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args) \
+                + tuple((k, tuple(v.shape)) for k, v in kw.items() if torch.is_tensor(v))
+            calls.setdefault(key, (kernel, args, kw))
+            return fn(*args, **kw)
+        return call
+
+    for (mod, name, kernel), fn in zip(sites, originals):
+        setattr(mod, name, recorder(fn, kernel))
+    try:
+        yield calls
+    finally:
+        for (mod, name, _), fn in zip(sites, originals):
+            setattr(mod, name, fn)
+
+
+def check_recorded(phase: str, calls: dict) -> None:
+    """Each recorded call's kernel against its plain version on the same
+    inputs: K1 within K1_TOL / K1_MEAN_TOL, K2's scores within K2_TOL with
+    the decided indices equal and the gather exact, K3 exact."""
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    for kernel, args, kw in calls.values():
+        if kernel == "K1":
+            got, ref = fused_edge_mlp(*args), edge_mlp_plain(*args)
+            e, e_mean = (got - ref).abs().max().item(), (got - ref).abs().mean().item()
+            ok = e <= K1_TOL and e_mean <= K1_MEAN_TOL
+        elif kernel == "K2":              # knn_batched(q, c, k, mask, gather_values=v)
+            _, e, bad, _, exact = knn_agree(*args, kw["gather_values"])
+            ok = e <= K2_TOL and int(bad.sum()) == 0 and exact
+        else:
+            e = 0.0 if torch.equal(gather_rows(*args), gather_plain(*args)) else math.inf
+            ok = e == 0.0
+        worst[kernel] = max(worst[kernel], e)
+        if not ok:
+            shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+            raise AssertionError(f"{phase}: {kernel} disagrees with its plain version at {shapes}")
+    counts = {k: sum(v[0] == k for v in calls.values()) for k in worst}
+    print(f"{phase}: kernels against their plain versions at the path's shapes: "
+          + ", ".join(f"{k} {counts[k]} shapes, max_abs_err {worst[k]:.3g}" for k in worst))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the single-mesh API
+# ---------------------------------------------------------------------------
+
+SINGLE_REPS = 5       # timed predict_rig calls after the warm-up
+
+
+def single_mesh(pred: RigPredictor, entry: dict, frames: np.ndarray, expected: dict) -> dict:
+    """predict_rig on one capsule request: a warm-up call (its kernel calls
+    recorded and checked against the plain versions), then SINGLE_REPS
+    timed calls, each checked, with the kernel counts zeroed before each
+    and read after it.  Returns the first timed call's counts."""
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with recording_kernel_calls(calls):
+        rig = pred.predict_rig(entry, frames)
+    torch.cuda.synchronize()
+    print(f"single mesh warm-up: {time.perf_counter() - t0:.3f} s")
+    check_recorded("single mesh", calls)
+    n_valid = int(np.asarray(entry["vert_mask"]).sum())
+    walls, stages, first = [], {}, None
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SINGLE_REPS):
+        timings: dict = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        rig = pred.predict_rig(entry, frames, timings=timings)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = read_counts()
+        first = first or launches
+        err = np.abs(rig.skins.sum(1) - 1.0).max()
+        if not (np.isfinite(rig.pos).all() and rig.skins.shape == (n_valid, len(rig.pos))
+                and err <= 1e-3 and launches == expected):
+            raise AssertionError(f"single mesh: joints finite {np.isfinite(rig.pos).all()}, "
+                                 f"skins {rig.skins.shape}, rows off 1 by {err}, launches "
+                                 f"{launches} (expected {expected})")
+        for k, v in timings.items():
+            stages.setdefault(k, []).append(v * 1e3)
+    batch_rig = pred.predict_rig_batch([entry], [frames])[0]
+    ms = np.asarray(walls) * 1e3
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    print(f"single mesh: predict_rig V={entry['verts'].shape[0]} ({n_valid} valid) "
+          f"P={frames.shape[1]} T={frames.shape[0]}: median {med:.2f} ms (q1 {q1:.2f}, q3 "
+          f"{q3:.2f}, min {ms.min():.2f}, max {ms.max():.2f}; {SINGLE_REPS} calls); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {len(rig.pos)} joints "
+          f"(predict_rig_batch on the same mesh: {len(batch_rig.pos)})")
+    print("single mesh stage medians ms: "
+          + ", ".join(f"{k} {np.median(v):.2f}" for k, v in stages.items()))
+    print(f"single mesh kernel launches per call: {first}, expected {expected}")
+    return first
+
+
+# ---------------------------------------------------------------------------
+# phase 8: tracking
+# ---------------------------------------------------------------------------
+
+TRACK_FRAMES = 6          # frames per sequence: frame 0 is the rest pose, 5 are tracked
+TRACK_P, TRACK_PAD = 256, 1024                       # `cli.py track`'s cloud and bucket
+CREATURES, CREATURE_P, CREATURE_VERTS, CREATURE_RES = 4, 512, 900, 40   # bench.py phase B2
+CREATURE_DEGREE = 12
+IK_HALF = ("ik1", "gate", "ik2")
+
+
+def tracking_inputs():
+    """The capsule sequence at `cli.py track`'s size (V=274 padded to 1024,
+    degree-16 tables, P=256) and NB=4 creatures at bench.py phase B2's
+    configuration (seeds 100-103, P=512, at most 900 vertices at res 40,
+    the 1024 bucket, degree-12 tables, the joint axis rounded up to a
+    multiple of 8), each with TRACK_FRAMES frames in place of B2's 21."""
+    seq = make_capsule_sequence(num_frames=TRACK_FRAMES, num_points=TRACK_P)
+    cap = seq["rig"]
+    single = dict(rig=sk.Rig(names=list(cap.names), pos=cap.joints.astype(float),
+                             parents=cap.parents, skins=cap.skins),
+                  entry=build_mesh(cap.verts, seq["tpl_edges"], seq["geo_edges"], TRACK_PAD),
+                  vtx0=cap.verts, pts=seq["pts_traj"])
+    rigs, entries, vtx0, pts, jm = [], [], [], [], 8
+    for i in range(CREATURES):
+        cs = make_creature_sequence(seed=100 + i, num_frames=TRACK_FRAMES, num_points=CREATURE_P,
+                                    target_verts=CREATURE_VERTS, res=CREATURE_RES)
+        c = cs["rig"]
+        rigs.append(sk.Rig(names=list(c.names), pos=c.joints.astype(float), parents=c.parents,
+                           skins=c.skins))
+        entries.append(build_mesh(c.verts, cs["tpl_edges"], cs["geo_edges"], TRACK_PAD,
+                                  CREATURE_DEGREE, CREATURE_DEGREE))
+        vtx0.append(pad_to(c.verts, TRACK_PAD))
+        pts.append(cs["pts_traj"])
+        jm = max(jm, len(c.joints))
+    batched = dict(rigs=rigs, entries=entries, vtx0=np.stack(vtx0), pts=np.stack(pts),
+                   max_joints=min((jm + 7) // 8 * 8, 48))
+    print(f"tracking inputs: capsule V={len(cap.verts)} P={TRACK_P}; creatures V="
+          f"{[len(v) for v in (e['vert_mask'].nonzero()[0] for e in entries)]} J="
+          f"{[r.num_joints for r in rigs]} (max_joints {batched['max_joints']}) P={CREATURE_P}")
+    return single, batched
+
+
+def check_tracks(name: str, traj, vis, quats) -> None:
+    norm = np.abs(np.linalg.norm(quats, axis=-1) - 1.0).max()
+    if not (np.isfinite(traj).all() and np.isfinite(vis).all() and norm <= 1e-4):
+        raise AssertionError(f"{name}: trajectories finite {np.isfinite(traj).all()}, "
+                             f"vismasks finite {np.isfinite(vis).all()}, quaternion norms off "
+                             f"1 by {norm}")
+
+
+def track(name: str, run, args, frames: int, per_frame: dict,
+          sequences: int = 1) -> tuple[dict, dict]:
+    """One warm-up run (its kernel calls recorded and checked against the
+    plain versions), then one timed run of `frames` steps over `sequences`
+    sequences at once, with the kernel counts zeroed before it and read
+    after it, which must be `per_frame` times the steps.  Returns
+    (launches, per-part seconds summed over the steps)."""
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with recording_kernel_calls(calls):
+        check_tracks(name, *run(*args))
+    print(f"{name} warm-up: {time.perf_counter() - t0:.3f} s")
+    check_recorded(name, calls)
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run(*args, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check_tracks(name, *out)
+    expected = {k: v * frames for k, v in per_frame.items()}
+    flow_ms = timings["flow"] * 1e3 / frames
+    ik_ms = sum(timings[k] for k in IK_HALF) * 1e3 / frames
+    print(f"{name}: {frames * sequences} tracked frames ({sequences} sequences x {frames}) in "
+          f"{wall * 1e3:.2f} ms: {frames * sequences / wall:.3f} tracked frames/s; per step "
+          f"{wall * 1e3 / frames:.2f} ms, flow {flow_ms:.2f} ms, IK "
+          f"{ik_ms:.2f} ms (" + ", ".join(f"{k} {timings[k] * 1e3 / frames:.2f}" for k in IK_HALF)
+          + f"); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{name} kernel launches: {launches} ({ {k: v / frames for k, v in launches.items()} } "
+          f"per step), expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {expected}")
+    return launches, timings
+
+
+def profile_tracker(name: str, frame_fn, flow_fn, timings: dict, frames: int) -> None:
+    """One step under torch.profiler, and its flow alone: device ops, busy ms
+    and idle share of the flow and of the IK half (the step less its flow;
+    the idle share against the timed run's ms per step of each half)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stats = {}
+    for part, fn in (("flow", flow_fn), ("frame", frame_fn)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = device_events(prof)
+        stats[part] = (len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+    walls = {"flow": timings["flow"] * 1e3 / frames,
+             "IK": sum(timings[k] for k in IK_HALF) * 1e3 / frames}
+    halves = {"flow": stats["flow"],
+              "IK": tuple(f - g for f, g in zip(stats["frame"], stats["flow"]))}
+    for half, (ops, busy) in halves.items():
+        idle = f"{1 - busy / walls[half]:.3f}" if ops else "not measured (no device events)"
+        print(f"profile {name} {half} per step: {ops} device ops, busy {busy:.2f} ms of "
+              f"{walls[half]:.2f} ms, idle share {idle}")
+
+
+def tracking(pred: RigPredictor, profile_phase: bool) -> dict:
+    """The single tracker (`make_scanned_tracker`, full IK) on the capsule and
+    the batched tracker on the creatures.  Per frame each runs one DeformNet
+    forward: K1 once per edge layer, K2 three times, K3 six times (the
+    point encoder).  Returns their timed runs' kernel counts, summed."""
+    single, batched = tracking_inputs()
+    frames = TRACK_FRAMES - 1
+    per_frame = {"K1": sum(isinstance(m, EdgeMLP) for m in pred.deform.modules()), "K2": 3,
+                 "K3": 6, "K4": 0, "K5": 0, "K6": 0}
+    tracker = Tracker(pred.deform, single["rig"], single["entry"])
+    cfg = tracker.cfg
+    print(f"tracking: IK {cfg.ik_iters_stage1} + {cfg.ik_iters_stage2} iterations per frame")
+    run = make_scanned_tracker(tracker)
+    one, t_one = track("track single", run, (single["vtx0"], single["pts"]), frames, per_frame)
+    bt = BatchedTracker(pred.deform, batched["rigs"], batched["entries"],
+                        max_joints=batched["max_joints"])
+    many, t_many = track(f"track batched NB={CREATURES}", bt.make_scanned(),
+                         (batched["vtx0"], batched["pts"]), frames, per_frame, CREATURES)
+    if profile_phase:
+        dev = tracker.device
+        v = torch.as_tensor(single["vtx0"], dtype=torch.float32, device=dev)
+        p = torch.as_tensor(single["pts"][:, 1], device=dev)
+        profile_tracker("track single", lambda: tracker._frame(v, p, StageTimer(None, dev)),
+                        lambda: tracker._flow(v, p), t_one, frames)
+        vb = torch.as_tensor(batched["vtx0"], dtype=torch.float32, device=dev)
+        pb = torch.as_tensor(batched["pts"][:, :, 1], device=dev)
+        profile_tracker(f"track batched NB={CREATURES}", lambda: bt._frame(vb, pb, StageTimer(None, dev)),
+                        lambda: bt._flow(vb, pb), t_many, frames)
+    return {k: one[k] + many[k] for k in one}
+
+
 # kernel: (route, source, the TPU kernel it replaces).  The edge kernels K1,
 # K5 and K6's recompute run the wgmma step code of csrc/edge_wgmma.cuh.
 SOURCES = {
@@ -1031,12 +1322,16 @@ def main(profile_phase: bool = False):
         profile_programs("path 1", pred, entries, frames)
         profile_programs("path 2", pred2, entries, frames, device_cache=cache, **phase_a)
         profile_geometry(dev, entries, pred.cfg.joints)
-    del pred, pred2, cache
+    del pred2, cache
     trained = train(batch, dev, profile_phase)
+    single = single_mesh(pred, entries[0], frames[0],
+                         {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
+                          "K4": 0, "K5": 0, "K6": 0})
+    tracked = tracking(pred, profile_phase)
 
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
-        n = path1[name] + path2[name] + trained[name]
+        n = path1[name] + path2[name] + trained[name] + single[name] + tracked[name]
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
     print(json.dumps({"kernels": kernels}))

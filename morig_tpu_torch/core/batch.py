@@ -77,6 +77,24 @@ class PoseSample:
     gt_flow: torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class SkelSample:
+    """Skeleton-connectivity input of RootNet and BoneNet: joints (B,J,3)
+    f32, joints_mask (B,J) bool, candidate pairs (B,P,2) int64 with
+    pair_mask (B,P) bool, pair_attr (B,P,2) f32 [distance, inside
+    fraction], pair_label (B,P) f32 adjacency and root_idx (B,) int64 (both
+    zero at inference)."""
+
+    mesh: MeshBatch
+    joints: torch.Tensor
+    joints_mask: torch.Tensor
+    pairs: torch.Tensor
+    pair_mask: torch.Tensor
+    pair_attr: torch.Tensor
+    pair_label: torch.Tensor
+    root_idx: torch.Tensor
+
+
 def bucket_size(n: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= n (the last bucket if none fits)."""
     for b in buckets:

@@ -1,6 +1,6 @@
-"""The constants of the rig DAG and of training — the part of
-morig_tpu/core/config.py's `Config` tree that `RigPredictor` and the
-training stages read, with the same names and defaults.
+"""The constants of the rig DAG, of tracking and of training — the part of
+morig_tpu/core/config.py's `Config` tree that `RigPredictor`, the
+trackers and the training stages read, with the same names and defaults.
 """
 from __future__ import annotations
 
@@ -37,6 +37,20 @@ class JointExtractConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrackingConfig:
+    """Tracking and IK constants."""
+
+    ik_iters_stage1: int = 200
+    ik_iters_stage2: int = 400
+    ik_lr_stage1: float = 5e-2
+    ik_lr_stage2: float = 1e-3
+    ik_weight_decay: float = 1e-4
+    vismask_threshold: float = 0.3
+    corr_sim_threshold: float = 0.5    # correspondence gate: embedding similarity
+    corr_l2_threshold: float = 1e-2    # and squared distance to the posed vertex
+
+
+@dataclasses.dataclass(frozen=True)
 class SkinPostConfig:
     prune_ratio_rig: float = 0.35
     post_filter_rings: int = 1
@@ -53,6 +67,7 @@ class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     joints: JointExtractConfig = dataclasses.field(default_factory=JointExtractConfig)
+    tracking: TrackingConfig = dataclasses.field(default_factory=TrackingConfig)
     skin_post: SkinPostConfig = dataclasses.field(default_factory=SkinPostConfig)
 
 

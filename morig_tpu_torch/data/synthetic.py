@@ -28,6 +28,7 @@ class CapsuleRig:
     joints: np.ndarray         # (J, 3)
     parents: np.ndarray        # (J,) parent index, -1 for root
     skins: np.ndarray          # (V, J) rows sum to 1
+    names: list = dataclasses.field(default_factory=lambda: ["root", "mid", "tip"])
 
 
 def uv_capsule(n_lat: int = 17, n_lon: int = 16, radius: float = 0.12, height: float = 0.55):
@@ -104,9 +105,10 @@ def rotz(a: float) -> np.ndarray:
     return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], dtype=np.float32)
 
 
-def fk_numpy(joints, parents, local_rots):
+def fk_numpy(joints, parents, local_rots, root_trans=None):
     """Global rotations G_j = G_parent R_j and positions q_j = q_parent +
-    G_parent (p_j - p_parent), walking the hierarchy breadth first."""
+    G_parent (p_j - p_parent), walking the hierarchy breadth first; the root
+    moved by `root_trans`."""
     J = len(joints)
     order = []
     todo = [int(np.argwhere(parents < 0)[0, 0])]
@@ -119,16 +121,17 @@ def fk_numpy(joints, parents, local_rots):
     for j in order:
         p = parents[j]
         if p < 0:
-            G[j], q[j] = local_rots[j], joints[j]
+            G[j] = local_rots[j]
+            q[j] = joints[j] + (root_trans if root_trans is not None else 0.0)
         else:
             G[j] = G[p] @ local_rots[j]
             q[j] = q[p] + G[p] @ (joints[j] - joints[p])
     return G, q
 
 
-def lbs_numpy(verts, joints, parents, skins, local_rots):
+def lbs_numpy(verts, joints, parents, skins, local_rots, root_trans=None):
     """Linear blend skinning from rest pose: v' = sum_j w_j (G_j (v - p_j) + q_j)."""
-    G, q = fk_numpy(joints, parents, local_rots)
+    G, q = fk_numpy(joints, parents, local_rots, root_trans)
     rel = verts[:, None, :] - joints[None, :, :]           # (V, J, 3)
     moved = np.einsum("jab,vjb->vja", G, rel) + q[None]    # (V, J, 3)
     return np.einsum("vj,vja->va", skins, moved)

@@ -1,8 +1,10 @@
-"""Vertex-to-bone distances and voxel line of sight — counterpart of
-morig_tpu/geometry/bones.py (`point_to_segment_dist`,
-`vertex_bone_visibility`), batched."""
+"""Vertex-to-bone distances, voxel line of sight and the skin descriptors —
+counterpart of morig_tpu/geometry/bones.py: `point_to_segment_dist` and
+`vertex_bone_visibility` batched on the device, `pack_skin_descriptors` and
+`scatter_skin_full` numpy copies for the single-mesh skin stage."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +32,37 @@ def vertex_bone_visibility(verts, bones, grid, translate, scale, num_samples: in
     starts = verts[:, :, None, :].expand_as(foot)
     frac = segment_inside_fraction(starts, foot, grid, translate, scale, num_samples)
     return frac >= inside_threshold, dist
+
+
+def pack_skin_descriptors(geo_dist: np.ndarray, bones: np.ndarray, bone_isleaf: np.ndarray,
+                          num_nearest: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-vertex K-nearest-bone descriptors, (V, K*8) with [6 endpoint
+    coords, 1/(dist+1e-10), isleaf] per bone, from geo_dist (V, B).  Returns
+    (skin_input (V,K*8) f32, skin_nn (V,K) int32 bone ids, loss_mask (V,K)
+    int32, 0 where fewer than K bones exist).  The order among equal
+    distances is numpy's default argsort, as in the JAX package."""
+    V, B = geo_dist.shape
+    K = num_nearest
+    order = np.argsort(geo_dist, axis=1)
+    k_eff = min(K, B)
+    nn = order[:, :k_eff]
+    if k_eff < K:
+        nn = np.concatenate([nn, np.repeat(order[:, :1], K - k_eff, axis=1)], axis=1)
+    mask = np.zeros((V, K), np.int32)
+    mask[:, :k_eff] = 1
+    d = np.take_along_axis(geo_dist, nn, axis=1)
+    desc = np.concatenate([bones[nn].reshape(V, K, 6), (1.0 / (d + 1e-10))[..., None],
+                           bone_isleaf[nn].astype(np.float32)[..., None]],
+                          axis=-1).reshape(V, K * 8)
+    return desc.astype(np.float32), nn.astype(np.int32), mask
+
+
+def scatter_skin_full(skin_probs: np.ndarray, skin_nn: np.ndarray, loss_mask: np.ndarray,
+                      num_bones: int) -> np.ndarray:
+    """Per-vertex K-bone probabilities (V, K) onto the full bone axis (V,
+    num_bones) float64, repeated bones summed."""
+    V, K = skin_probs.shape
+    full = np.zeros((V, num_bones), np.float64)
+    rows = np.repeat(np.arange(V), K)
+    np.add.at(full, (rows, skin_nn.reshape(-1)), (skin_probs * loss_mask).reshape(-1))
+    return full

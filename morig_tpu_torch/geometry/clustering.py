@@ -4,7 +4,10 @@ Device end (batched torch): bandwidth by geometric bisection (the JAX
 default "auto" estimate), weighted flat-kernel mean-shift with a per-sample
 convergence freeze, density counts, and `select_and_cluster` with or
 without voxel containment.  Host end (numpy, copied as it is because the JAX module imports jax):
-`nms_modes`, `flip_joints`, `nms_flip_host`.
+`nms_modes`, `symmetrize_reflect`, `flip_joints`, `nms_flip_host`.
+`extract_joints` is the single-mesh procedure: host filtering and
+reflection, then the device bandwidth and mean-shift on the one unpadded
+cloud, then host NMS and flip.
 """
 from __future__ import annotations
 
@@ -133,6 +136,12 @@ def nms_modes(pts, attn, bandwidth, density_threshold=0.02, attn_threshold=0.7,
     return pts[keep]
 
 
+def symmetrize_reflect(pts: np.ndarray, attn: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Double the point set with its x-mirror before clustering."""
+    mirrored = pts * np.array([[-1.0, 1.0, 1.0]], dtype=pts.dtype)
+    return np.concatenate([pts, mirrored], 0), np.concatenate([attn, attn], 0)
+
+
 def flip_joints(joints, tol=2e-2, extra=None):
     """Mirror left-half joints to the right, snap middle joints to the plane.
     Returns (joints, side) with side in {-1,0,1}; with `extra` (per-joint
@@ -172,3 +181,38 @@ def nms_flip_host(moved, bws, counts, attn2, sel2, density_threshold=0.02,
             modes, _, dens = flip_joints(modes, extra=dens)
         out.append((modes, dens) if return_density else modes)
     return out
+
+
+def extract_joints(shifted_pts: np.ndarray, attn: np.ndarray, inside_fn=None,
+                   bandwidth_quantile: float = 0.04, attn_keep_threshold: float = 0.1,
+                   density_threshold: float = 0.02, attn_nms_threshold: float = 0.7,
+                   meanshift_iters: int = 30, symmetrize: bool = True,
+                   bandwidth_sample_rows: int = 0, device="cuda") -> np.ndarray:
+    """Shifted points (N, 3) and their attention (N,) -> joints (J, 3): the
+    attention min-max normalized (kept as it is when constant), points
+    outside `inside_fn` and below `attn_keep_threshold` dropped, reflected,
+    then bandwidth and mean-shift on `device` over the remaining cloud, host
+    NMS and flip."""
+    attn = np.asarray(attn).reshape(-1).astype(np.float64)
+    spread = attn.max() - attn.min()
+    if spread > 1e-10:
+        attn = (attn - attn.min()) / spread
+    pts = np.asarray(shifted_pts, np.float32)
+    if inside_fn is not None:
+        ok = inside_fn(pts)
+        pts, attn = pts[ok], attn[ok]
+    sel = attn > attn_keep_threshold
+    pts, attn = pts[sel], attn[sel]
+    if len(pts) == 0:
+        return np.zeros((0, 3), np.float32)
+    if symmetrize:
+        pts, attn = symmetrize_reflect(pts, attn)
+    p = torch.as_tensor(pts, device=device)[None]
+    mask = torch.ones(p.shape[:2], dtype=torch.bool, device=device)
+    bw = estimate_bandwidth(p, mask, bandwidth_quantile, bandwidth_sample_rows)
+    w = torch.as_tensor(attn, dtype=torch.float32, device=device)[None]
+    moved = meanshift_cluster(p, bw, w, mask, meanshift_iters)[0].cpu().numpy()
+    modes = nms_modes(moved, attn, float(bw[0]), density_threshold, attn_nms_threshold)
+    if symmetrize:
+        modes, _ = flip_joints(modes)
+    return modes

@@ -1,8 +1,11 @@
 """Skeleton structure and the host algorithms of rig assembly (numpy) —
-counterpart of the parts of morig_tpu/geometry/skeleton.py the rig DAG runs:
-`get_bones`, `prim_mst`, `increase_cost_for_outside_bone`,
-`rig_from_parents`, `assemble_skel_skin` and `remove_duplicate_joints`, with
-the `Rig` structure they share.
+counterpart of the parts of morig_tpu/geometry/skeleton.py the rig DAG and
+tracking run: `get_bones`, `prim_mst`, `prim_mst_symmetry` (with `side_of`
+and `mirror_map`), `increase_cost_for_outside_bone`, `rig_from_parents`,
+`assemble_skel_skin` and `remove_duplicate_joints`, with the `Rig`
+structure they share (offsets, adjacency, and the *_rig.txt format of
+`save` / `load`: `joints <name> <x> <y> <z>`, `root <name>`,
+`skin <vid> (<joint> <w>)*`, `hier <parent> <child>`).
 
 These work on graphs of at most ~50 joints and stay on the host.
 """
@@ -41,6 +44,66 @@ class Rig:
             if len(nxt) == 0:
                 return out
             out.append(nxt)
+
+    def offsets(self) -> np.ndarray:
+        """Rest offsets from each joint's parent (the root: its position)."""
+        off = self.pos.copy()
+        nonroot = self.parents >= 0
+        off[nonroot] = self.pos[nonroot] - self.pos[self.parents[nonroot]]
+        return off
+
+    def adjacency(self) -> np.ndarray:
+        A = np.zeros((self.num_joints, self.num_joints))
+        nonroot = np.argwhere(self.parents >= 0).reshape(-1)
+        A[nonroot, self.parents[nonroot]] = 1.0
+        return np.maximum(A, A.T)
+
+    def save(self, path: str) -> None:
+        root = self.root_id
+        with open(path, "w") as f:
+            for name, p in zip(self.names, self.pos):
+                f.write(f"joints {name} {p[0]:.8f} {p[1]:.8f} {p[2]:.8f}\n")
+            f.write(f"root {self.names[root]}\n")
+            if self.skins is not None:
+                for vid, row in enumerate(self.skins):
+                    active = np.argwhere(row > 0).reshape(-1)
+                    entries = " ".join(f"{self.names[j]} {row[j]:.4f}" for j in active)
+                    f.write(f"skin {vid} {entries}\n".rstrip() + "\n")
+            for level in self.levels():
+                for j in level:
+                    for c in self.children(int(j)):
+                        f.write(f"hier {self.names[j]} {self.names[c]}\n")
+
+    @classmethod
+    def load(cls, path: str) -> "Rig":
+        names: List[str] = []
+        pos: List[np.ndarray] = []
+        skin_rows: List[tuple] = []
+        hier: List[tuple] = []
+        with open(path) as f:
+            for line in f:
+                w = line.split()
+                if not w:
+                    continue
+                if w[0] == "joints":
+                    names.append(w[1])
+                    pos.append(np.array([float(w[2]), float(w[3]), float(w[4])]))
+                elif w[0] == "skin":
+                    skin_rows.append((int(w[1]), w[2:]))
+                elif w[0] == "hier":
+                    hier.append((w[1], w[2]))
+        idx = {n: i for i, n in enumerate(names)}
+        parents = np.full(len(names), -1, int)
+        for p, c in hier:
+            parents[idx[c]] = idx[p]
+        skins = None
+        if skin_rows:
+            nv = max(v for v, _ in skin_rows) + 1
+            skins = np.zeros((nv, len(names)))
+            for vid, items in skin_rows:
+                for i in range(0, len(items), 2):
+                    skins[vid, idx[items[i]]] = float(items[i + 1])
+        return cls(names=names, pos=np.stack(pos), parents=parents, skins=skins)
 
 
 def rig_from_parents(joints: np.ndarray, parents: np.ndarray,
@@ -168,6 +231,70 @@ def prim_mst(cost: np.ndarray, root: int) -> np.ndarray:
         parent[upd] = u
     parent[root] = -1
     return parent
+
+
+def side_of(joints: np.ndarray, tol: float = 2e-2) -> np.ndarray:
+    """-1 left / 0 middle / +1 right of the x=0 symmetry plane."""
+    s = np.zeros(len(joints), int)
+    s[joints[:, 0] < -tol] = -1
+    s[joints[:, 0] > tol] = 1
+    return s
+
+
+def mirror_map(joints: np.ndarray, tol: float = 2e-2, match_tol: float = 1e-3) -> dict:
+    """Map left<->right joints whose mirror images coincide."""
+    s = side_of(joints, tol)
+    mapping = {}
+    mirrored = joints * np.array([[-1.0, 1.0, 1.0]])
+    for i in np.argwhere(s != 0).reshape(-1):
+        opp = np.argwhere(s == -s[i]).reshape(-1)
+        if len(opp) == 0:
+            continue
+        d = np.linalg.norm(joints[opp] - mirrored[i], axis=1)
+        k = int(np.argmin(d))
+        if d[k] < match_tol:
+            mapping[int(i)] = int(opp[k])
+    return mapping
+
+
+def prim_mst_symmetry(cost: np.ndarray, root: int, joints: np.ndarray,
+                      tol: float = 2e-2) -> tuple[np.ndarray, int]:
+    """Symmetry-aware Prim: when a side joint with a mirror twin is attached,
+    its twin is attached in the same step to the mirrored parent; the root
+    is snapped to the nearest middle joint.  Returns (parents, root)."""
+    n = cost.shape[0]
+    s = side_of(joints, tol)
+    twins = mirror_map(joints, tol)
+    mids = np.argwhere(s == 0).reshape(-1)
+    if s[root] != 0 and len(mids) > 0:
+        root = int(mids[np.argmin(np.linalg.norm(joints[mids] - joints[root], axis=1))])
+
+    key = np.full(n, np.inf)
+    parent = np.full(n, -1, int)
+    in_tree = np.zeros(n, bool)
+    key[root] = 0.0
+
+    def relax(u):
+        upd = (~in_tree) & (cost[u] > 0) & (cost[u] < key)
+        key[upd] = cost[u][upd]
+        parent[upd] = u
+
+    while not in_tree.all():
+        u = int(np.argmin(np.where(in_tree, np.inf, key)))
+        in_tree[u] = True
+        relax(u)
+        if s[u] != 0 and u in twins:
+            u2 = twins[u]
+            p = parent[u]
+            if not in_tree[u2] and p >= 0:
+                # mirrored parent: twin of p if sided, p itself if middle
+                p2 = twins.get(int(p), int(p)) if s[p] != 0 else int(p)
+                in_tree[u2] = True
+                parent[u2] = p2
+                key[u2] = cost[u2, p2]
+                relax(u2)
+    parent[root] = -1
+    return parent, root
 
 
 def increase_cost_for_outside_bone(cost: np.ndarray, joints: np.ndarray,

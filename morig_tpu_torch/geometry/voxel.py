@@ -1,8 +1,9 @@
 """Voxel grids: solid voxelization (host), containment and line of sight
 (device) — counterpart of morig_tpu/geometry/voxel.py.
 
-`Voxels` and `voxelize_mesh` are host copies (numpy; the flood fill runs in
-the repository's C++ code through `morig_tpu_torch.native`).  On the device
+`Voxels`, `voxelize_mesh` and `inside_check_np` are host copies (numpy;
+the flood fill runs in the repository's C++ code through
+`morig_tpu_torch.native`).  On the device
 a grid travels as the triple (grid (B,D,D,D) bool, translate (B,3) fp32,
 scale (B,) fp32), batched over meshes; containment is a direct
 `grid[b, x, y, z]` lookup.
@@ -67,6 +68,15 @@ def vox_to_device(voxes: Sequence[Voxels], device) -> tuple:
             torch.as_tensor(np.stack([np.asarray(v.translate, np.float32) for v in voxes]),
                             device=device),
             torch.as_tensor(np.asarray([v.scale for v in voxes], np.float32), device=device))
+
+
+def inside_check_np(pts: np.ndarray, vox: Voxels) -> np.ndarray:
+    """Host containment of (N, 3) points in one grid, in float64: the
+    single-mesh joint stage's filter."""
+    vc = np.round((pts - vox.translate) / vox.scale * vox.dims).astype(int)
+    in_bounds = np.logical_and(np.all(vc >= 0, 1), np.all(vc < vox.dims, 1))
+    vc = np.clip(vc, 0, vox.dims - 1)
+    return np.logical_and(in_bounds, vox.data[vc[:, 0], vc[:, 1], vc[:, 2]])
 
 
 def inside_check(pts: torch.Tensor, grid: torch.Tensor, translate: torch.Tensor,

@@ -1,8 +1,16 @@
-"""Batched rig prediction: rest meshes + point-cloud keyframes -> skinned rigs.
+"""Rig prediction: rest meshes + point-cloud keyframes -> skinned rigs.
 
-Counterpart of morig_tpu/pipelines/rig_predict.py `predict_rig_batch`,
-with or without voxel grids and surface geodesics.  Three device programs
-with host work between them:
+Counterpart of morig_tpu/pipelines/rig_predict.py.  Two paths, as there:
+
+The single-mesh API (`predict_flow`, `predict_shift_attn`,
+`predict_joints`, `predict_skel`, `predict_skin`, `predict_rig`) takes and
+returns host arrays at every stage boundary: DeformNet on the mesh
+repeated T times, JointNet + MaskNet, `extract_joints` (host filtering,
+device mean-shift on the unpadded cloud, host NMS), `predict_skeleton`,
+then numpy skin descriptors and scatter with device smoothing.
+
+The batched DAG `predict_rig_batch`, with or without voxel grids and
+surface geodesics, is three device programs with host work between them:
 
   1. flow_joints: DeformNet over the B*T keyframes (mesh embedding once per
      mesh), JointNet + MaskNet, bandwidth + mean-shift        (device)
@@ -28,16 +36,24 @@ import torch
 from morig_tpu_torch.core.batch import MeshBatch, PointBatch, stack_meshes
 from morig_tpu_torch.core.config import DEFAULT_CONFIG, Config
 from morig_tpu_torch.geometry import skeleton as sk
-from morig_tpu_torch.geometry.bones import point_to_segment_dist
-from morig_tpu_torch.geometry.clustering import nms_flip_host, select_and_cluster
+from morig_tpu_torch.geometry.bones import (pack_skin_descriptors, point_to_segment_dist,
+                                            scatter_skin_full)
+from morig_tpu_torch.geometry.clustering import (extract_joints, nms_flip_host,
+                                                 select_and_cluster)
 from morig_tpu_torch.geometry.geodesic import vertex_bone_geodesic_device
 from morig_tpu_torch.geometry.skinning import post_filter_skin, prune_and_normalize
-from morig_tpu_torch.geometry.voxel import segment_inside_fraction, vox_to_device
+from morig_tpu_torch.geometry.voxel import (Voxels, inside_check_np, segment_inside_fraction,
+                                            vox_to_device)
 from morig_tpu_torch.nn.bonenet import BoneNet, RootNet
 from morig_tpu_torch.nn.deformnet import DeformNet
 from morig_tpu_torch.nn.gcu import auto_select_edge_impl
 from morig_tpu_torch.nn.rignet import JointNetMotion, MaskNetMotion, SkinMotion
-from morig_tpu_torch.weights import randomize_
+from morig_tpu_torch.pipelines.skeleton import predict_skeleton
+from morig_tpu_torch.weights import flax_to_state_dict, randomize_
+
+# the six networks, in RigPredictor's argument order, and their keys
+NETS = ("deform", "joint", "mask", "root", "bone", "skin")
+NET_CLASSES = (DeformNet, JointNetMotion, MaskNetMotion, RootNet, BoneNet, SkinMotion)
 
 
 def batch_fingerprint(Bn: int, T: int, mesh_entries: Sequence[dict]) -> tuple:
@@ -50,6 +66,25 @@ def batch_fingerprint(Bn: int, T: int, mesh_entries: Sequence[dict]) -> tuple:
                 int(e["geo_nbr"].sum()))
 
     return (Bn, T, tuple(_entry_fp(e) for e in mesh_entries))
+
+
+class StageTimer:
+    """Adds the seconds since the previous mark to timings[name] at each
+    `mark(name)`, synchronizing the card first; inert when `timings` is
+    None."""
+
+    def __init__(self, timings: Optional[dict], device: torch.device):
+        self.timings, self.device = timings, device
+        self.last = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings[name] = self.timings.get(name, 0.0) + now - self.last
+        self.last = now
 
 
 def pair_table(max_joints: int) -> np.ndarray:
@@ -129,13 +164,121 @@ class RigPredictor(torch.nn.Module):
         """The six networks with every parameter, heads included, filled
         from seeds `seed`..`seed + 5` by `weights.randomize_`, on `device`
         (the card unless the caller asks for another)."""
-        nets = (DeformNet, JointNetMotion, MaskNetMotion, RootNet, BoneNet, SkinMotion)
         return cls(*(randomize_(net(generator=torch.Generator().manual_seed(seed + i)), seed + i)
-                     for i, net in enumerate(nets))).to(device)
+                     for i, net in enumerate(NET_CLASSES))).to(device)
+
+    @classmethod
+    def from_flax_params(cls, params_by_net: dict, device="cuda") -> "RigPredictor":
+        """The six networks from flax parameter trees keyed by NETS (e.g. the
+        `params` of `train.checkpoint.load_flax_checkpoint` for each stage's
+        checkpoint), loaded with `load_state_dict(strict=True)`, on
+        `device`."""
+        built = []
+        for name, net_cls in zip(NETS, NET_CLASSES):
+            net = net_cls()
+            net.load_state_dict(flax_to_state_dict(params_by_net[name]), strict=True)
+            built.append(net)
+        return cls(*built).to(device)
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
+
+    # -- the single-mesh API ------------------------------------------------
+    @torch.no_grad()
+    def predict_flow(self, mesh_entry: dict, pts_frames: np.ndarray) -> np.ndarray:
+        """pts_frames (T, P, 3) -> flow (V, 3T) from the rest mesh to each
+        keyframe: DeformNet on the mesh repeated T times."""
+        dev = self.device
+        T = pts_frames.shape[0]
+        mesh = stack_meshes([mesh_entry] * T, dev)
+        points = PointBatch(torch.as_tensor(pts_frames, dtype=torch.float32, device=dev),
+                            torch.ones(pts_frames.shape[:2], dtype=torch.bool, device=dev))
+        flow = self.deform(mesh, points)[0].cpu().numpy()          # (T, V, 3)
+        return np.concatenate([flow[t] for t in range(T)], axis=-1)
+
+    @torch.no_grad()
+    def predict_shift_attn(self, mesh_entry: dict, flow: np.ndarray):
+        """Shifted points (Vv, 3) and attention (Vv,) of the valid vertices."""
+        mesh = stack_meshes([mesh_entry], self.device)
+        flow_t = torch.as_tensor(flow[None], dtype=torch.float32, device=self.device)
+        shift = self.joint(flow_t, mesh)[2]
+        attn_logits = self.mask(flow_t, mesh)[2].cpu().numpy()
+        vmask = mesh.vert_mask[0].cpu().numpy()
+        shifted = (mesh.verts[0] + torch.tanh(shift[0])).cpu().numpy()[vmask]
+        attn = (1.0 / (1.0 + np.exp(-attn_logits[0])))[vmask]
+        return shifted, attn.reshape(-1)
+
+    def predict_joints(self, mesh_entry: dict, flow: np.ndarray, vox: Optional[Voxels] = None,
+                       shift_attn: Optional[tuple] = None) -> np.ndarray:
+        shifted, attn = (shift_attn if shift_attn is not None
+                         else self.predict_shift_attn(mesh_entry, flow))
+        inside = (lambda p: inside_check_np(p, vox)) if vox is not None else None
+        jc = self.cfg.joints
+        return extract_joints(
+            shifted, attn, inside_fn=inside, bandwidth_quantile=jc.bandwidth_quantile,
+            attn_keep_threshold=jc.attn_threshold, density_threshold=jc.density_threshold,
+            attn_nms_threshold=jc.attn_nms_threshold, meanshift_iters=jc.meanshift_max_iter,
+            bandwidth_sample_rows=jc.bandwidth_sample_rows, device=self.device)
+
+    def predict_skel(self, mesh_entry: dict, joints: np.ndarray,
+                     vox: Optional[Voxels] = None) -> sk.Rig:
+        return predict_skeleton(mesh_entry, joints, self.root, self.bone, vox=vox)
+
+    @torch.no_grad()
+    def predict_skin(self, mesh_entry: dict, skel: sk.Rig, flow: np.ndarray,
+                     geo_dist: Optional[np.ndarray] = None) -> sk.Rig:
+        """SkinMotion over the K-nearest-bone descriptors, smoothed, pruned
+        and assembled into a skinned rig.  `geo_dist` is the (V, B)
+        volumetric geodesic; the euclidean point-to-segment distance
+        otherwise."""
+        dev = self.device
+        mesh = stack_meshes([mesh_entry], dev)
+        vmask = mesh.vert_mask[0].cpu().numpy()
+        bones, _, isleaf = sk.get_bones(skel)
+        if geo_dist is None:
+            d, _ = point_to_segment_dist(
+                mesh.verts, torch.as_tensor(bones[None], dtype=torch.float32, device=dev))
+            geo_dist = d[0].cpu().numpy()
+        K = self.cfg.model.nearest_bone
+        desc, skin_nn, loss_mask = pack_skin_descriptors(geo_dist, bones, isleaf, K)
+        flow_t = torch.as_tensor(flow[None], dtype=torch.float32, device=dev)
+        logits = self.skin(torch.as_tensor(desc[None], device=dev), flow_t, mesh)[2]
+        probs = torch.softmax(logits[0], -1).cpu().numpy()
+        full = scatter_skin_full(probs, skin_nn, loss_mask, len(bones))
+        sp = self.cfg.skin_post
+        smoothed = post_filter_skin(torch.as_tensor(full[None], dtype=torch.float32, device=dev),
+                                    mesh.tpl_nbr, mesh.tpl_mask, sp.post_filter_rings)
+        pruned = prune_and_normalize(smoothed, sp.prune_ratio_rig)[0].cpu().numpy()
+        rig = sk.assemble_skel_skin(skel, pruned[vmask])
+        return sk.remove_duplicate_joints(rig)
+
+    def predict_rig(self, mesh_entry: dict, pts_frames: np.ndarray,
+                    vox: Optional[Voxels] = None, geo_dist: Optional[np.ndarray] = None,
+                    intermediates: Optional[dict] = None,
+                    timings: Optional[dict] = None) -> sk.Rig:
+        """The whole single-mesh DAG.  With `intermediates={}`, also returns
+        there the flow and the shifted points and attention (stage
+        byproducts, not recomputed).  With `timings`, adds seconds per stage
+        (flow, shift_attn, joints, skel, skin), synchronizing the card at
+        each mark."""
+        mark = StageTimer(timings, self.device).mark
+        flow = self.predict_flow(mesh_entry, pts_frames)
+        mark("flow")
+        shifted, attn = self.predict_shift_attn(mesh_entry, flow)
+        mark("shift_attn")
+        if intermediates is not None:
+            intermediates.update(flow=flow, shifted=shifted, attn=attn)
+        joints = self.predict_joints(mesh_entry, flow, vox, shift_attn=(shifted, attn))
+        if len(joints) == 0:  # degenerate fallback: one joint at the centroid
+            vmask = np.asarray(mesh_entry["vert_mask"])
+            joints = mesh_entry["verts"][vmask].mean(0, keepdims=True)
+        mark("joints")
+        skel = self.predict_skel(mesh_entry, joints, vox)
+        mark("skel")
+        rig = self.predict_skin(mesh_entry, skel, flow, geo_dist)
+        mark("skin")
+        return rig
 
     # -- device program 1 -------------------------------------------------
     @torch.no_grad()
@@ -232,16 +375,7 @@ class RigPredictor(torch.nn.Module):
         seconds per phase (flow_joints, nms_host, rootbone, mst, skin_device,
         assemble), synchronizing the device at each mark."""
         dev = self.device
-        t_last = [time.perf_counter()]
-
-        def mark(name):
-            if timings is None:
-                return
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            timings[name] = timings.get(name, 0.0) + now - t_last[0]
-            t_last[0] = now
+        mark = StageTimer(timings, dev).mark
 
         Bn = len(mesh_entries)
         T = pts_frames_list[0].shape[0]

@@ -29,6 +29,8 @@ import torch
 
 
 def _tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):                        # a bfloat16 checkpoint leaf
+        return x.to(torch.float32)
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 

@@ -422,12 +422,13 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_package_runs_with_jax_blocked():
-    """Import every module of morig_tpu_torch with jax, flax, optax and the
-    JAX package blocked, build the six networks on the CPU and run the rig
-    DAG at a tiny size: the port stands on its own."""
+    """Import every module of morig_tpu_torch with jax, flax, optax, msgpack
+    and the JAX package blocked, build the six networks on the CPU and run
+    the batched rig DAG, the single-mesh DAG and a tracker (one frame, a few
+    IK iterations) at a tiny size: the port stands on its own."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        BLOCKED = ("jax", "flax", "optax", "morig_tpu")
+        BLOCKED = ("jax", "flax", "optax", "msgpack", "morig_tpu")
         for name in BLOCKED:
             sys.modules[name] = None
         import numpy as np, torch
@@ -439,8 +440,17 @@ def test_package_runs_with_jax_blocked():
         from morig_tpu_torch.data.synthetic import capsule_batch
         from morig_tpu_torch.pipelines.rig_predict import RigPredictor
         entries, frames = capsule_batch(1, 5, 64, 64, n_lat=7, n_lon=6)
-        rigs = RigPredictor.random(0, device="cpu").predict_rig_batch(entries, frames)
+        pred = RigPredictor.random(0, device="cpu")
+        rigs = pred.predict_rig_batch(entries, frames)
         assert len(rigs) == 1 and np.isfinite(rigs[0].pos).all()
+        rig = pred.predict_rig(entries[0], frames[0])
+        assert np.isfinite(rig.pos).all()
+        from morig_tpu_torch.core.config import TrackingConfig
+        from morig_tpu_torch.pipelines.tracking import Tracker
+        vm = entries[0]["vert_mask"]
+        traj, vis, quats = Tracker(pred.deform, rig, entries[0], TrackingConfig(2, 2)).run(
+            entries[0]["verts"][vm], np.transpose(frames[0][:2], (1, 0, 2)))
+        assert traj.shape == (vm.sum(), 1, 3) and np.isfinite(quats).all()
         assert not any(k.split(".")[0] in BLOCKED for k, v in sys.modules.items() if v is not None)
         print(len(mods), "modules")
     """)
