@@ -65,6 +65,27 @@ Phases, each printing its own lines:
                loss, which must be lower; with --profile also the step's
                device ops, busy time and idle share and K1's, K6's and
                K2's time.
+  9. deform — `DeformPoseStage` on phase 6's batch, its extractor loaded
+               from phase 6's final CorrNet (`init_extractor_from`) and
+               frozen: a warm-up step whose K1 and K6 calls are recorded and
+               held against their plain versions at their shapes, the eval
+               loss (`eval_step`), 6 timed steps, each checked, the eval
+               loss again, which must be lower; the counts of the first
+               timed step must be K1 20, K2 3, K6 12, plain_edge 0, and the
+               extractor must equal the loaded CorrNet bit for bit; then one
+               step of a fresh stage with the extractor trained (K6 20, the
+               extractor moved).  Prints the step's median and quartiles,
+               steps/s, peak memory, the losses and the last grad norm;
+               with --profile one step's device ops, busy ms, idle share
+               and K1's and K6's ms;
+ 10. rig     — `RigStage`, jointnet then masknet, at full width from seeded
+               weights, on `creature_rig_dataset(num_models=4, seed=0)` at
+               its defaults (about 1900 vertices in the 2048 bucket,
+               degree-16 tables, T=5, up to 48 joints), B=4: as phase 9,
+               with the embedding draws of `eval_step` from a fixed
+               generator; counts K1 72, K6 72, K2 0, plain_edge 0;
+ 11. skin    — `SkinStage` on the same batch, as phase 10 (K1 72, K6 72).
+               Phases 9-11 run right after phase 6.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -94,8 +115,10 @@ Phases, each printing its own lines:
                device ops, busy ms and idle share for the flow and the IK
                half.
 Then a JSON line of kernel results (launches counted in the main paths'
-counted runs: path 1, path 2, the training step, the first timed
-single-mesh call and the two timed tracking runs; `ms` and `device_ms`
+counted runs: path 1, path 2, the training step, the first timed step
+of each of phases 9-11 and phase 9's step with the extractor trained, the
+first timed single-mesh call and the two timed tracking runs; `ms` and
+`device_ms`
 the device time, `call_ms` the call time, `library_ms` and
 `library_device_ms` the library call's, `composite_ms` and
 `composite_device_ms` K2's and K4's composite's), the card's name and power limit,
@@ -115,7 +138,7 @@ import numpy as np
 import torch
 
 from morig_tpu_torch.core.batch import build_mesh, pad_to, stack_meshes
-from morig_tpu_torch.data.creature import make_creature_sequence
+from morig_tpu_torch.data.creature import creature_rig_dataset, make_creature_sequence
 from morig_tpu_torch.data.pose import PoseDataset, capsule_pose_dataset
 from morig_tpu_torch.data.synthetic import capsule_batch, make_capsule_rig, make_capsule_sequence
 from morig_tpu_torch.geometry import skeleton as sk
@@ -133,7 +156,7 @@ from morig_tpu_torch.nn.corrnet import l2_normalize
 from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl
 from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer
 from morig_tpu_torch.pipelines.tracking import BatchedTracker, Tracker, make_scanned_tracker
-from morig_tpu_torch.train.stages import CorrPoseStage
+from morig_tpu_torch.train.stages import CorrPoseStage, DeformPoseStage, RigStage, SkinStage
 
 B_MESH, T, P, V_PAD, DEGREE = 4, 5, 1024, 1536, 12
 EDGE_TILE, VOX_DIMS = 128, 88
@@ -477,6 +500,27 @@ def check_k5(dev, mesh_bt, mesh_b):
     return res
 
 
+def k6_agree(got, ref, where: str):
+    """K6's gradients against the plain version's: each within K6_L2_TOL
+    relative L2 and finite, da and db_table also by their entries (fewer
+    than K6_FRAC_TOL off by more than K6_ELEM_TOL * max(max |plain|, 1)).
+    Returns (the largest entry error, one description per gradient);
+    raises where they disagree."""
+    worst, parts = 0.0, []
+    for name, x, y in zip(K6_NAMES, got, ref):
+        err = (x - y).abs()
+        rel = ((x - y).norm() / y.norm().clamp(min=1e-30)).item()
+        frac = (err > K6_ELEM_TOL * max(y.abs().max().item(), 1.0)).float().mean().item()
+        parts.append(f"{name} max {err.max().item():.3g} mean {err.mean().item():.3g} "
+                     f"rel L2 {rel:.3g} (tol {K6_L2_TOL}) off {frac:.2g}")
+        per_vertex = name in ("da", "db_table")
+        if not (torch.isfinite(x).all() and rel <= K6_L2_TOL
+                and (frac <= K6_FRAC_TOL or not per_vertex)):
+            raise AssertionError(f"K6 disagrees with its plain version at {where}: {parts[-1]}")
+        worst = max(worst, err.max().item())
+    return worst, parts
+
+
 def check_k6(dev, mesh):
     """The training path's edge widths over its tables (B=4, V=2048, D=12,
     the capsules PoseDataset pads), with neighbour column 1 a copy of column
@@ -501,18 +545,7 @@ def check_k6(dev, mesh):
         torch.cuda.synchronize()
         if not same:
             raise AssertionError(f"K6's recomputed forward is not K1's output at H={H}")
-        worst, parts = 0.0, []
-        for name, x, y in zip(K6_NAMES, got, ref):
-            err = (x - y).abs()
-            rel = ((x - y).norm() / y.norm().clamp(min=1e-30)).item()
-            frac = (err > K6_ELEM_TOL * max(y.abs().max().item(), 1.0)).float().mean().item()
-            parts.append(f"{name} max {err.max().item():.3g} mean {err.mean().item():.3g} "
-                         f"rel L2 {rel:.3g} (tol {K6_L2_TOL}) off {frac:.2g}")
-            per_vertex = name in ("da", "db_table")
-            if not (torch.isfinite(x).all() and rel <= K6_L2_TOL
-                    and (frac <= K6_FRAC_TOL or not per_vertex)):
-                raise AssertionError(f"K6 disagrees with its plain version at H={H}: {parts[-1]}")
-            worst = max(worst, err.max().item())
+        worst, parts = k6_agree(got, ref, f"H={H}")
         tiles, live = bwd_step_tiles(*args, dout)
         dw2_ref = edge_mlp_dw2_plain(tiles, live)
         dw2_err = ((fused_edge_mlp_dw2(tiles, live) - dw2_ref).norm() / dw2_ref.norm()).item()
@@ -982,11 +1015,11 @@ def train(batch, dev, profile_phase: bool):
     if not all(math.isfinite(v) for v in ev.values()):
         raise AssertionError(f"eval_step: {ev}")
     if profile_phase:
-        profile_step(stage, state, batch, gen)
-    return launches
+        profile_step("train", stage, state, batch, gen)
+    return launches, state
 
 
-def profile_step(stage, state, batch, gen):
+def profile_step(name, stage, state, batch, gen):
     """One training step under torch.profiler: its device ops, busy time and
     idle share against its CUDA-event time, and K1's, K6's and K2's device
     time."""
@@ -1003,17 +1036,17 @@ def profile_step(stage, state, batch, gen):
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     ported = []
     before = {"K1": f" (the training forward before it ran K1: {TRAIN_FWD_STEP_MS_BEFORE} ms)",
-              "K6": f" (on the WMMA recompute: {K6_STEP_MS_BEFORE} ms)"}
+              "K6": f" (on the WMMA recompute: {K6_STEP_MS_BEFORE} ms)"} if name == "train" else {}
     for k in ("K1", "K6", "K2"):
         subs = DEVICE_NAMES[k] if isinstance(DEVICE_NAMES[k], tuple) else (DEVICE_NAMES[k],)
         n = sum(subs[0] in e.name for e in dev)
         t = sum(v for op, v in by_name.items() if any(sub in op for sub in subs))
         ported.append(f"{k} {n} launches {t:.2f} ms" + before.get(k, ""))
     idle = f"{1 - busy / wall:.3f}" if dev else "not measured (no device events)"
-    print(f"profile train step: CUDA-event median {wall:.2f} ms; {len(dev)} device ops, busy "
+    print(f"profile {name} step: CUDA-event median {wall:.2f} ms; {len(dev)} device ops, busy "
           f"{busy:.2f} ms, idle share {idle}; " + "; ".join(ported))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print("profile train step top device ops ms: "
+    print(f"profile {name} step top device ops ms: "
           + "; ".join(f"{n[:60]} {t:.2f}" for n, t in top))
 
 
@@ -1070,6 +1103,201 @@ def check_recorded(phase: str, calls: dict) -> None:
     counts = {k: sum(v[0] == k for v in calls.values()) for k in worst}
     print(f"{phase}: kernels against their plain versions at the path's shapes: "
           + ", ".join(f"{k} {counts[k]} shapes, max_abs_err {worst[k]:.3g}" for k in worst))
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: the motion training stages
+# ---------------------------------------------------------------------------
+
+# Per step.  DeformPoseStage: K1 on all 20 edge layers (the frozen CorrNet's
+# 8 run their forward too), K6 on GCNDeform's 12 (on all 20 with the
+# extractor trained), K2 on the vismask 1-NN, the voting and the
+# completion.  RigStage and SkinStage: 72 edge layers, the motion trunk's 12
+# for each of the 5 keyframes and the head's 12, each through K1 and K6; no
+# kNN.  No edge layer of the three stages at full width takes the plain
+# route (`plain_edge`).
+EXPECTED_DEFORM = {"K1": 20, "K2": 3, "K3": 0, "K4": 0, "K5": 0, "K6": 12, "plain_edge": 0}
+EXPECTED_DEFORM_EXTRACTOR = dict(EXPECTED_DEFORM, K6=20)
+EXPECTED_MOTION = {"K1": 72, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 72, "plain_edge": 0}
+MOTION_STEPS = 6          # timed steps after the warm-up in phases 9-11
+
+
+def zero_stage_counts() -> None:
+    zero_counts()
+    gcu.plain_edge.launches = 0
+
+
+def read_stage_counts() -> dict:
+    return dict(read_counts(), plain_edge=gcu.plain_edge.launches)
+
+
+@contextlib.contextmanager
+def recording_training_calls(calls: dict):
+    """Record in `calls` the inputs of the first training edge call of each
+    shape, by wrapping `fused_edge_mlp_trainable` where the edge layers look
+    it up: K1's (bf16 a and b as the autograd Function rounds them, the
+    tables, the parameters as they were) and, for a call that takes a
+    gradient, also the dout its backward (K6) receives."""
+    original = gcu.fused_edge_mlp_trainable
+
+    def call(a, b, nbr, mask, *params):
+        out = original(a, b, nbr, mask, *params)
+        key = (tuple(a.shape), tuple(nbr.shape), tuple(params[0].shape))
+        args = (a.detach().to(torch.bfloat16), b.detach().to(torch.bfloat16), nbr, mask,
+                *(p.detach().clone() for p in params))
+        calls.setdefault(("K1",) + key, ["K1", args, None])
+        if out.requires_grad and ("K6",) + key not in calls:
+            entry = calls[("K6",) + key] = ["K6", args, None]
+            out.register_hook(lambda g, e=entry: e.__setitem__(2, g.detach().float().clone()))
+        return out
+
+    gcu.fused_edge_mlp_trainable = call
+    try:
+        yield calls
+    finally:
+        gcu.fused_edge_mlp_trainable = original
+
+
+def check_recorded_training(phase: str, calls: dict) -> None:
+    """Each recorded training call against the plain version on the same
+    inputs: K1 within K1_TOL / K1_MEAN_TOL, K6's gradients as `k6_agree`
+    holds them (dout from the recorded backward)."""
+    worst, shapes = {"K1": 0.0, "K6": 0.0}, {"K1": [], "K6": []}
+    for kernel, args, dout in calls.values():
+        where = f"{phase} a {tuple(args[0].shape)} nbr {tuple(args[2].shape)}"
+        if kernel == "K1":
+            got, ref = fused_edge_mlp(*args), edge_mlp_plain(*args)
+            e, e_mean = (got - ref).abs().max().item(), (got - ref).abs().mean().item()
+            if not (e <= K1_TOL and e_mean <= K1_MEAN_TOL):
+                raise AssertionError(f"{where}: K1 disagrees with its plain version: {e}, {e_mean}")
+        else:
+            if dout is None:
+                raise AssertionError(f"{where}: no dout reached the recorded K6 call")
+            e, _ = k6_agree(fused_edge_mlp_bwd(*args, dout), edge_mlp_bwd_plain(*args, dout), where)
+        worst[kernel] = max(worst[kernel], e)
+        shapes[kernel].append(f"H={args[0].shape[-1]}")
+    print(f"{phase}: training kernels against their plain versions at the step's shapes (B, V, "
+          f"D = {tuple(args[2].shape)}): " + "; ".join(
+              f"{k} {len(v)} shapes ({', '.join(v)}), max_abs_err {worst[k]:.3g}"
+              for k, v in shapes.items()))
+
+
+def run_stage(name: str, stage, state, batch, expected: dict, eval_fn, dev,
+              profile_phase: bool) -> dict:
+    """One recorded warm-up step (each K1/K6 call shape held to its plain
+    version), `eval_fn(state)` before and after MOTION_STEPS timed steps on
+    the same batch, each checked (finite loss and gradient norm, the trained
+    parameters moved); the kernel counts of the first timed step must be
+    `expected` and the eval loss must fall.  Returns the counts."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    trained = [p for p in state.model.parameters() if p.requires_grad]
+    n_frozen = sum(p.numel() for p in state.model.parameters() if not p.requires_grad)
+    print(f"{name}: {type(state.model).__name__} {sum(p.numel() for p in trained)} trained "
+          f"parameters ({n_frozen} frozen)")
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with recording_training_calls(calls):
+        first = stage.train_step(state, batch, gen)
+    torch.cuda.synchronize()
+    print(f"{name} warm-up step: {time.perf_counter() - t0:.3f} s, total_loss "
+          f"{first['total_loss']:.6f}")
+    check_recorded_training(name, calls)
+    del calls
+    ev_before = eval_fn(state)
+    torch.cuda.reset_peak_memory_stats()
+    walls, launches, losses = [], None, []
+    for _ in range(MOTION_STEPS):
+        before = [p.detach().clone() for p in trained]
+        zero_stage_counts()
+        t0 = time.perf_counter()
+        m = stage.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if launches is None:
+            launches = read_stage_counts()
+        moved = any(not torch.equal(a, p) for a, p in zip(before, trained))
+        if not (all(math.isfinite(v) for v in m.values()) and moved):
+            raise AssertionError(f"{name} step: {m}, trained parameters moved {moved}")
+        losses.append(m["total_loss"])
+    ev_after = eval_fn(state)
+    ms = np.asarray(walls) * 1e3
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    print(f"{name}: step median {med:.2f} ms (q1 {q1:.2f}, q3 {q3:.2f}, min {ms.min():.2f}, "
+          f"max {ms.max():.2f}; {MOTION_STEPS} steps): {1e3 / med:.3f} steps/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last step's losses "
+          + ", ".join(f"{k} {v:.6f}" for k, v in m.items() if k != "grad_norm")
+          + f"; total_loss by step {[round(x, 5) for x in losses]}; last grad norm "
+          f"{m['grad_norm']:.4f}")
+    print(f"{name} eval_step (fixed draws) before the timed steps {ev_before['total_loss']:.6f}, "
+          f"after {ev_after['total_loss']:.6f}")
+    print(f"{name} kernel launches in the first timed step: {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {expected}")
+    if not ev_after["total_loss"] < ev_before["total_loss"]:
+        raise AssertionError(f"{name}: the eval loss did not fall: {ev_before} -> {ev_after}")
+    if profile_phase:
+        profile_step(name, stage, state, batch, gen)
+    return launches
+
+
+def train_deform(batch, corr_state, dev, profile_phase: bool) -> dict:
+    """Phase 9: DeformPoseStage on phase 6's batch, its extractor loaded from
+    phase 6's final CorrNet (`init_extractor_from`) and frozen: the
+    extractor must stay as loaded, bit for bit.  Then one step of a fresh
+    stage that trains the extractor: K6 on all 20 edge layers, finite, the
+    extractor moved.  Returns the kernel counts of both counted steps."""
+    stage = DeformPoseStage()
+    state = stage.init_extractor_from(stage.init_state(0), corr_state)
+    loaded = param_snapshot(state.model.corr_extractor)
+    launches = run_stage("deform", stage, state, batch, EXPECTED_DEFORM,
+                         lambda st: stage.eval_step(st, batch), dev, profile_phase)
+    same = all(torch.equal(a, p) for a, p in zip(loaded, state.model.corr_extractor.parameters()))
+    print(f"deform: the frozen extractor equals the loaded CorrNet bit for bit: {same}")
+    if not same:
+        raise AssertionError("deform: the frozen extractor changed")
+    stage = DeformPoseStage(train_extractor=True)
+    state = stage.init_extractor_from(stage.init_state(0), corr_state)
+    before = param_snapshot(state.model.corr_extractor)
+    zero_stage_counts()
+    t0 = time.perf_counter()
+    m = stage.train_step(state, batch, torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    counts = read_stage_counts()
+    moved = any(not torch.equal(a, p) for a, p in zip(before, state.model.corr_extractor.parameters()))
+    print(f"deform with the extractor trained: one step {(time.perf_counter() - t0) * 1e3:.2f} ms, "
+          f"{m}; extractor moved {moved}; launches {counts}, expected {EXPECTED_DEFORM_EXTRACTOR}")
+    if not (all(math.isfinite(v) for v in m.values()) and moved
+            and counts == EXPECTED_DEFORM_EXTRACTOR):
+        raise AssertionError(f"deform with the extractor trained: {m}, {moved}, {counts}")
+    return {k: launches[k] + counts[k] for k in launches}
+
+
+def rig_batch():
+    """The rig and skin stages' input: `creature_rig_dataset(num_models=4,
+    seed=0)` at its defaults (`cli.py train joints|mask|skin --data
+    creature`): about 1900 vertices padded to the 2048 bucket, degree-16
+    tables, T=5 keyframes, up to 48 joints; all four in one batch (the
+    CLI's default batch is 2)."""
+    t0 = time.perf_counter()
+    ds = creature_rig_dataset(num_models=TRAIN_B, seed=0)
+    batch = ds.batch(list(range(TRAIN_B)))
+    print(f"rig data: {time.perf_counter() - t0:.2f} s for {TRAIN_B} creatures, V "
+          f"{[len(m.verts) for m in ds.models]} padded to {ds.pad_verts}, joints "
+          f"{[m.rig.num_joints for m in ds.models]}, degree {batch.mesh.tpl_nbr.shape[-1]}, "
+          f"flow {tuple(batch.gt_flow.shape)}")
+    return batch
+
+
+def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
+    """Phases 10-11: a RigStage or SkinStage at full width from seeded
+    weights on the rig batch; every edge layer on the kernel route."""
+    state = stage.init_state(0)
+    edges = [m for m in state.model.modules() if isinstance(m, EdgeMLP)]
+    if not all(m.kernel_route for m in edges):
+        raise AssertionError(f"{name}: an edge layer at full width is off the kernel route")
+    return run_stage(name, stage, state, batch, EXPECTED_MOTION,
+                     lambda st: stage.eval_step(st, batch, torch.Generator(device=dev).manual_seed(5)),
+                     dev, profile_phase)
 
 
 # ---------------------------------------------------------------------------
@@ -1323,7 +1551,14 @@ def main(profile_phase: bool = False):
         profile_programs("path 2", pred2, entries, frames, device_cache=cache, **phase_a)
         profile_geometry(dev, entries, pred.cfg.joints)
     del pred2, cache
-    trained = train(batch, dev, profile_phase)
+    trained, corr_state = train(batch, dev, profile_phase)
+    motion = [train_deform(batch, corr_state, dev, profile_phase)]
+    del corr_state
+    rig = rig_batch()
+    motion += [train_motion("rig jointnet", RigStage(arch="jointnet"), rig, dev, profile_phase),
+               train_motion("rig masknet", RigStage(arch="masknet"), rig, dev, profile_phase),
+               train_motion("skin", SkinStage(), rig, dev, profile_phase)]
+    del rig
     single = single_mesh(pred, entries[0], frames[0],
                          {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
                           "K4": 0, "K5": 0, "K6": 0})
@@ -1331,7 +1566,8 @@ def main(profile_phase: bool = False):
 
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
-        n = path1[name] + path2[name] + trained[name] + single[name] + tracked[name]
+        n = (path1[name] + path2[name] + trained[name] + sum(m[name] for m in motion)
+             + single[name] + tracked[name])
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
     print(json.dumps({"kernels": kernels}))

@@ -95,6 +95,34 @@ class SkelSample:
     root_idx: torch.Tensor
 
 
+@dataclasses.dataclass(frozen=True)
+class RigSample:
+    """One batch of the rig and skin datasets: joints (B,J,3) f32 and
+    joints_mask (B,J) bool; per vertex offsets (B,V,3) to the nearest joint,
+    attn_mask (B,V) f32 (GT attention), gt_skin (B,V,J) f32 (the padded skin
+    matrix), gt_flow and pred_flow (B,V,3T) f32 (the keyframe flows, GT and
+    the deform stage's), and over the K nearest bones skin_input (B,V,8K) f32
+    descriptors, skin_label (B,V,K) f32 soft labels, skin_nn (B,V,K) int64
+    bone ids and loss_mask (B,V,K) int32 slot validity."""
+
+    mesh: MeshBatch
+    joints: torch.Tensor
+    joints_mask: torch.Tensor
+    offsets: torch.Tensor
+    attn_mask: torch.Tensor
+    gt_skin: torch.Tensor
+    gt_flow: torch.Tensor
+    pred_flow: torch.Tensor
+    skin_input: torch.Tensor
+    skin_label: torch.Tensor
+    skin_nn: torch.Tensor
+    loss_mask: torch.Tensor
+
+    def to(self, device) -> "RigSample":
+        return RigSample(self.mesh.to(device), *(getattr(self, f.name).to(device)
+                                                 for f in dataclasses.fields(self)[1:]))
+
+
 def bucket_size(n: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= n (the last bucket if none fits)."""
     for b in buckets:

@@ -12,7 +12,13 @@ from typing import Sequence
 class ModelConfig:
     corr_output_feature: int = 64      # CorrNet embedding width
     tau_nce: float = 0.07              # CorrNet's initial infoNCE temperature
+    num_interp: int = 5                # DeformNet's voting and completion neighbours
+    num_keyframes: int = 5             # keyframe flows per rig/skin sample
+    motion_dim: int = 32               # per-keyframe motion embedding width
+    aggr_method: str = "attn"          # temporal aggregation: attn, mean or max
     nearest_bone: int = 5              # bones per vertex in the skin descriptor
+    use_Dg: bool = False               # skin descriptor carries 1/distance per bone
+    use_Lf: bool = False               # skin descriptor carries isleaf per bone
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,8 +8,9 @@ naive surface nets with the vertex count walked under a target, skinned
 analytically, animated by numpy FK/LBS with asymmetric per-limb motion and
 a root translation, and seen from +z as partial point clouds with
 vertex/point correspondences and per-frame vertex visibility: the dict of
-`make_capsule_sequence` (data/synthetic.py).  The rig and skeleton
-datasets of the JAX module wait for the port's data/rig.py.
+`make_capsule_sequence` (data/synthetic.py); `creature_pose_dataset` and
+`creature_rig_dataset` build the pose and rig datasets over them.  The
+skeleton dataset of the JAX module waits for the Bone and Root stages.
 """
 from __future__ import annotations
 
@@ -460,3 +461,38 @@ def creature_pose_dataset(num_models: int = 8, seed: int = 0, num_frames: int = 
             geo_edges=seq["geo_edges"],
         ))
     return PoseDataset(models)
+
+
+def creature_rig_dataset(num_models: int = 8, seed: int = 0, num_keyframes: int = 5,
+                         noise: float = 0.01, num_points: int = 1024,
+                         target_verts: int = 1900, use_volumetric_geo: bool = False,
+                         pred_flows: Optional[list] = None, **kw):
+    """RigDataset over creatures with euclidean vertex-to-bone skin
+    distances.  pred_flow is gt_flow plus seeded noise unless `pred_flows`
+    (one (V, 3T) array per model, e.g. a trained DeformNet's) is given."""
+    from morig_tpu_torch.data.rig import RigDataset, build_rig_model
+    from morig_tpu_torch.geometry import skeleton as sk
+
+    if use_volumetric_geo:
+        raise NotImplementedError(
+            "creature_rig_dataset(use_volumetric_geo=True) needs a host vertex_bone_geodesic, "
+            "which the port does not have yet (ROADMAP.md, section 1)")
+    rng = np.random.default_rng(seed + 991)
+    models = []
+    for i in range(num_models):
+        seq = make_creature_sequence(seed=seed + i, num_frames=num_keyframes + 1,
+                                     num_points=num_points, target_verts=target_verts, **kw)
+        c = seq["rig"]
+        rig = sk.Rig(names=list(c.names), pos=c.joints.astype(np.float64),
+                     parents=c.parents, skins=c.skins)
+        keyframes = list(range(1, num_keyframes + 1))
+        gt_flow = np.concatenate(
+            [seq["vtx_traj"][:, t, :] - seq["vtx_traj"][:, 0, :] for t in keyframes], 1)
+        if pred_flows is not None:
+            pred = pred_flows[i]
+        else:
+            pred = (gt_flow + noise * rng.normal(size=gt_flow.shape)).astype(np.float32)
+        models.append(build_rig_model(
+            f"creature{seed + i}", seq["vtx_traj"][:, 0, :], seq["tpl_edges"],
+            seq["geo_edges"], rig, seq["vtx_traj"], keyframes, pred_flow=pred))
+    return RigDataset(models)

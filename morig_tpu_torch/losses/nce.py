@@ -1,6 +1,11 @@
-"""Contrastive losses, batched and masked — counterpart of the part of
-morig_tpu/losses/nce.py the correspondence stage uses (`info_nce`)."""
+"""Contrastive losses, batched and masked — counterpart of
+morig_tpu/losses/nce.py: the correspondence infoNCE (`info_nce`) and the
+multi-positive skin-similarity infoNCE of the rig and skin stages, split
+into its draw (`draw_multi_pos`, from a torch.Generator) and the loss on
+the drawn indices (`multi_pos_info_nce_drawn`)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,3 +48,77 @@ def info_nce(vtx_feature, pts_feature, corr_v2p, corr_v2p_mask, corr_p2v, corr_p
     logits_p = torch.where(vert_mask[:, None, :], logits_p, torch.full_like(logits_p, NEG))
     loss_p = _masked_ce_rows(logits_p, corr_p2v[..., 1], corr_p2v_mask)
     return (loss_v + loss_p).mean()
+
+
+def _skin_pairs(gt_skin, vert_mask, ids, sim_threshold: float):
+    """For the drawn anchors ids (B,S): (row_ok (B,S), pos_mat, neg_mat
+    (B,S,S) float).  Two rows are positives where their skin vectors agree
+    (L1 similarity (2 - |s_i - s_j|_1) / 2 above the threshold); padded rows
+    are neither positives nor negatives of anyone."""
+    row_ok = torch.gather(vert_mask, 1, ids)
+    s = _rows(gt_skin, ids)
+    gt_sim = (2.0 - (s[:, None, :, :] - s[:, :, None, :]).abs().sum(-1)) / 2.0
+    ok = row_ok[:, None, :].float()
+    pos_mat = (gt_sim > sim_threshold).float()
+    return row_ok, pos_mat * ok, (1.0 - pos_mat) * ok
+
+
+def _choice(p: torch.Tensor, n: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """n draws with replacement from each row of p (..., S), by the inverse
+    of the cumulative sum as jax.random.choice draws; a row of zeros gives
+    index S - 1."""
+    cdf = torch.cumsum(p, -1)
+    u = torch.rand(p.shape[:-1] + (n,), generator=generator, device=p.device)
+    r = cdf[..., -1:] * (1.0 - u)
+    return torch.searchsorted(cdf, r).clamp(max=p.shape[-1] - 1)
+
+
+def draw_multi_pos(generator: Optional[torch.Generator], gt_skin: torch.Tensor,
+                   vert_mask: torch.Tensor, num_sample: int = 512, num_pos: int = 10,
+                   num_neg: int = 200, sim_threshold: float = 0.9):
+    """The random draw of `multi_pos_info_nce`, on the tensors' device: per
+    sample num_sample distinct anchors among the valid vertices (Gumbel top-k;
+    past the valid count the draw runs into padded rows, which the loss
+    drops), then per anchor num_pos positives and num_neg negatives with
+    replacement.  Returns (ids (B,S), pos_ids (B,S,num_pos), neg_ids
+    (B,S,num_neg)), int64."""
+    p = vert_mask.float()
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1.0)
+    u = torch.rand(p.shape, generator=generator, device=p.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
+    ids = torch.topk(torch.log(p) + gumbel, num_sample, dim=-1).indices
+    _, pos_mat, neg_mat = _skin_pairs(gt_skin, vert_mask, ids, sim_threshold)
+    pos_p = pos_mat / torch.clamp(pos_mat.sum(-1, keepdim=True), min=1e-9)
+    neg_p = neg_mat / torch.clamp(neg_mat.sum(-1, keepdim=True), min=1e-9)
+    return ids, _choice(pos_p, num_pos, generator), _choice(neg_p, num_neg, generator)
+
+
+def multi_pos_info_nce_drawn(feature: torch.Tensor, gt_skin: torch.Tensor,
+                             vert_mask: torch.Tensor, ids: torch.Tensor, pos_ids: torch.Tensor,
+                             neg_ids: torch.Tensor, sim_threshold: float = 0.9) -> torch.Tensor:
+    """The multi-positive infoNCE on drawn indices: per anchor, the mean over
+    its positives of the cross-entropy of the positive logit against the
+    negatives' (logits are feature inner products); anchors that are padded
+    rows or have no negative add nothing; the per-sample sum over anchors
+    divided by their count, averaged over the batch."""
+    row_ok, _, neg_mat = _skin_pairs(gt_skin, vert_mask, ids, sim_threshold)
+    f = _rows(feature, ids)
+    prod = torch.matmul(f, f.transpose(1, 2))                            # (B,S,S)
+    prod_pos = torch.gather(prod, 2, pos_ids)
+    lse_neg = torch.logsumexp(torch.gather(prod, 2, neg_ids), -1, keepdim=True)
+    ce = torch.logaddexp(prod_pos, lse_neg) - prod_pos                   # (B,S,num_pos)
+    ok = (neg_mat.sum(-1) > 0) & row_ok
+    ce = torch.where(ok[..., None], ce, torch.zeros_like(ce))
+    return (ce.mean(-1).sum(-1) / torch.clamp(ok.sum(-1), min=1)).mean()
+
+
+def multi_pos_info_nce(generator: Optional[torch.Generator], feature: torch.Tensor,
+                       gt_skin: torch.Tensor, vert_mask: torch.Tensor, num_sample: int = 512,
+                       num_pos: int = 10, num_neg: int = 200,
+                       sim_threshold: float = 0.9) -> torch.Tensor:
+    """Multi-positive skin-similarity infoNCE: feature (B,V,C), gt_skin
+    (B,V,J), vert_mask (B,V) bool; the draw from `generator`."""
+    ids, pos_ids, neg_ids = draw_multi_pos(generator, gt_skin, vert_mask, num_sample, num_pos,
+                                           num_neg, sim_threshold)
+    return multi_pos_info_nce_drawn(feature, gt_skin, vert_mask, ids, pos_ids, neg_ids,
+                                    sim_threshold)

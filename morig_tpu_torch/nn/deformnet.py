@@ -1,7 +1,11 @@
 """DeformNet — per-vertex flow from a mesh and a target point cloud.
 Counterpart of morig_tpu/nn/deformnet.py: correspondence embeddings, visible
 voting over the k most similar points, invisible completion from the most
-similar visible vertices, GCN refinement."""
+similar visible vertices, GCN refinement.  `train` selects the training
+numerics throughout (fp32 matmuls, every edge layer through K1 + K6, plain
+gathers in PointNet++) and `generator` the extractor's random FPS starts;
+both kNN calls stay on K2, whose autograd carries the gradients of the
+embeddings and of the gathered flow when the extractor trains."""
 from __future__ import annotations
 
 from typing import Optional
@@ -29,14 +33,14 @@ class GCNDeform(nn.Module):
         self.mlp_transform = MLPHead(1024 + 3 + feat_in + 896, [1024, 256], chn_output,
                                      zero_init=True)
 
-    def forward(self, pos, feature, mesh: MeshBatch):
-        x1 = self.gcu_1(pos, feature, mesh)
-        x2 = self.gcu_2(pos, x1, mesh)
-        x3 = self.gcu_3(pos, x2, mesh)
+    def forward(self, pos, feature, mesh: MeshBatch, train: bool = False):
+        x1 = self.gcu_1(pos, feature, mesh, train)
+        x2 = self.gcu_2(pos, x1, mesh, train)
+        x3 = self.gcu_3(pos, x2, mesh, train)
         skips = torch.cat([x1, x2, x3], -1)
-        glb = nbk.masked_max(self.mlp_glb(skips), mesh.vert_mask, dim=1)
+        glb = nbk.masked_max(self.mlp_glb(skips, train), mesh.vert_mask, dim=1)
         glb = glb[:, None, :].expand(-1, skips.shape[1], -1)
-        return self.mlp_transform(torch.cat([glb, pos, feature, skips], -1))
+        return self.mlp_transform(torch.cat([glb, pos, feature, skips], -1), train)
 
 
 def minmax_normalize(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -63,11 +67,13 @@ class DeformNet(nn.Module):
         self.completing = GCNDeform(4, 3)
         init_parameters(self, default_generator(generator))
 
-    def forward(self, mesh: MeshBatch, points: Optional[PointBatch],
+    def forward(self, mesh: MeshBatch, points: Optional[PointBatch], train: bool = False,
+                generator: Optional[torch.Generator] = None,
                 vtx_f: Optional[torch.Tensor] = None, mesh_only: bool = False):
         if mesh_only:
-            return self.corr_extractor(mesh, points, mesh_only=True)
-        vtx_f, pts_f, vis_logits, tau = self.corr_extractor(mesh, points, vtx_f=vtx_f)
+            return self.corr_extractor(mesh, points, train, mesh_only=True)
+        vtx_f, pts_f, vis_logits, tau = self.corr_extractor(mesh, points, train, True, generator,
+                                                            vtx_f=vtx_f)
         vis = minmax_normalize(torch.sigmoid(vis_logits[..., 0]), mesh.vert_mask)
 
         # visible voting: flow from the k most similar points (kernel K2)
@@ -88,5 +94,5 @@ class DeformNet(nn.Module):
         flow_init = torch.where(visible[..., None] | ~any_visible, flow_init, invis_flow)
 
         l1_points = torch.cat([flow_init, vis[..., None]], -1)
-        pred_flow = self.completing(mesh.verts, l1_points, mesh)
+        pred_flow = self.completing(mesh.verts, l1_points, mesh, train)
         return pred_flow, vtx_f, pts_f, vis, tau

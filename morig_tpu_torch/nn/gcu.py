@@ -10,9 +10,15 @@ the windowed kernel K5 when the mesh batch carries an `edge_tile`
 the tail goes through `fused_edge_mlp_trainable`: K1 forward on bf16(a),
 bf16(b), K6 backward, at every width K1 takes.  The JAX package trains
 only 128-multiple widths through its kernels (its TPU lane tiling) and
-narrower ones in XLA; here all widths train through K1 + K6, and the full
-table is used even where the batch carries an `edge_tile` (K5 has no
-backward; on local tables K5 and K1 compute the same function).
+narrower ones in XLA; here all widths K1 takes train through K1 + K6, and
+the full table is used even where the batch carries an `edge_tile` (K5 has
+no backward; on local tables K5 and K1 compute the same function).
+
+A layer whose widths the kernels do not take (`kernel_widths` false: the
+narrow layers of a net built with a small `width_scale`) runs K1's plain
+version, `plain_edge`, in training and at inference, differentiated by
+autograd.  The choice is made on the widths alone, like the JAX package's
+`_fusable`, and each such call is counted in `plain_edge.launches`.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from torch import nn
 
 from morig_tpu_torch.core.batch import MeshBatch
 from morig_tpu_torch.kernels.edge_fused import (
-    check_neighbor_locality, fused_edge_mlp, fused_edge_mlp_trainable, fused_edge_mlp_windowed)
+    WIDTHS, check_neighbor_locality, edge_mlp_plain, fused_edge_mlp, fused_edge_mlp_trainable,
+    fused_edge_mlp_windowed)
 from morig_tpu_torch.nn.mlp import MLP, Dense, lecun_normal_
 
 
@@ -44,6 +51,23 @@ def auto_select_edge_impl(entries: Sequence[dict], tile_v: int = 128) -> str:
     return "windowed" if local else "fused"
 
 
+def kernel_widths(h1: int, h2: int) -> bool:
+    """True where the edge kernels (K1, K5, K6) take an edge layer h1 -> h2."""
+    return h1 == h2 and h1 in WIDTHS
+
+
+def plain_edge(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    """The edge tail of a layer whose widths the kernels do not take: K1's
+    plain version on bf16(a), bf16(b) (the rounding the kernel route
+    applies), differentiable by autograd.  Counted in `plain_edge.launches`."""
+    plain_edge.launches += 1
+    return edge_mlp_plain(a.to(torch.bfloat16), b.to(torch.bfloat16), nbr, mask, w2, b2,
+                          g1, be1, g2, be2)
+
+
+plain_edge.launches = 0
+
+
 class EdgeMLP(nn.Module):
     """Edge message MLP [h1, h2] over [x_i, x_j - x_i] + masked max over the
     table; returns (B,V,h2) fp32."""
@@ -51,6 +75,7 @@ class EdgeMLP(nn.Module):
     def __init__(self, fin: int, channels: Sequence[int]):
         super().__init__()
         h1, h2 = channels
+        self.kernel_route = kernel_widths(h1, h2)
         self.lin_self = Dense(fin, h1)
         self.lin_nbr = Dense(fin, h1, bias=False)
         self.dense_1_kernel = nn.Parameter(torch.empty(h1, h2))   # (in, out)
@@ -70,12 +95,15 @@ class EdgeMLP(nn.Module):
 
     def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None, train: bool = False):
         """Training: K1 forward and K6 backward on fp32 lin_self/lin_nbr.
-        Inference: K5 at `edge_tile` when given, K1 otherwise."""
+        Inference: K5 at `edge_tile` when given, K1 otherwise.  Widths the
+        kernels do not take: `plain_edge` in both."""
         dt = torch.float32 if train else torch.bfloat16
         a = self.lin_self(x, dt)
         b = self.lin_nbr(x, dt)
         args = (a, b, nbr, nbr_mask, self.dense_1_kernel, self.dense_1_bias,
                 self.ln0_scale, self.ln0_bias, self.ln1_scale, self.ln1_bias)
+        if not self.kernel_route:
+            return plain_edge(*args)
         if train:
             return fused_edge_mlp_trainable(*args)
         if edge_tile:
@@ -118,9 +146,9 @@ class EdgeConvMotion(nn.Module):
         self.nn_x = EdgeMLP(x_in, x_channels)
         self.nn_pos = EdgeMLP(pos_in, pos_channels)
 
-    def forward(self, pos, x, nbr, nbr_mask, edge_tile=None):
-        return torch.cat([self.nn_x(x, nbr, nbr_mask, edge_tile),
-                          self.nn_pos(pos, nbr, nbr_mask, edge_tile)], -1)
+    def forward(self, pos, x, nbr, nbr_mask, edge_tile=None, train: bool = False):
+        return torch.cat([self.nn_x(x, nbr, nbr_mask, edge_tile, train),
+                          self.nn_pos(pos, nbr, nbr_mask, edge_tile, train)], -1)
 
 
 class GCUMotion(nn.Module):
@@ -134,7 +162,7 @@ class GCUMotion(nn.Module):
         self.edge_conv_geo = EdgeConvMotion(pos_in, x_in, [half, half], pc)
         self.mlp = MLP(2 * (half + dim_pos_feat), [out_channels])
 
-    def forward(self, pos, x, mesh: MeshBatch):
-        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile)
-        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile)
-        return self.mlp(torch.cat([x_tpl, x_geo], -1))
+    def forward(self, pos, x, mesh: MeshBatch, train: bool = False):
+        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train)
+        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train)
+        return self.mlp(torch.cat([x_tpl, x_geo], -1), train)

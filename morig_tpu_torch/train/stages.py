@@ -1,11 +1,14 @@
 """Training stages: model + losses + train/eval steps — counterpart of
-morig_tpu/train/stages.py.  So far the correspondence stage,
-`CorrPoseStage`.
+morig_tpu/train/stages.py: the correspondence stage `CorrPoseStage`, the
+flow stage `DeformPoseStage`, the joint and mask stage `RigStage` and the
+skinning stage `SkinStage`.
 
 A train step is one forward in training numerics (fp32 matmuls, every edge
-layer through K1 forward and K6 backward, the vismask 1-NN through K2 with
-its autograd backward, plain indexed gathers in PointNet++), one
-`backward()`, a global-norm clip and one optimizer step.
+layer through K1 forward and K6 backward, the kNN calls through K2 with its
+autograd backward, plain indexed gathers in PointNet++), one `backward()`,
+a global-norm clip at 10 over the trained parameters and one optimizer
+step.  It returns its losses and the gradient norm as floats, read with
+one transfer.
 """
 from __future__ import annotations
 
@@ -13,12 +16,17 @@ from typing import Optional
 
 import torch
 
-from morig_tpu_torch.core.batch import PoseSample
+from morig_tpu_torch.core.batch import PoseSample, RigSample
 from morig_tpu_torch.core.config import DEFAULT_CONFIG, Config
-from morig_tpu_torch.losses.basic import bce_with_logits
-from morig_tpu_torch.losses.nce import info_nce
+from morig_tpu_torch.kernels.neighbors import pairwise_sqdist
+from morig_tpu_torch.losses.basic import (
+    batched_chamfer_with_average, bce_with_logits, chamfer_directional, cross_entropy_with_probs,
+    masked_l1, masked_l1_weighted)
+from morig_tpu_torch.losses.nce import info_nce, multi_pos_info_nce
 from morig_tpu_torch.nn.corrnet import CorrNet
+from morig_tpu_torch.nn.deformnet import DeformNet
 from morig_tpu_torch.nn.mlp import init_parameters
+from morig_tpu_torch.nn.rignet import JointNetMotion, MaskNetMotion, SkinMotion
 from morig_tpu_torch.train import trainer
 
 
@@ -26,6 +34,15 @@ def _floats(metrics: dict) -> dict[str, float]:
     """Device scalars to floats with one transfer."""
     values = torch.stack([v.detach().float() for v in metrics.values()]).tolist()
     return dict(zip(metrics, values))
+
+
+def _step(state: trainer.TrainState, total: torch.Tensor, metrics: dict) -> dict[str, float]:
+    """backward(), the clip and one optimizer step; the metrics as floats
+    with the gradient norm before the clip (`grad_norm`)."""
+    state.tx.zero_grad()
+    total.backward()
+    metrics["grad_norm"] = state.apply_gradients()
+    return _floats(metrics)
 
 
 class CorrPoseStage:
@@ -75,11 +92,7 @@ class CorrPoseStage:
         gradient norm before the clip (`grad_norm`)."""
         outputs = state.model(batch.mesh, batch.points, train=True,
                               train_vismask=self.train_vismask, generator=generator)
-        total, metrics = self._losses(outputs, batch, self.train_vismask)
-        state.tx.zero_grad()
-        total.backward()
-        metrics["grad_norm"] = state.apply_gradients()
-        return _floats(metrics)
+        return _step(state, *self._losses(outputs, batch, self.train_vismask))
 
     @torch.no_grad()
     def eval_step(self, state: trainer.TrainState, batch: PoseSample) -> dict[str, float]:
@@ -91,3 +104,286 @@ class CorrPoseStage:
     def infer(self, state: trainer.TrainState, batch: PoseSample, train_vismask: bool = True):
         """The inference forward: (vtx_f, pts_f, vis_logits, tau)."""
         return state.model(batch.mesh, batch.points, train=False, train_vismask=train_vismask)
+
+
+def _default_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
+    return generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+
+
+class DeformPoseStage:
+    """DeformNet training: L1 flow loss with the CorrNet extractor frozen by
+    default (its parameters take no gradient and stay out of the optimizer,
+    so the clip's global norm runs over the trained parameters only);
+    `train_extractor=True` also trains the extractor with infoNCE and the
+    visibility BCE on probabilities."""
+
+    def __init__(self, cfg: Config = DEFAULT_CONFIG, train_extractor: bool = False):
+        self.cfg = cfg
+        self.train_extractor = train_extractor
+
+    def on_epoch(self, epoch: int):
+        pass
+
+    def make_tx(self, params, steps_per_epoch: int = 1) -> trainer.MultiStepAdam:
+        t = self.cfg.train
+        return trainer.multistep_adam(params, t.lr, t.schedule, t.gamma, t.weight_decay,
+                                      steps_per_epoch)
+
+    def init_state(self, seed: int = 0, device="cuda") -> trainer.TrainState:
+        """A fresh DeformNet (drawn from `seed`) on `device` (the card unless
+        the caller asks for another), the extractor frozen unless
+        train_extractor, with its optimizer over the trained parameters."""
+        m = self.cfg.model
+        model = DeformNet(m.num_interp, m.tau_nce, m.corr_output_feature,
+                          generator=torch.Generator().manual_seed(seed)).to(device)
+        model.corr_extractor.requires_grad_(self.train_extractor)
+        return trainer.TrainState(model, self.make_tx(
+            [p for p in model.parameters() if p.requires_grad]))
+
+    def init_extractor_from(self, state: trainer.TrainState,
+                            corr_state: trainer.TrainState) -> trainer.TrainState:
+        """Load a CorrNet state's weights into the extractor (strict: every
+        key present, none extra, shapes equal), the counterpart of the JAX
+        package's `transfer_subtree`; the extractor keeps its
+        requires_grad."""
+        state.model.corr_extractor.load_state_dict(corr_state.model.state_dict(), strict=True)
+        return state
+
+    def _losses(self, outputs, batch: PoseSample):
+        pred_flow, vtx_f, pts_f, vis, tau = outputs
+        vert_mask = batch.mesh.vert_mask
+        loss_flow = masked_l1(pred_flow, batch.gt_flow, vert_mask)
+        metrics = dict(flow_loss=loss_flow)
+        total = loss_flow
+        if self.train_extractor:
+            c = batch.corr
+            loss_match = info_nce(vtx_f, pts_f, c.v2p, c.v2p_mask, c.p2v, c.p2v_mask,
+                                  vert_mask, batch.points.pts_mask, tau)
+            # vis is a probability here: the BCE of its log
+            eps = 1e-6
+            vis_c = torch.clamp(vis, eps, 1 - eps)
+            per = -(batch.vismask * torch.log(vis_c)
+                    + (1 - batch.vismask) * torch.log(1 - vis_c))
+            m = vert_mask.to(per.dtype)
+            loss_vis = (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+            total = loss_flow + loss_match + 5.0 * loss_vis
+            metrics.update(corr_loss=loss_match, vis_loss=loss_vis)
+        metrics["total_loss"] = total
+        return total, metrics
+
+    def train_step(self, state: trainer.TrainState, batch: PoseSample,
+                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+        """One optimizer step on `batch`; the extractor's FPS starts are drawn
+        from `generator` (index 0 when None)."""
+        outputs = state.model(batch.mesh, batch.points, train=True, generator=generator)
+        return _step(state, *self._losses(outputs, batch))
+
+    @torch.no_grad()
+    def eval_step(self, state: trainer.TrainState, batch: PoseSample) -> dict[str, float]:
+        return _floats(self._losses(state.model(batch.mesh, batch.points), batch)[1])
+
+    @torch.no_grad()
+    def infer(self, state: trainer.TrainState, batch: PoseSample):
+        """The inference forward: (pred_flow, vtx_f, pts_f, vis, tau)."""
+        return state.model(batch.mesh, batch.points)
+
+
+class _MotionStage:
+    """What the rig and skin stages share: the optimizer (lr 5e-4,
+    milestones 40 and 80, gamma 0.2), the 50/50 draw between the GT and
+    the predicted input flow, the motion-embedding loss over the T
+    keyframe embeddings and their aggregate, and the steps around each
+    subclass's `_forward(model, batch, input_flow, train)` and
+    `_losses(generator, outputs, batch)`."""
+
+    def __init__(self, cfg: Config, num_embed_sample: int):
+        self.cfg = cfg
+        self.num_embed_sample = num_embed_sample
+
+    def on_epoch(self, epoch: int):
+        pass
+
+    def make_tx(self, params, steps_per_epoch: int = 1) -> trainer.MultiStepAdam:
+        return trainer.multistep_adam(params, 5e-4, (40, 80), 0.2, self.cfg.train.weight_decay,
+                                      steps_per_epoch)
+
+    def _state(self, model: torch.nn.Module, device) -> trainer.TrainState:
+        model = model.to(device)
+        return trainer.TrainState(model, self.make_tx(model.parameters()))
+
+    @staticmethod
+    def input_flow(batch: RigSample, generator: torch.Generator) -> torch.Tensor:
+        """gt_flow or pred_flow with probability 1/2 each: one draw on the
+        batch's device, read by no host code."""
+        use_gt = torch.rand((), generator=generator, device=batch.gt_flow.device) > 0.5
+        return torch.where(use_gt, batch.gt_flow, batch.pred_flow)
+
+    def _embed_loss(self, generator, motion_all, motion_aggr, batch: RigSample):
+        feats = [motion_all[:, :, t, :] for t in range(motion_all.shape[2])] + [motion_aggr]
+        return sum(multi_pos_info_nce(generator, f, batch.gt_skin, batch.mesh.vert_mask,
+                                      num_sample=self.num_embed_sample) for f in feats)
+
+    def train_step(self, state: trainer.TrainState, batch: RigSample,
+                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+        """One optimizer step on `batch`: the input flow and the embedding
+        loss's samples are drawn from `generator` (a fresh one seeded 0 on
+        the batch's device when None)."""
+        generator = _default_generator(generator, batch.gt_flow.device)
+        flow = self.input_flow(batch, generator)
+        outputs = self._forward(state.model, batch, flow, True)
+        return _step(state, *self._losses(generator, outputs, batch))
+
+    @torch.no_grad()
+    def eval_step(self, state: trainer.TrainState, batch: RigSample,
+                  generator: Optional[torch.Generator] = None) -> dict[str, float]:
+        """The losses on pred_flow, inference numerics; the embedding loss's
+        samples from `generator` (a fresh one seeded 0 when None)."""
+        generator = _default_generator(generator, batch.gt_flow.device)
+        outputs = self._forward(state.model, batch, batch.pred_flow, False)
+        return _floats(self._losses(generator, outputs, batch)[1])
+
+
+class RigStage(_MotionStage):
+    """JointNet or MaskNet training: the motion-embedding loss (x 0.1) plus,
+    for `jointnet`, the chamfer between the shifted vertices and the GT
+    joints and the L1 of the shift against the offsets to the nearest joint,
+    and for `masknet` the attention BCE.  The jointnet knobs keep the JAX
+    package's defaults, under which the loss is the reference's:
+    `recall_weight` weights the joints-to-points direction of the chamfer,
+    `dense_weight` > 0 upweights the L1 of vertices whose nearest joint has
+    another within about `dense_sigma`, and `sep_weight` > 0 adds a hinge
+    that keeps each shifted vertex `sep_alpha` of the way from its joint's
+    nearest other joint."""
+
+    def __init__(self, cfg: Config = DEFAULT_CONFIG, arch: str = "jointnet",
+                 num_embed_sample: int = 512, width_scale: float = 1.0,
+                 dense_weight: float = 0.0, dense_sigma: float = 0.07,
+                 recall_weight: float = 1.0, sep_weight: float = 0.0, sep_alpha: float = 0.8):
+        if arch not in ("jointnet", "masknet"):
+            raise ValueError(f"arch must be jointnet or masknet, got {arch}")
+        super().__init__(cfg, num_embed_sample)
+        self.arch, self.width_scale = arch, width_scale
+        self.dense_weight, self.dense_sigma = dense_weight, dense_sigma
+        self.recall_weight = recall_weight
+        self.sep_weight, self.sep_alpha = sep_weight, sep_alpha
+
+    def init_state(self, seed: int = 0, device="cuda") -> trainer.TrainState:
+        """A fresh JointNetMotion or MaskNetMotion (drawn from `seed`) on
+        `device` (the card unless the caller asks for another)."""
+        m = self.cfg.model
+        cls = JointNetMotion if self.arch == "jointnet" else MaskNetMotion
+        return self._state(cls(m.num_keyframes, m.motion_dim, m.aggr_method, self.width_scale,
+                               generator=torch.Generator().manual_seed(seed)), device)
+
+    def _forward(self, model, batch: RigSample, input_flow, train: bool):
+        return model(input_flow, batch.mesh, train)
+
+    def _crowding(self, batch: RigSample) -> torch.Tensor:
+        """(B,V): for each vertex, the distance from its nearest GT joint to
+        that joint's nearest other joint."""
+        big = 1e6
+        jm = batch.joints_mask
+        d = torch.sqrt(torch.clamp(pairwise_sqdist(batch.joints, batch.joints), min=1e-12))
+        d = torch.where(jm[:, None, :] & jm[:, :, None], d, torch.full_like(d, big))
+        eye = torch.eye(d.shape[1], dtype=torch.bool, device=d.device)
+        iso = torch.where(eye, torch.full_like(d, big), d).amin(-1)            # (B,J)
+        dvj = pairwise_sqdist(batch.mesh.verts + batch.offsets, batch.joints)
+        nearest = torch.where(jm[:, None, :], dvj, torch.full_like(dvj, big)).argmin(-1)
+        return torch.gather(iso, 1, nearest)
+
+    def _separation(self, y_pred, batch: RigSample) -> torch.Tensor:
+        """The separation hinge relu(alpha |j1 - j2| - (|y - j2| - |y - j1|))
+        per vertex, j1 its GT joint and j2 that joint's nearest other joint,
+        averaged over the vertices that have one, then over the batch."""
+        big = 1e6
+        j1 = batch.mesh.verts + batch.offsets
+        d = torch.sqrt(torch.clamp(pairwise_sqdist(j1, batch.joints), min=1e-12))
+        d = torch.where(batch.joints_mask[:, None, :], d, torch.full_like(d, big))
+        d = torch.where(d < 1e-4, torch.full_like(d, big), d)   # j1 itself
+        spacing, j2_idx = d.min(-1)
+        j2 = torch.gather(batch.joints, 1, j2_idx[..., None].expand(-1, -1, 3))
+        d1 = torch.linalg.vector_norm(y_pred - j1, dim=-1)
+        d2 = torch.linalg.vector_norm(y_pred - j2, dim=-1)
+        ok = (batch.mesh.vert_mask & (spacing < big / 2)).float()
+        h = torch.relu(self.sep_alpha * spacing - (d2 - d1))
+        return ((h * ok).sum(-1) / torch.clamp(ok.sum(-1), min=1.0)).mean()
+
+    def _losses(self, generator, outputs, batch: RigSample):
+        motion_all, motion_aggr, pred = outputs
+        loss_embed = self._embed_loss(generator, motion_all, motion_aggr, batch)
+        vm = batch.mesh.vert_mask
+        if self.arch == "masknet":
+            loss_bce = bce_with_logits(pred[..., 0], batch.attn_mask, vm)
+            total = 0.1 * loss_embed + loss_bce
+            return total, dict(loss_bce=loss_bce, loss_motion=0.1 * loss_embed,
+                               total_loss=total)
+        disp = torch.tanh(pred)
+        y_pred = disp + batch.mesh.verts
+        if self.recall_weight != 1.0:
+            m_prec, m_cov = chamfer_directional(y_pred, batch.joints, vm, batch.joints_mask)
+            w = self.recall_weight
+            loss_chamfer = ((m_prec + w * m_cov) / (1.0 + w)).mean()
+        else:
+            loss_chamfer = batched_chamfer_with_average(y_pred, batch.joints, vm,
+                                                        batch.joints_mask)
+        if self.dense_weight > 0.0:
+            wts = 1.0 + self.dense_weight * torch.exp(-self._crowding(batch) / self.dense_sigma)
+            loss_l1 = masked_l1_weighted(disp, batch.offsets, vm, wts)
+        else:
+            loss_l1 = masked_l1(disp, batch.offsets, vm)
+        total = 0.1 * loss_embed + loss_chamfer + loss_l1
+        metrics = dict(loss_chamfer=loss_chamfer, loss_l1=loss_l1, loss_motion=0.1 * loss_embed)
+        if self.sep_weight > 0.0:
+            loss_sep = self.sep_weight * self._separation(y_pred, batch)
+            total = total + loss_sep
+            metrics["loss_sep"] = loss_sep
+        metrics["total_loss"] = total
+        return total, metrics
+
+    @torch.no_grad()
+    def infer(self, state: trainer.TrainState, input_flow, mesh):
+        """(motion_all, motion_aggr, prediction): for jointnet the shifted
+        points are verts + tanh(prediction), for masknet the attention is
+        sigmoid(prediction)."""
+        return state.model(input_flow, mesh)
+
+
+class SkinStage(_MotionStage):
+    """SkinMotion training: the soft cross-entropy over the K nearest bones
+    (slots without a bone and vertices whose labels do not sum to 1 left
+    out) plus 0.01 x the motion-embedding loss."""
+
+    def __init__(self, cfg: Config = DEFAULT_CONFIG, num_embed_sample: int = 512,
+                 width_scale: float = 1.0):
+        super().__init__(cfg, num_embed_sample)
+        self.width_scale = width_scale
+
+    def init_state(self, seed: int = 0, device="cuda") -> trainer.TrainState:
+        """A fresh SkinMotion (drawn from `seed`) on `device` (the card unless
+        the caller asks for another)."""
+        m = self.cfg.model
+        return self._state(SkinMotion(m.nearest_bone, m.use_Dg, m.use_Lf, m.num_keyframes,
+                                      m.motion_dim, self.width_scale,
+                                      generator=torch.Generator().manual_seed(seed)), device)
+
+    def _forward(self, model, batch: RigSample, input_flow, train: bool):
+        return model(batch.skin_input, input_flow, batch.mesh, train)
+
+    def _losses(self, generator, outputs, batch: RigSample):
+        motion_all, motion_aggr, logits = outputs
+        loss_embed = self._embed_loss(generator, motion_all, motion_aggr, batch)
+        K = logits.shape[-1]
+        slots = batch.loss_mask[..., :K].to(logits.dtype)
+        skin_gt = batch.skin_label[..., :K] * slots
+        skin_gt = skin_gt / (skin_gt.abs().sum(-1, keepdim=True) + 1e-8)
+        vert_ok = ((skin_gt.sum(-1) - 1.0).abs() < 1e-6) & batch.mesh.vert_mask
+        w = slots * vert_ok[..., None].to(logits.dtype)
+        per = cross_entropy_with_probs(logits, skin_gt)
+        loss_skin = (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+        total = loss_skin + 0.01 * loss_embed
+        return total, dict(loss_skin=loss_skin, loss_motion=0.01 * loss_embed, total_loss=total)
+
+    @torch.no_grad()
+    def infer(self, state: trainer.TrainState, skin_input, input_flow, mesh):
+        """(motion_all, motion_aggr, logits over the K nearest bones)."""
+        return state.model(skin_input, input_flow, mesh)

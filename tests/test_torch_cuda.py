@@ -27,7 +27,9 @@ gather K3 at every row class and the main path's shapes, and for the edge
 backward K6 exact ties in the max (a
 duplicated neighbour column), rows with no valid edge, whole dead steps, an
 all-masked batch and ragged last steps, and K6's dW2 kernel alone at 1, 2
-and its grid +- 1 live tiles.  Shapes and types
+and its grid +- 1 live tiles; K1 and K6 at each edge layer of a real
+GCUMotion on degree-16 creature tables, with the dout its backward
+received (the motion training stages' widths).  Shapes and types
 a kernel does not take raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -426,6 +428,53 @@ def test_corr_pose_step_on_card_matches_cpu(cuda):
     flat = torch.cat([g.ravel() for g, _ in p_card.values()])
     flat_ref = torch.cat([g.ravel() for g, _ in p_cpu.values()])
     assert (flat - flat_ref).norm() <= GRAD_TOTAL * flat_ref.norm()
+
+
+@pytest.mark.parametrize("pos_feat,out", [(16, 128), (64, 256)])
+def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
+    """A GCUMotion in training on creature tables (degree 16, V padded to
+    1024), as the motion stages run it: GCNDeform's first unit (feature 64
+    wide, positions 16, widths new to training) and SkinNet's (128 and 64).
+    Each of its four edge layers' K1 call is held to the plain version, and
+    each K6 call, with the dout the layer's backward really received, to
+    edge_mlp_bwd_plain by relative L2 (assert_k6_close)."""
+    from morig_tpu_torch.data.creature import creature_rig_dataset
+    from morig_tpu_torch.nn import gcu
+    from morig_tpu_torch.weights import randomize_
+
+    batch = creature_rig_dataset(num_models=2, seed=0, num_keyframes=1, num_points=64,
+                                 target_verts=600).batch([0, 1], device=cuda)
+    mesh = batch.mesh
+    assert mesh.tpl_nbr.shape[-1] == 16
+    net = randomize_(gcu.GCUMotion(3, 4, out, pos_feat), out).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(out)
+    x = torch.randn(*mesh.verts.shape[:2], 4, device=cuda, generator=g)
+    w = torch.randn(*mesh.verts.shape[:2], out, device=cuda, generator=g)
+    calls = []
+    original = gcu.fused_edge_mlp_trainable
+
+    def record(a, b, nbr, mask, *params):
+        y = original(a, b, nbr, mask, *params)
+        entry = [(a.detach().to(torch.bfloat16), b.detach().to(torch.bfloat16), nbr, mask,
+                  *(q.detach().clone() for q in params)), None]
+        y.register_hook(lambda d, e=entry: e.__setitem__(1, d.detach().float().clone()))
+        calls.append(entry)
+        return y
+
+    gcu.fused_edge_mlp_trainable = record
+    try:
+        ((net(mesh.verts, x, mesh, train=True) * w).sum()).backward()
+    finally:
+        gcu.fused_edge_mlp_trainable = original
+    assert sorted(args[0].shape[-1] for args, _ in calls) == sorted(
+        [pos_feat, pos_feat, out // 2, out // 2])
+    for args, dout in calls:
+        got, ref = ef.fused_edge_mlp(*args), ef.edge_mlp_plain(*args)
+        err = (got - ref).abs()
+        assert err.max() <= K1_TOL and err.mean() <= K1_MEAN_TOL, args[0].shape
+        assert dout is not None and torch.isfinite(dout).all()
+        assert_k6_close(ef.fused_edge_mlp_bwd(*args, dout), ef.edge_mlp_bwd_plain(*args, dout))
+        torch.cuda.synchronize()
 
 
 def _windowed_args(dev, H, D, TV, V, seed, B=2, leave=True):

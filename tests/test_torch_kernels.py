@@ -425,7 +425,8 @@ def test_package_runs_with_jax_blocked():
     """Import every module of morig_tpu_torch with jax, flax, optax, msgpack
     and the JAX package blocked, build the six networks on the CPU and run
     the batched rig DAG, the single-mesh DAG and a tracker (one frame, a few
-    IK iterations) at a tiny size: the port stands on its own."""
+    IK iterations), and take one step of the deform, rig and skin training
+    stages at a tiny size: the port stands on its own."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "flax", "optax", "msgpack", "morig_tpu")
@@ -451,6 +452,22 @@ def test_package_runs_with_jax_blocked():
         traj, vis, quats = Tracker(pred.deform, rig, entries[0], TrackingConfig(2, 2)).run(
             entries[0]["verts"][vm], np.transpose(frames[0][:2], (1, 0, 2)))
         assert traj.shape == (vm.sum(), 1, 3) and np.isfinite(quats).all()
+        import dataclasses
+        from morig_tpu_torch.core.config import DEFAULT_CONFIG
+        from morig_tpu_torch.data.pose import PoseDataset, capsule_pose_dataset
+        from morig_tpu_torch.data.rig import capsule_rig_dataset
+        from morig_tpu_torch.train import stages
+        cfg = dataclasses.replace(DEFAULT_CONFIG, model=dataclasses.replace(
+            DEFAULT_CONFIG.model, num_keyframes=2))
+        rb = capsule_rig_dataset(1, num_keyframes=2, n_lat=7, n_lon=6, num_points=64).batch(
+            [0], device="cpu")
+        pds = capsule_pose_dataset(num_models=1, num_frames=3, num_points=64, n_lat=7, n_lon=6)
+        pb = PoseDataset(pds.models, buckets=(64,)).batch([0], 0, 2, device="cpu")
+        for stage, b in ((stages.DeformPoseStage(cfg), pb),
+                         (stages.RigStage(cfg, num_embed_sample=32, width_scale=0.25), rb),
+                         (stages.SkinStage(cfg, num_embed_sample=32, width_scale=0.25), rb)):
+            m = stage.train_step(stage.init_state(device="cpu"), b)
+            assert np.isfinite(m["total_loss"]) and np.isfinite(m["grad_norm"])
         assert not any(k.split(".")[0] in BLOCKED for k, v in sys.modules.items() if v is not None)
         print(len(mods), "modules")
     """)

@@ -518,6 +518,9 @@ def test_config_matches_jax_package():
     # the volumetric skin path's constants are among them
     assert {"geo_anchors", "geo_los_samples", "geo_candidates"} <= {
         f.name for f in dataclasses.fields(tcfg.SkinPostConfig)}
+    # and the motion stages' constants
+    assert {"num_interp", "num_keyframes", "motion_dim", "aggr_method", "use_Dg",
+            "use_Lf"} <= {f.name for f in dataclasses.fields(tcfg.ModelConfig)}
 
 
 def _branching_rig(rng, J=9):

@@ -187,6 +187,29 @@ NETWORK = (2e-2, 5e-2)
 # module (LAYER_GRAD, TIGHT_GRAD), each module fed the same input and dout.
 GRAD = (0.3, 0.6)
 GRAD_TOTAL = 8e-2
+# STEP_GRAD: one parameter's gradient after a whole motion-stage step, whose
+# backward runs through 12 (DeformNet, extractor frozen), 20 (extractor
+# trained) or 36 (JointNet, MaskNet, SkinMotion at T=2) edge layers.  The
+# bf16 rounding differences of GRAD's comment grow with the depth: measured
+# on one CPU, the port against the JAX package's Pallas step by up to 0.52
+# (mean) and 1.33 (max, a JointNet bias whose gradient the chamfer's min
+# routes to a few vertices) relative, and the whole vector (STEP_GRAD_TOTAL)
+# to 0.167 relative L2.  The JAX package's own two training paths (the fused
+# Pallas backward and the fp32 XLA one) differ more on the same DeformNet
+# step: 1.42 (mean), 2.49 (max), 0.71 (whole vector).  The mean bound stays
+# below 1, which a missing gradient would reach; the modules are held tightly
+# one by one (LAYER_GRAD, TIGHT_GRAD).
+STEP_GRAD = (0.8, 2.5)
+STEP_GRAD_TOTAL = 0.3
+# With DeformNet's extractor trained, PointNet++'s gradient arrives through
+# the per-sample min and max of the visibility (each routed to one vertex)
+# and the kNN selections, which move with the last bits of the embeddings:
+# the port and the Pallas step differ there by 0.78 relative L2 (the JAX
+# package's two paths by 4.9), the whole vector by 0.443 (by 3.39).  Held
+# at EXTRACTOR_GROUP_L2 for that group and EXTRACTOR_GRAD_TOTAL for the
+# whole vector; every other parameter at STEP_GRAD.
+EXTRACTOR_GROUP_L2 = 0.9
+EXTRACTOR_GRAD_TOTAL = 0.6
 # LAYER_GRAD: one GCU's output, input gradient and parameter gradients in
 # training (two edge layers through K1 + K6, the JAX side through its Pallas
 # kernels).  K6 rounds ds, dh and dx to bf16 from fp32 values that differ in
@@ -211,3 +234,37 @@ def assert_rel_close(got, ref, tol, mask=None, what=""):
     assert np.isfinite(got).all(), what
     assert err.mean() <= tol[0] * np.abs(ref).mean(), (what, err.mean(), np.abs(ref).mean())
     assert err.max() <= tol[1] * np.abs(ref).max(), (what, err.max(), np.abs(ref).max())
+
+
+def jax_multi_pos_draws(key, gt_skin, vert_mask, num_sample: int, num_pos: int = 10,
+                        num_neg: int = 200, sim_threshold: float = 0.9):
+    """The indices morig_tpu.losses.nce.multi_pos_info_nce draws from `key`:
+    its per-sample key split and jax.random.choice calls, repeated line for
+    line.  Returns numpy (ids (B,S), pos_ids (B,S,num_pos), neg_ids
+    (B,S,num_neg)), which the port's `multi_pos_info_nce_drawn` takes."""
+    import jax.numpy as jnp
+
+    V = vert_mask.shape[1]
+
+    def per_sample(key, skin, mask):
+        k1, k2, k3 = jax.random.split(key, 3)
+        p = mask.astype(jnp.float32)
+        p = p / jnp.maximum(p.sum(), 1.0)
+        ids = jax.random.choice(k1, V, (num_sample,), replace=False, p=p)
+        row_ok = mask[ids]
+        s = skin[ids]
+        gt_sim = (2.0 - jnp.sum(jnp.abs(s[None] - s[:, None]), axis=-1)) / 2.0
+        pos_mat = (gt_sim > sim_threshold).astype(jnp.float32)
+        neg_mat = (1.0 - pos_mat) * row_ok[None, :].astype(jnp.float32)
+        pos_mat = pos_mat * row_ok[None, :].astype(jnp.float32)
+        pos_p = pos_mat / jnp.maximum(pos_mat.sum(-1, keepdims=True), 1e-9)
+        neg_p = neg_mat / jnp.maximum(neg_mat.sum(-1, keepdims=True), 1e-9)
+        pos_ids = jax.vmap(lambda k, pr: jax.random.choice(k, num_sample, (num_pos,), p=pr))(
+            jax.random.split(k2, num_sample), pos_p)
+        neg_ids = jax.vmap(lambda k, pr: jax.random.choice(k, num_sample, (num_neg,), p=pr))(
+            jax.random.split(k3, num_sample), neg_p)
+        return ids, pos_ids, neg_ids
+
+    keys = jax.random.split(key, vert_mask.shape[0])
+    out = jax.vmap(per_sample)(keys, jnp.asarray(gt_skin), jnp.asarray(vert_mask))
+    return tuple(np.asarray(x).astype(np.int64) for x in out)
