@@ -85,7 +85,28 @@ Phases, each printing its own lines:
                with the embedding draws of `eval_step` from a fixed
                generator; counts K1 72, K6 72, K2 0, plain_edge 0;
  11. skin    — `SkinStage` on the same batch, as phase 10 (K1 72, K6 72).
-               Phases 9-11 run right after phase 6.
+ 12. skel    — `BoneStage`, then `RootStage`, at full width from seeded
+               weights on `creature_skel_dataset(num_models=4, seed=0)` at
+               its defaults (`cli.py train bone|root --data creature`): 12
+               rows (each creature's GT joints and two jittered copies), V
+               in the 2048 bucket, degree-16 tables, J <= 32, P = 496.  One
+               step first moves the zero-initialized head (until it does,
+               every gradient behind it is 0), then as phase 9: counts K1 6,
+               K6 6, K2 = K3 = 0, plain_edge 0 per step; then one
+               `eval_step` counted apart: K1 6, K3 2 (BoneNet's joint-set
+               SAs) or 4 (RootNet's SAs and fp2, fp1), its K1 and K3 calls
+               recorded and held against their plain versions as in
+               phase 7.
+ 13. demo    — `capsule_predictor(train_steps=12)` on the card (the stages
+               trained on two small capsules, what `cli.py predict-rig`
+               serves), then `predict_rig` on each of its pose models (points
+               of frames 1-5), DEMO_CALLS calls each, each checked as in
+               phase 7 (finite joints, skin rows summing to 1 within 1e-3,
+               K1 one per edge layer, K2 = 3, K3 = 12); the first call on
+               each capsule records its K1, K2 and K3 calls, each held
+               against its plain version at its shape.  Prints the training
+               seconds, the call median and the joint counts.
+               Phases 9-13 run right after phase 6.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -116,8 +137,9 @@ Phases, each printing its own lines:
                half.
 Then a JSON line of kernel results (launches counted in the main paths'
 counted runs: path 1, path 2, the training step, the first timed step
-of each of phases 9-11 and phase 9's step with the extractor trained, the
-first timed single-mesh call and the two timed tracking runs; `ms` and
+of each of phases 9-12 and phase 9's step with the extractor trained,
+phase 12's counted `eval_step`s, phase 13's calls, the first timed
+single-mesh call and the two timed tracking runs; `ms` and
 `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
 `library_device_ms` the library call's, `composite_ms` and
@@ -138,7 +160,8 @@ import numpy as np
 import torch
 
 from morig_tpu_torch.core.batch import build_mesh, pad_to, stack_meshes
-from morig_tpu_torch.data.creature import creature_rig_dataset, make_creature_sequence
+from morig_tpu_torch.data.creature import (creature_rig_dataset, creature_skel_dataset,
+                                           make_creature_sequence)
 from morig_tpu_torch.data.pose import PoseDataset, capsule_pose_dataset
 from morig_tpu_torch.data.synthetic import capsule_batch, make_capsule_rig, make_capsule_sequence
 from morig_tpu_torch.geometry import skeleton as sk
@@ -154,9 +177,10 @@ from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_t
 from morig_tpu_torch.nn import corrnet, deformnet, gcu, pointnet
 from morig_tpu_torch.nn.corrnet import l2_normalize
 from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl
-from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer
+from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer, capsule_predictor
 from morig_tpu_torch.pipelines.tracking import BatchedTracker, Tracker, make_scanned_tracker
-from morig_tpu_torch.train.stages import CorrPoseStage, DeformPoseStage, RigStage, SkinStage
+from morig_tpu_torch.train.stages import (BoneStage, CorrPoseStage, DeformPoseStage, RigStage,
+                                          RootStage, SkinStage)
 
 B_MESH, T, P, V_PAD, DEGREE = 4, 5, 1024, 1536, 12
 EDGE_TILE, VOX_DIMS = 128, 88
@@ -1288,16 +1312,114 @@ def rig_batch():
     return batch
 
 
-def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
-    """Phases 10-11: a RigStage or SkinStage at full width from seeded
-    weights on the rig batch; every edge layer on the kernel route."""
+def full_width_state(name: str, stage):
+    """`stage.init_state(0)` on the card, every edge layer on the kernel
+    route."""
     state = stage.init_state(0)
     edges = [m for m in state.model.modules() if isinstance(m, EdgeMLP)]
     if not all(m.kernel_route for m in edges):
         raise AssertionError(f"{name}: an edge layer at full width is off the kernel route")
+    return state
+
+
+def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
+    """Phases 10-11: a RigStage or SkinStage at full width from seeded
+    weights on the rig batch."""
+    state = full_width_state(name, stage)
     return run_stage(name, stage, state, batch, EXPECTED_MOTION,
                      lambda st: stage.eval_step(st, batch, torch.Generator(device=dev).manual_seed(5)),
                      dev, profile_phase)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the skeleton stages; phase 13: the capsule demo
+# ---------------------------------------------------------------------------
+
+# Per step: the shape encoder's 6 edge layers (3 GCUs x tpl/geo) through K1
+# and K6; the joint-set PointNet++ gathers by plain indexing in training.
+# One eval_step: K1 6 and K3 on every SA grouping and kNN interpolation
+# (BoneNet's joint-set sa1-2; RootNet's sa1-2 and fp2-1, fp3 broadcasting).
+EXPECTED_SKEL = {"K1": 6, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 6, "plain_edge": 0}
+EXPECTED_SKEL_EVAL = {"bone": dict(EXPECTED_SKEL, K3=2, K6=0),
+                      "root": dict(EXPECTED_SKEL, K3=4, K6=0)}
+DEMO_STEPS, DEMO_CALLS = 12, 3
+
+
+def skel_batch():
+    """The bone and root stages' input: `creature_skel_dataset(num_models=4,
+    seed=0)` at its defaults, on the card."""
+    t0 = time.perf_counter()
+    batch = creature_skel_dataset(num_models=TRAIN_B, seed=0)
+    Bn, V, D = batch.mesh.tpl_nbr.shape
+    print(f"skel data: {time.perf_counter() - t0:.2f} s; B={Bn} V={V} D={D}, valid vertices "
+          f"{batch.mesh.vert_mask.sum(1).tolist()}, joints {batch.joints_mask.sum(1).tolist()} "
+          f"of {batch.joints.shape[1]}, pairs P={batch.pairs.shape[1]}")
+    return batch
+
+
+def train_skel(name: str, stage, batch, dev, profile_phase: bool) -> dict:
+    """Phase 12: a BoneStage or RootStage at full width from seeded weights
+    on the skeleton batch, as phases 10-11, after one step that makes the
+    zero-initialized head non-zero; then one counted `eval_step`, its K1 and
+    K3 calls held against their plain versions.  Returns the counts of the
+    first timed step plus the eval_step's."""
+    state = full_width_state(name, stage)
+    m = stage.train_step(state, batch, torch.Generator(device=dev).manual_seed(0))
+    print(f"{name}: a first step to move the zero-initialized head: {m}")
+    launches = run_stage(name, stage, state, batch, EXPECTED_SKEL,
+                         lambda st: stage.eval_step(st, batch), dev, profile_phase)
+    calls: dict = {}
+    zero_stage_counts()
+    with recording_kernel_calls(calls):
+        ev = stage.eval_step(state, batch)
+    counts = read_stage_counts()
+    expected = EXPECTED_SKEL_EVAL[name]
+    print(f"{name} eval_step: {ev}; launches {counts}, expected {expected}")
+    if not (all(math.isfinite(v) for v in ev.values()) and counts == expected):
+        raise AssertionError(f"{name} eval_step: {ev}, launches {counts} != {expected}")
+    check_recorded(f"{name} eval_step", calls)
+    return {k: launches[k] + counts[k] for k in launches}
+
+
+def demo(dev) -> dict:
+    """Phase 13: `capsule_predictor(train_steps=DEMO_STEPS)` on the card, then
+    DEMO_CALLS `predict_rig` calls on each of its pose models with the points
+    of frames 1-5, each checked, the kernel counts zeroed before each call
+    and read after it; the first call's kernel calls on each capsule held
+    against their plain versions.  Returns the counts summed over the
+    calls."""
+    t0 = time.perf_counter()
+    pred, pose_ds, rig_ds = capsule_predictor(train_steps=DEMO_STEPS)   # on the card
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    expected = {"K1": expected_edge_launches(pred), "K2": EXPECTED_KNN_LAUNCHES,
+                "K3": EXPECTED_GATHER_LAUNCHES, "K4": 0, "K5": 0, "K6": 0}
+    total = dict.fromkeys(expected, 0)
+    walls, joints, calls = [], [], {}
+    for i, model in enumerate(pose_ds.models):
+        frames = np.stack([model.pts_traj[:, t, :] for t in range(1, 6)])
+        entry = rig_ds._mesh_cache[i]
+        n_valid = int(np.asarray(entry["vert_mask"]).sum())
+        for rep in range(DEMO_CALLS):
+            zero_counts()
+            t0 = time.perf_counter()
+            # the first call on each capsule records its kernel calls
+            with recording_kernel_calls(calls if rep == 0 else {}):
+                rig = pred.predict_rig(entry, frames)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = read_counts()
+            check_rig(f"demo {model.name}", rig, n_valid, launches, expected)
+            total = {k: total[k] + launches[k] for k in total}
+        joints.append(len(rig.pos))
+    check_recorded("demo", calls)
+    ms = np.asarray(walls) * 1e3
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    print(f"demo: capsule_predictor(train_steps={DEMO_STEPS}) {train_s:.2f} s; predict_rig on "
+          f"{len(pose_ds.models)} capsules (V padded to {rig_ds.pad_verts}) x {DEMO_CALLS} calls: "
+          f"median {med:.2f} ms (q1 {q1:.2f}, q3 {q3:.2f}, min {ms.min():.2f}, max "
+          f"{ms.max():.2f}); joints {joints}; launches per call {expected}")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1305,6 +1427,18 @@ def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 SINGLE_REPS = 5       # timed predict_rig calls after the warm-up
+
+
+def check_rig(name: str, rig, n_valid: int, launches: dict, expected: dict) -> None:
+    """One predict_rig result: finite joints, one skin row per valid vertex
+    summing to 1 within 1e-3, and the call's kernel counts as expected."""
+    err = np.abs(rig.skins.sum(1) - 1.0).max()
+    if not (len(rig.pos) >= 1 and np.isfinite(rig.pos).all()
+            and rig.skins.shape == (n_valid, len(rig.pos)) and err <= 1e-3
+            and launches == expected):
+        raise AssertionError(f"{name}: joints finite {np.isfinite(rig.pos).all()}, skins "
+                             f"{rig.skins.shape}, rows off 1 by {err}, launches {launches} "
+                             f"(expected {expected})")
 
 
 def single_mesh(pred: RigPredictor, entry: dict, frames: np.ndarray, expected: dict) -> dict:
@@ -1331,12 +1465,7 @@ def single_mesh(pred: RigPredictor, entry: dict, frames: np.ndarray, expected: d
         walls.append(time.perf_counter() - t0)
         launches = read_counts()
         first = first or launches
-        err = np.abs(rig.skins.sum(1) - 1.0).max()
-        if not (np.isfinite(rig.pos).all() and rig.skins.shape == (n_valid, len(rig.pos))
-                and err <= 1e-3 and launches == expected):
-            raise AssertionError(f"single mesh: joints finite {np.isfinite(rig.pos).all()}, "
-                                 f"skins {rig.skins.shape}, rows off 1 by {err}, launches "
-                                 f"{launches} (expected {expected})")
+        check_rig("single mesh", rig, n_valid, launches, expected)
         for k, v in timings.items():
             stages.setdefault(k, []).append(v * 1e3)
     batch_rig = pred.predict_rig_batch([entry], [frames])[0]
@@ -1559,6 +1688,11 @@ def main(profile_phase: bool = False):
                train_motion("rig masknet", RigStage(arch="masknet"), rig, dev, profile_phase),
                train_motion("skin", SkinStage(), rig, dev, profile_phase)]
     del rig
+    skel = skel_batch()
+    motion += [train_skel("bone", BoneStage(), skel, dev, profile_phase),
+               train_skel("root", RootStage(), skel, dev, profile_phase)]
+    del skel
+    demo_counts = demo(dev)
     single = single_mesh(pred, entries[0], frames[0],
                          {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
                           "K4": 0, "K5": 0, "K6": 0})
@@ -1567,7 +1701,7 @@ def main(profile_phase: bool = False):
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
         n = (path1[name] + path2[name] + trained[name] + sum(m[name] for m in motion)
-             + single[name] + tracked[name])
+             + demo_counts[name] + single[name] + tracked[name])
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
     print(json.dumps({"kernels": kernels}))

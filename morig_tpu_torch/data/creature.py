@@ -8,9 +8,9 @@ naive surface nets with the vertex count walked under a target, skinned
 analytically, animated by numpy FK/LBS with asymmetric per-limb motion and
 a root translation, and seen from +z as partial point clouds with
 vertex/point correspondences and per-frame vertex visibility: the dict of
-`make_capsule_sequence` (data/synthetic.py); `creature_pose_dataset` and
-`creature_rig_dataset` build the pose and rig datasets over them.  The
-skeleton dataset of the JAX module waits for the Bone and Root stages.
+`make_capsule_sequence` (data/synthetic.py); `creature_pose_dataset`,
+`creature_rig_dataset` and `creature_skel_dataset` build the pose, rig and
+skeleton datasets over them.
 """
 from __future__ import annotations
 
@@ -466,17 +466,16 @@ def creature_pose_dataset(num_models: int = 8, seed: int = 0, num_frames: int = 
 def creature_rig_dataset(num_models: int = 8, seed: int = 0, num_keyframes: int = 5,
                          noise: float = 0.01, num_points: int = 1024,
                          target_verts: int = 1900, use_volumetric_geo: bool = False,
-                         pred_flows: Optional[list] = None, **kw):
-    """RigDataset over creatures with euclidean vertex-to-bone skin
-    distances.  pred_flow is gt_flow plus seeded noise unless `pred_flows`
-    (one (V, 3T) array per model, e.g. a trained DeformNet's) is given."""
+                         pred_flows: Optional[list] = None, device="cuda", **kw):
+    """RigDataset over creatures.  pred_flow is gt_flow plus seeded noise
+    unless `pred_flows` (one (V, 3T) array per model, e.g. a trained
+    DeformNet's) is given.  The skin descriptors take the euclidean
+    vertex-to-bone distance, or with `use_volumetric_geo` the volumetric
+    geodesic (`geometry.geodesic.vertex_bone_geodesic`, its line of sight
+    on `device`)."""
     from morig_tpu_torch.data.rig import RigDataset, build_rig_model
     from morig_tpu_torch.geometry import skeleton as sk
 
-    if use_volumetric_geo:
-        raise NotImplementedError(
-            "creature_rig_dataset(use_volumetric_geo=True) needs a host vertex_bone_geodesic, "
-            "which the port does not have yet (ROADMAP.md, section 1)")
     rng = np.random.default_rng(seed + 991)
     models = []
     for i in range(num_models):
@@ -492,7 +491,45 @@ def creature_rig_dataset(num_models: int = 8, seed: int = 0, num_keyframes: int 
             pred = pred_flows[i]
         else:
             pred = (gt_flow + noise * rng.normal(size=gt_flow.shape)).astype(np.float32)
+        geo_dist = None
+        if use_volumetric_geo:
+            from morig_tpu_torch.geometry.geodesic import vertex_bone_geodesic
+            from morig_tpu_torch.geometry.voxel import voxelize_mesh
+
+            rest = seq["vtx_traj"][:, 0, :]
+            bones, _, _ = sk.get_bones(rig)
+            geo_dist = vertex_bone_geodesic(rest, bones, voxelize_mesh(rest, c.faces),
+                                            faces=c.faces, device=device)
         models.append(build_rig_model(
             f"creature{seed + i}", seq["vtx_traj"][:, 0, :], seq["tpl_edges"],
-            seq["geo_edges"], rig, seq["vtx_traj"], keyframes, pred_flow=pred))
+            seq["geo_edges"], rig, seq["vtx_traj"], keyframes, pred_flow=pred,
+            geo_dist=geo_dist))
     return RigDataset(models)
+
+
+def creature_skel_dataset(num_models: int = 8, seed: int = 0, max_joints: int = 32,
+                          perturb: float = 0.02, extra_per_model: int = 2,
+                          target_verts: int = 1900, device="cuda", **kw):
+    """One SkelSample for Bone/Root training on `device`: per creature
+    (`make_creature`, `kw` going to it) the GT joint set plus
+    `extra_per_model` copies jittered by perturb * N(0, 1) (the kind of joint
+    sets a trained JointNet emits), each a row of its own, the mesh padded
+    to its 1024/2048/4096 bucket."""
+    from morig_tpu_torch.core import batch as B
+    from morig_tpu_torch.data.skeleton_data import build_skel_sample
+    from morig_tpu_torch.geometry import skeleton as sk
+
+    rng = np.random.default_rng(seed + 4242)
+    entries, joints_list, rigs = [], [], []
+    for i in range(num_models):
+        c = make_creature(seed + i, target_verts=target_verts, **kw)
+        rig = sk.Rig(names=list(c.names), pos=c.joints.astype(np.float64),
+                     parents=c.parents, skins=c.skins)
+        entry = B.build_mesh(c.verts, c.tpl_edges, c.geo_edges,
+                             B.bucket_size(len(c.verts), (1024, 2048, 4096)))
+        for k in range(1 + extra_per_model):
+            jit = 0.0 if k == 0 else perturb * rng.normal(size=c.joints.shape)
+            entries.append(entry)
+            joints_list.append(c.joints + jit)
+            rigs.append(rig)
+    return build_skel_sample(entries, joints_list, rigs, max_joints=max_joints, device=device)

@@ -1,6 +1,6 @@
 """Skeleton-connectivity data: the padded candidate-pair samples of RootNet
 and BoneNet — counterpart of morig_tpu/data/skeleton_data.py (`pair_attrs`,
-`build_skel_sample`).
+`build_skel_sample`, `capsule_skel_dataset`).
 
 All joint pairs (i < j) with their [distance, inside fraction] attributes
 (the fraction of the segment inside the voxel grid, one device call per
@@ -75,3 +75,14 @@ def build_skel_sample(mesh_entries: Sequence[dict], joints_list: Sequence[np.nda
         joints=dev(joints_a), joints_mask=dev(joints_m), pairs=dev(pairs_a),
         pair_mask=dev(pairs_m), pair_attr=dev(attr_a), pair_label=dev(label_a),
         root_idx=dev(root_a))
+
+
+def capsule_skel_dataset(num_models: int = 2, max_joints: int = 16, device="cuda",
+                         **kw) -> SkelSample:
+    """One SkelSample over synthetic capsules (`capsule_rig_dataset`'s meshes,
+    GT joints and labels; `kw` goes to it), on `device`."""
+    from morig_tpu_torch.data.rig import capsule_rig_dataset
+
+    ds = capsule_rig_dataset(num_models=num_models, **kw)
+    return build_skel_sample(ds._mesh_cache, [m.rig.pos for m in ds.models],
+                             [m.rig for m in ds.models], max_joints=max_joints, device=device)

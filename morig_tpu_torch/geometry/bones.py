@@ -1,7 +1,8 @@
 """Vertex-to-bone distances, voxel line of sight and the skin descriptors —
 counterpart of morig_tpu/geometry/bones.py: `point_to_segment_dist` and
-`vertex_bone_visibility` batched on the device, `pack_skin_descriptors` and
-`scatter_skin_full` numpy copies for the single-mesh skin stage."""
+`vertex_bone_visibility` batched on the device; `prune_far_visible`,
+`pack_skin_descriptors` and `scatter_skin_full` numpy copies for the host
+geodesic and the single-mesh skin stage."""
 from __future__ import annotations
 
 import numpy as np
@@ -32,6 +33,19 @@ def vertex_bone_visibility(verts, bones, grid, translate, scale, num_samples: in
     starts = verts[:, :, None, :].expand_as(foot)
     frac = segment_inside_fraction(starts, foot, grid, translate, scale, num_samples)
     return frac >= inside_threshold, dist
+
+
+def prune_far_visible(visible: np.ndarray, dist: np.ndarray, percentile: float = 15.0,
+                      factor: float = 1.3) -> np.ndarray:
+    """visible (V, B) with the pairs farther than `factor` x their bone's
+    `percentile`-th visible distance (np.percentile, linear) dropped."""
+    out = visible.copy()
+    for b in range(visible.shape[1]):
+        vis_d = dist[visible[:, b], b]
+        if len(vis_d) == 0:
+            continue
+        out[dist[:, b] > factor * np.percentile(vis_d, percentile), b] = False
+    return out
 
 
 def pack_skin_descriptors(geo_dist: np.ndarray, bones: np.ndarray, bone_isleaf: np.ndarray,

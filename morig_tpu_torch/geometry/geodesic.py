@@ -1,10 +1,12 @@
-"""Surface geodesics (host) and volumetric vertex-to-bone geodesics (device)
-— counterpart of morig_tpu/geometry/geodesic.py.
+"""Surface geodesics (host) and volumetric vertex-to-bone geodesics —
+counterpart of morig_tpu/geometry/geodesic.py.
 
 `fps_numpy` and `surface_geodesic` are host copies: the surface is sampled,
 each sample joined to its nearest neighbours whose normals are not opposed,
-and all-pairs Dijkstra runs in the repository's C++ code.  The device end,
-`vertex_bone_geodesic_device`, runs batched over meshes.
+and all-pairs Dijkstra runs in the repository's C++ code.
+`vertex_bone_geodesic` is the one-mesh host form (the line of sight on a
+device, the per-bone fallback in numpy), which the rig datasets use;
+`vertex_bone_geodesic_device` is the served form, batched over meshes.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import torch
 
 from morig_tpu_torch import native
 from morig_tpu_torch.data.synthetic import sample_surface
-from morig_tpu_torch.geometry.bones import point_to_segment_dist, vertex_bone_visibility
-from morig_tpu_torch.geometry.voxel import segment_inside_fraction
+from morig_tpu_torch.geometry.bones import (point_to_segment_dist, prune_far_visible,
+                                            vertex_bone_visibility)
+from morig_tpu_torch.geometry.voxel import Voxels, segment_inside_fraction, vox_to_device
 
 POS = 1e30
 
@@ -49,6 +52,48 @@ def surface_geodesic(verts: np.ndarray, faces: np.ndarray, num_samples: int = 40
     dist = native.geodesic_all_pairs(pts, normals, knn, normal_cos_min, inf_offset)
     v2s = np.argmin(np.sqrt(((verts[:, None] - pts[None]) ** 2).sum(-1)), axis=1)
     return dist[v2s][:, v2s].astype(np.float32)
+
+
+def vertex_bone_geodesic(verts: np.ndarray, bones: np.ndarray, vox: Voxels,
+                         surface_geo: np.ndarray | None = None, faces: np.ndarray | None = None,
+                         inside_threshold: float = 0.90, inf_offset: float = 8.0,
+                         device="cuda") -> np.ndarray:
+    """(V, B) float64 volumetric geodesic from every vertex to every bone
+    (B, 6) of one mesh.  A pair in voxel line of sight (at least
+    `inside_threshold` of its samples inside `vox`, computed on `device`),
+    and not farther than 1.3 x its bone's 15th-percentile visible distance
+    (`prune_far_visible`), takes the straight point-to-segment distance; an
+    occluded pair takes the surface geodesic to its nearest visible vertex
+    plus that vertex's distance (inf_offset + the straight distance where
+    the surface does not connect them); a bone no vertex sees takes the
+    straight distance.  The surface geodesics come from `faces` when not
+    given."""
+    grid, tr, sc = vox_to_device([vox], device)
+    visible, dist = vertex_bone_visibility(
+        torch.as_tensor(verts, dtype=torch.float32, device=device)[None],
+        torch.as_tensor(bones, dtype=torch.float32, device=device)[None],
+        grid, tr, sc, inside_threshold=inside_threshold)
+    dist = dist[0].cpu().numpy().astype(np.float64)
+    visible = prune_far_visible(visible[0].cpu().numpy(), dist)
+    if surface_geo is None:
+        if faces is None:
+            raise ValueError("vertex_bone_geodesic needs faces or surface_geo")
+        surface_geo = surface_geodesic(verts, faces)
+
+    out = np.where(visible, dist, 0.0)
+    for b in range(bones.shape[0]):
+        vis = np.flatnonzero(visible[:, b])
+        occ = np.flatnonzero(~visible[:, b])
+        if len(vis) == 0:
+            out[:, b] = dist[:, b]
+            continue
+        if len(occ) == 0:
+            continue
+        sg = surface_geo[np.ix_(occ, vis)]
+        nn = np.argmin(sg, axis=1)
+        d1 = sg[np.arange(len(occ)), nn]
+        out[occ, b] = np.where(np.isfinite(d1), d1 + out[vis[nn], b], inf_offset + dist[occ, b])
+    return out
 
 
 def _percentile_threshold(vis, dist, percentile: float, far_factor: float):

@@ -452,3 +452,39 @@ class RigPredictor(torch.nn.Module):
             rigs.append(sk.remove_duplicate_joints(rig))
         mark("assemble")
         return rigs
+
+
+def capsule_predictor(train_steps: int = 12, num_embed_sample: int = 64, seed: int = 0,
+                      device="cuda", **fixture_kw):
+    """A RigPredictor on `device` over briefly trained stages, on the
+    synthetic capsule fixture (num_points=64, n_lat=9, n_lon=8 unless
+    `fixture_kw` says otherwise): the six stages' networks from
+    `init_state(seed)`, then `train_steps` steps each of the joint, mask,
+    bone and root stages on two capsules (the skeleton sample at
+    max_joints=8), their draws from one generator seeded seed + 1.  What
+    `predict-rig` serves.  Returns (predictor, pose_dataset, rig_dataset)."""
+    from morig_tpu_torch.data.pose import capsule_pose_dataset
+    from morig_tpu_torch.data.rig import capsule_rig_dataset
+    from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
+    from morig_tpu_torch.train.stages import (BoneStage, DeformPoseStage, RigStage, RootStage,
+                                              SkinStage)
+
+    kw = dict(num_points=64, n_lat=9, n_lon=8)
+    kw.update(fixture_kw)
+    pose_ds = capsule_pose_dataset(num_models=2, num_frames=6, **kw)
+    rig_ds = capsule_rig_dataset(num_models=2, **kw)
+    skel_s = capsule_skel_dataset(num_models=2, max_joints=8, device=device, **kw)
+    rig_b = rig_ds.batch([0, 1], device=device)
+
+    stages = dict(deform=DeformPoseStage(),
+                  joint=RigStage(arch="jointnet", num_embed_sample=num_embed_sample),
+                  mask=RigStage(arch="masknet", num_embed_sample=num_embed_sample),
+                  root=RootStage(), bone=BoneStage(),
+                  skin=SkinStage(num_embed_sample=num_embed_sample))
+    states = {name: stage.init_state(seed, device) for name, stage in stages.items()}
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    for _ in range(train_steps):
+        for name, batch in (("joint", rig_b), ("mask", rig_b), ("bone", skel_s),
+                            ("root", skel_s)):
+            stages[name].train_step(states[name], batch, gen)
+    return RigPredictor(*(states[name].model for name in NETS)), pose_ds, rig_ds

@@ -1,7 +1,8 @@
 """Training stages: model + losses + train/eval steps — counterpart of
 morig_tpu/train/stages.py: the correspondence stage `CorrPoseStage`, the
-flow stage `DeformPoseStage`, the joint and mask stage `RigStage` and the
-skinning stage `SkinStage`.
+flow stage `DeformPoseStage`, the joint and mask stage `RigStage`, the
+skinning stage `SkinStage`, and the skeleton stages `BoneStage` (pair
+connectivity) and `RootStage` (the root joint).
 
 A train step is one forward in training numerics (fp32 matmuls, every edge
 layer through K1 forward and K6 backward, the kNN calls through K2 with its
@@ -16,13 +17,14 @@ from typing import Optional
 
 import torch
 
-from morig_tpu_torch.core.batch import PoseSample, RigSample
+from morig_tpu_torch.core.batch import PoseSample, RigSample, SkelSample
 from morig_tpu_torch.core.config import DEFAULT_CONFIG, Config
 from morig_tpu_torch.kernels.neighbors import pairwise_sqdist
 from morig_tpu_torch.losses.basic import (
     batched_chamfer_with_average, bce_with_logits, chamfer_directional, cross_entropy_with_probs,
     masked_l1, masked_l1_weighted)
 from morig_tpu_torch.losses.nce import info_nce, multi_pos_info_nce
+from morig_tpu_torch.nn.bonenet import BoneNet, RootNet
 from morig_tpu_torch.nn.corrnet import CorrNet
 from morig_tpu_torch.nn.deformnet import DeformNet
 from morig_tpu_torch.nn.mlp import init_parameters
@@ -387,3 +389,79 @@ class SkinStage(_MotionStage):
     def infer(self, state: trainer.TrainState, skin_input, input_flow, mesh):
         """(motion_all, motion_aggr, logits over the K nearest bones)."""
         return state.model(skin_input, input_flow, mesh)
+
+
+class _SkelStage:
+    """What the bone and root stages share: the optimizer (lr 1e-3,
+    milestone 50, gamma 0.1, the config's weight decay; not the config's
+    lr), and the steps around each subclass's `_forward(model, batch,
+    train, generator)` and `_losses(logits, batch)`."""
+
+    net_cls: type
+
+    def __init__(self, cfg: Config = DEFAULT_CONFIG):
+        self.cfg = cfg
+
+    def on_epoch(self, epoch: int):
+        pass
+
+    def make_tx(self, params, steps_per_epoch: int = 1) -> trainer.MultiStepAdam:
+        return trainer.multistep_adam(params, 1e-3, (50,), 0.1, self.cfg.train.weight_decay,
+                                      steps_per_epoch)
+
+    def init_state(self, seed: int = 0, device="cuda") -> trainer.TrainState:
+        """A fresh network (drawn from `seed`) on `device` (the card unless
+        the caller asks for another), with its optimizer."""
+        model = self.net_cls(generator=torch.Generator().manual_seed(seed)).to(device)
+        return trainer.TrainState(model, self.make_tx(model.parameters()))
+
+    def train_step(self, state: trainer.TrainState, batch: SkelSample,
+                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+        """One optimizer step on `batch`, its random draws from `generator`
+        (a fresh one seeded 0 on the batch's device when None)."""
+        generator = _default_generator(generator, batch.joints.device)
+        logits = self._forward(state.model, batch, True, generator)
+        return _step(state, *self._losses(logits, batch))
+
+    @torch.no_grad()
+    def eval_step(self, state: trainer.TrainState, batch: SkelSample) -> dict[str, float]:
+        return _floats(self._losses(self._forward(state.model, batch, False, None), batch)[1])
+
+    @torch.no_grad()
+    def infer(self, state: trainer.TrainState, batch: SkelSample) -> torch.Tensor:
+        """The inference logits: (B,P,1) pair connectivity or (B,J,1) root."""
+        return self._forward(state.model, batch, False, None)
+
+
+class BoneStage(_SkelStage):
+    """BoneNet training: the BCE of the pair logits against GT adjacency,
+    with each pair's joints swapped with probability 1/2 and BoneNet's
+    dropout, both drawn from the step's generator (swap first)."""
+
+    net_cls = BoneNet
+
+    def _forward(self, model, batch: SkelSample, train: bool, generator):
+        return model(batch.mesh, batch.joints, batch.joints_mask, batch.pairs, batch.pair_attr,
+                     train=train, permute=train, generator=generator)
+
+    def _losses(self, logits, batch: SkelSample):
+        loss = bce_with_logits(logits[..., 0], batch.pair_label, batch.pair_mask)
+        return loss, dict(total_loss=loss)
+
+
+class RootStage(_SkelStage):
+    """RootNet training: softmax cross-entropy over the valid joints with
+    the GT root as the class (padded joints at -1e30), and the share of
+    samples whose argmax (first index on ties) is the root (`root_acc`)."""
+
+    net_cls = RootNet
+
+    def _forward(self, model, batch: SkelSample, train: bool, generator):
+        return model(batch.mesh, batch.joints, batch.joints_mask, train=train)
+
+    def _losses(self, logits, batch: SkelSample):
+        z = torch.where(batch.joints_mask, logits[..., 0], torch.full_like(logits[..., 0], -1e30))
+        picked = torch.gather(z, 1, batch.root_idx[:, None])[:, 0]
+        loss = (torch.logsumexp(z, -1) - picked).mean()
+        acc = (z.argmax(-1) == batch.root_idx).float().mean()
+        return loss, dict(total_loss=loss, root_acc=acc)

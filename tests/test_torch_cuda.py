@@ -29,7 +29,8 @@ duplicated neighbour column), rows with no valid edge, whole dead steps, an
 all-masked batch and ragged last steps, and K6's dW2 kernel alone at 1, 2
 and its grid +- 1 live tiles; K1 and K6 at each edge layer of a real
 GCUMotion on degree-16 creature tables, with the dout its backward
-received (the motion training stages' widths).  Shapes and types
+received (the motion training stages' widths); a BoneStage and a RootStage
+step on the card against the same step on the CPU.  Shapes and types
 a kernel does not take raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -428,6 +429,151 @@ def test_corr_pose_step_on_card_matches_cpu(cuda):
     flat = torch.cat([g.ravel() for g, _ in p_card.values()])
     flat_ref = torch.cat([g.ravel() for g, _ in p_cpu.values()])
     assert (flat - flat_ref).norm() <= GRAD_TOTAL * flat_ref.norm()
+
+
+# The CPU parity tests' bounds (tests/torch_port_fixtures.py), mean and max
+# |err| relative to mean and max |ref|: LAYER_GRAD for one module's
+# gradients behind edge layers, NETWORK for a whole network's outputs.
+LAYER_GRAD, NETWORK = (5e-4, 5e-3), (2e-2, 5e-2)
+
+
+def _rel_close(got, ref, tol, what):
+    err = (got - ref).abs()
+    assert torch.isfinite(got).all(), what
+    assert err.mean() <= tol[0] * ref.abs().mean(), (what, err.mean().item(), ref.abs().mean().item())
+    assert err.max() <= tol[1] * ref.abs().max(), (what, err.max().item(), ref.abs().max().item())
+
+
+def _skel_module_calls(model, stage, batch):
+    """One training forward and backward of `model` on `batch`, recording for
+    each trained child module (the shape encoder's GCUs and MLP, every
+    PointNet++ stage, the MLP heads) its call's inputs and the gradient of
+    the loss with respect to its output (a tuple's first element)."""
+    calls = {}
+    names = [n for n, m in model.named_modules()
+             if type(m).__name__ in ("GCU", "MLP", "MLPHead", "Dense", "SAModule",
+                                     "GlobalSAModule", "FPModule")]
+    names = [n for n in names if not any(n.startswith(o + ".") for o in names)]
+
+    def hook(name):
+        def record(module, args, out):
+            y = out[0] if isinstance(out, tuple) else out
+            entry = calls[name] = [tuple(a.detach() if torch.is_tensor(a) else a for a in args),
+                                   None]
+            y.register_hook(lambda g: entry.__setitem__(1, g.detach().clone()))
+        return record
+
+    handles = [model.get_submodule(n).register_forward_hook(hook(n)) for n in names]
+    try:
+        stage._losses(stage._forward(model, batch, True, None), batch)[0].backward()
+    finally:
+        for h in handles:
+            h.remove()
+    model.zero_grad(set_to_none=True)
+    return calls
+
+
+# Adam's first step, as test_torch_skel_train holds it against JAX's: where
+# the reference's effective gradient (clipped, plus the L2 decay) is at
+# least 1e-2 of its tensor's largest and at least 1e-4, the step has the
+# reference's sign and lies within 1e-2 lr of it, on at least
+# UPDATE_AGREE of those entries in all and UPDATE_AGREE_TENSOR in each
+# tensor; a zero or sign-flipped update fails.
+UPDATE_AGREE, UPDATE_AGREE_TENSOR = 0.99, 0.75
+
+
+def _adam_first_step_agreement(before, after, ref_after, ref_g, lr, what):
+    """(entries held, entries whose step agrees with the reference's)."""
+    before, after, ref_after, ref_g = (x.double().flatten() for x in
+                                       (before, after, ref_after, ref_g))
+    held = ref_g.abs() >= max(1e-2 * ref_g.abs().max().item(), 1e-4)
+    if not held.any():
+        return 0, 0
+    d, d_ref = (after - before)[held], (ref_after - before)[held]
+    assert d_ref.abs().min() >= 0.5 * lr, what
+    agree = (d.sign() == d_ref.sign()) & ((d - d_ref).abs() <= 1e-2 * lr + 1e-6 * before[held].abs())
+    assert agree.double().mean() >= UPDATE_AGREE_TENSOR, (what, int(held.sum()), int(agree.sum()))
+    return int(held.sum()), int(agree.sum())
+
+
+@pytest.mark.parametrize("kind", ["bone", "root"])
+def test_skel_step_on_card_matches_cpu(cuda, kind, monkeypatch):
+    """A BoneStage or RootStage step from the same filled weights (heads
+    included) on the capsule skeleton sample (V=256, degree 16, 8 joint
+    slots), BoneNet with dropout 0 and one fixed pair swap on both devices.
+    The step: losses and gradient norm at 2e-2 relative, the parameters
+    after it within 2 lr, and where the CPU step's gradient is not near
+    zero (at least 0.4 of the parameters), moved as the CPU step moved
+    them (_adam_first_step_agreement).  Its modules: each trained module of the network
+    (the shape encoder's three GCUs, whose edge layers run K1 + K6 on the
+    card and their plain versions on the CPU, its MLP, every PointNet++
+    stage, the MLP heads) fed the CPU step's inputs and output gradient on
+    both devices: every parameter gradient at LAYER_GRAD.  (The whole
+    step's gradients are not held entry-wise: a global max over vertices
+    routes each channel's gradient to one vertex, which a one-ulp
+    difference can change.)  The eval logits at NETWORK, the CPU run at the
+    card's inference precision (bf16 MLP products)."""
+    import copy
+
+    from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
+    from morig_tpu_torch.nn import bonenet, mlp
+    from morig_tpu_torch.train.stages import BoneStage, RootStage
+    from morig_tpu_torch.weights import randomize_
+
+    stage = BoneStage() if kind == "bone" else RootStage()
+    swap = torch.rand(2, 28, 1, generator=torch.Generator().manual_seed(3)) < 0.5
+    monkeypatch.setattr(bonenet, "pair_swap", lambda g, B, P, device: swap.to(device))
+    monkeypatch.setattr(mlp, "matmul_dtype",
+                        lambda x, train=False: torch.float32 if train else torch.bfloat16)
+    runs, batches = [], {}
+    for dev in (cuda, torch.device("cpu")):
+        batch = batches[dev.type] = capsule_skel_dataset(2, max_joints=8, num_points=64, n_lat=9,
+                                                         n_lon=8, device=dev)
+        state = stage.init_state(0, device=dev)
+        randomize_(state.model, 7)
+        state.model.dropout = 0.0
+        p0 = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+        logits = stage.infer(state, batch).cpu()
+        metrics = stage.train_step(state, batch, torch.Generator(device=dev).manual_seed(0))
+        # after the step each .grad holds the clipped gradient the step used
+        runs.append((metrics, logits, {n: p.detach().cpu()
+                                       for n, p in state.model.named_parameters()},
+                     {n: p.grad.cpu() for n, p in state.model.named_parameters()}))
+    (m_card, l_card, p_card, _), (m_cpu, l_cpu, p_cpu, g_cpu) = runs
+    for k in m_cpu:
+        assert abs(m_card[k] - m_cpu[k]) <= 2e-2 * abs(m_cpu[k]) + 1e-12, (k, m_card[k], m_cpu[k])
+    held = agree = total = 0
+    for n, w in p_card.items():
+        assert (w - p_cpu[n]).abs().max() <= 2 * 1e-3, n
+        g = g_cpu[n] + stage.cfg.train.weight_decay * p0[n]
+        h, a = _adam_first_step_agreement(p0[n], w, p_cpu[n], g, 1e-3, n)
+        held, agree, total = held + h, agree + a, total + w.numel()
+    print(f"{kind} step: {held} of {total} parameters held, {agree} agree with the CPU step")
+    assert held >= 0.4 * total and agree >= UPDATE_AGREE * held, (held, agree, total)
+    valid = (batches["cpu"].pair_mask if kind == "bone" else batches["cpu"].joints_mask)
+    _rel_close(l_card[valid], l_cpu[valid], NETWORK, "eval logits")
+
+    model = randomize_(stage.init_state(0, device="cpu").model, 7)
+    model.dropout = 0.0
+    calls = _skel_module_calls(model, stage, batches["cpu"])
+    assert len(calls) == (10 if kind == "bone" else 11), sorted(calls)
+    for name, (args, dout) in calls.items():
+        grads = []
+        for dev in (cuda, torch.device("cpu")):
+            m = copy.deepcopy(model.get_submodule(name)).to(dev)
+            out = m(*(a.to(dev) if hasattr(a, "to") else a for a in args))
+            (out[0] if isinstance(out, tuple) else out).backward(dout.to(dev))
+            grads.append({n: p.grad.cpu() for n, p in m.named_parameters()})
+        scale = max(g.abs().max().item() for g in grads[1].values())
+        for n, g_ref in grads[1].items():
+            g = grads[0][n]
+            if g_ref.abs().max() <= 1e-5 * scale:
+                # RootNet: the cross-entropy's gradient sums to 0 over the
+                # joints, so the biases after the head's last LayerNorm get
+                # rounding only
+                assert g.abs().max() <= 1e-5 * scale, (name, n)
+            else:
+                _rel_close(g, g_ref, LAYER_GRAD, f"{name}.{n}")
 
 
 @pytest.mark.parametrize("pos_feat,out", [(16, 128), (64, 256)])

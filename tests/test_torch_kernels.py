@@ -425,8 +425,9 @@ def test_package_runs_with_jax_blocked():
     """Import every module of morig_tpu_torch with jax, flax, optax, msgpack
     and the JAX package blocked, build the six networks on the CPU and run
     the batched rig DAG, the single-mesh DAG and a tracker (one frame, a few
-    IK iterations), and take one step of the deform, rig and skin training
-    stages at a tiny size: the port stands on its own."""
+    IK iterations), take one step of the deform, rig, skin, bone and root
+    training stages at a tiny size and build `capsule_predictor` with one
+    training step: the port stands on its own."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "flax", "optax", "msgpack", "morig_tpu")
@@ -468,6 +469,14 @@ def test_package_runs_with_jax_blocked():
                          (stages.SkinStage(cfg, num_embed_sample=32, width_scale=0.25), rb)):
             m = stage.train_step(stage.init_state(device="cpu"), b)
             assert np.isfinite(m["total_loss"]) and np.isfinite(m["grad_norm"])
+        from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
+        sb = capsule_skel_dataset(1, max_joints=6, n_lat=7, n_lon=6, num_points=64, device="cpu")
+        for stage in (stages.BoneStage(), stages.RootStage()):
+            m = stage.train_step(stage.init_state(device="cpu"), sb)
+            assert np.isfinite(m["total_loss"]) and np.isfinite(m["grad_norm"])
+        from morig_tpu_torch.pipelines.rig_predict import capsule_predictor
+        pred, pose_ds, rig_ds = capsule_predictor(train_steps=1, device="cpu")
+        assert isinstance(pred, RigPredictor) and len(pose_ds) == len(rig_ds) == 2
         assert not any(k.split(".")[0] in BLOCKED for k, v in sys.modules.items() if v is not None)
         print(len(mods), "modules")
     """)

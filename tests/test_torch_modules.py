@@ -337,7 +337,7 @@ def test_rootnet_matches_flax(fixture, joint_set):
     j_code = state["intermediates"]["shape_encoder"]["__call__"][0]
     net = F.bridged(tbn.RootNet, W.flax_to_state_dict(p))
     assert_rel_close(net.shape_encoder(fixture["tm"]), j_code, LAYER, what="RootNet shape code")
-    net.shape_encoder.forward = lambda mesh: torch.as_tensor(np.asarray(j_code))
+    net.shape_encoder.forward = lambda mesh, train=False: torch.as_tensor(np.asarray(j_code))
     got = net(fixture["tm"], torch.as_tensor(joints), torch.as_tensor(jmask))
     F.assert_close(got, ref, atol=TIGHT, what="RootNet logits")
 
