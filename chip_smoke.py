@@ -107,6 +107,26 @@ Phases, each printing its own lines:
                against its plain version at its shape.  Prints the training
                seconds, the call median and the joint counts.
                Phases 9-13 run right after phase 6.
+ 14. batch   — the "batch" norm mode (MaskedBatchNorm in every MLP and
+               edge tail, the mode of the reference's trained weights):
+               the six networks built in it by `RigPredictor.random(0)`
+               (BatchNorm statistics seeded too) serve path 1's
+               configuration: a warm-up call whose K2 and K3 calls are
+               recorded and held against their plain versions as in
+               phase 7, then 5 timed calls, each checked as in phase 4,
+               its counts zeroed before and read after it: K2 3, K3 12
+               and no edge kernel (K1 = K5 = K6 = plain_edge = 0: the
+               BatchNorm tail is plain fp32 PyTorch); then CorrPoseStage
+               in that mode on phase 6's batch (a warm-up and 3 timed
+               steps, finite, parameters and running statistics moved, K2
+               1 a step) and one DeformPoseStage step with the extractor
+               loaded from that CorrNet and frozen (K2 3): its parameters
+               and running statistics must equal the loaded ones bit for
+               bit, GCNDeform's statistics must move.  Prints the call and
+               step medians, meshes/s, steps/s and peak memory; with
+               --profile also the serving call's device programs and one
+               CorrPoseStage step under torch.profiler.  Runs after phase
+               13.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -138,7 +158,8 @@ Phases, each printing its own lines:
 Then a JSON line of kernel results (launches counted in the main paths'
 counted runs: path 1, path 2, the training step, the first timed step
 of each of phases 9-12 and phase 9's step with the extractor trained,
-phase 12's counted `eval_step`s, phase 13's calls, the first timed
+phase 12's counted `eval_step`s, phase 13's calls, phase 14's timed
+calls and steps, the first timed
 single-mesh call and the two timed tracking runs; `ms` and
 `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
@@ -177,6 +198,7 @@ from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_t
 from morig_tpu_torch.nn import corrnet, deformnet, gcu, pointnet
 from morig_tpu_torch.nn.corrnet import l2_normalize
 from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl
+from morig_tpu_torch.nn.mlp import get_default_norm, set_default_norm
 from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer, capsule_predictor
 from morig_tpu_torch.pipelines.tracking import BatchedTracker, Tracker, make_scanned_tracker
 from morig_tpu_torch.train.stages import (BoneStage, CorrPoseStage, DeformPoseStage, RigStage,
@@ -906,7 +928,8 @@ def profile_programs(path: str, pred: RigPredictor, entries, frames, **kw):
           + ", ".join(f"{k} {t:.3f}" for k, t in per_call.items())
           + (f" (K5 before its redesign: {K5_PATH2_MS_BEFORE} ms)" if per_call.get("K5") else "")
           + (f" (K1 before its redesign: {K1_PATH1_MS_BEFORE} ms)" if per_call.get("K1") else "")
-          + f" (K2 before its redesign: {K2_PATH_MS_BEFORE[path]} ms)")
+          + (f" (K2 before its redesign: {K2_PATH_MS_BEFORE[path]} ms)"
+             if path in K2_PATH_MS_BEFORE else ""))
 
 
 def profile_geometry(dev, entries, jc):
@@ -1423,6 +1446,168 @@ def demo(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the "batch" norm mode
+# ---------------------------------------------------------------------------
+
+# In "batch" norm mode no edge kernel runs: an EdgeMLP's BatchNorm tail is
+# plain fp32 PyTorch, as in the JAX package, whose `_fusable` refuses the
+# mode.  Per predict_rig_batch call K2 and K3 as on path 1; per CorrPoseStage
+# step K2 on the vismask 1-NN; per DeformPoseStage step K2 on the vismask,
+# the voting and the completion; training gathers by plain indexing.
+EXPECTED_BATCH_SERVE = {"K1": 0, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
+                        "K4": 0, "K5": 0, "K6": 0, "plain_edge": 0}
+EXPECTED_BATCH_CORR = dict(EXPECTED_BATCH_SERVE, K2=1, K3=0)
+EXPECTED_BATCH_DEFORM = dict(EXPECTED_BATCH_SERVE, K3=0)
+BATCH_CALLS, BATCH_STEPS = 5, 3     # timed calls and steps after the warm-up
+
+
+@contextlib.contextmanager
+def norm_mode(name: str):
+    """Modules built inside are built in norm mode `name` (and keep it)."""
+    prev = get_default_norm()
+    set_default_norm(name)
+    try:
+        yield
+    finally:
+        set_default_norm(prev)
+
+
+def buffer_snapshot(model):
+    return [b.detach().clone() for b in model.buffers()]
+
+
+def check_counts(name: str, launches: dict, expected: dict) -> None:
+    if launches != expected:
+        raise AssertionError(f"{name}: kernel launches {launches} != expected {expected}")
+
+
+def median_line(ms) -> str:
+    ms = np.asarray(ms)
+    q1, med, q3 = np.percentile(ms, [25, 50, 75])
+    return (f"median {med:.2f} ms (q1 {q1:.2f}, q3 {q3:.2f}, min {ms.min():.2f}, "
+            f"max {ms.max():.2f}; {len(ms)} timed)")
+
+
+def batch_norm_phase(entries, frames, batch, dev, profile_phase: bool) -> dict:
+    """Phase 14: the six networks built in "batch" norm mode with seeded
+    random weights and BatchNorm statistics (`RigPredictor.random`), served
+    at path 1's configuration: one warm-up call whose K2 and K3 calls are
+    held against their plain versions, then BATCH_CALLS timed calls, each
+    checked, its counts zeroed before and read after it.  Then CorrPoseStage
+    in that mode on phase 6's batch: a warm-up and BATCH_STEPS timed steps,
+    finite, the parameters and the running statistics moved; and one
+    DeformPoseStage step with the extractor loaded from that CorrNet and
+    frozen: its parameters and running statistics must stay as loaded, bit
+    for bit, and GCNDeform's must move.  With `profile_phase`, the serving
+    call's device programs and one CorrPoseStage step under torch.profiler.
+    Returns the counted launches."""
+    with norm_mode("batch"):
+        pred = RigPredictor.random(0, device=dev)
+        corr_stage = CorrPoseStage()
+        corr_state = corr_stage.init_state(0, device=dev)
+        deform_stage = DeformPoseStage()
+        deform_state = deform_stage.init_state(0, device=dev)
+    corr_stage.train_vismask = True
+    total = dict.fromkeys(EXPECTED_BATCH_SERVE, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with recording_kernel_calls(calls):
+        rigs = pred.predict_rig_batch(entries, frames)
+    torch.cuda.synchronize()
+    print(f"batch serve warm-up: {time.perf_counter() - t0:.3f} s")
+    check_rigs(rigs, entries)
+    check_recorded("batch serve", calls)
+    del calls
+    torch.cuda.reset_peak_memory_stats()
+    walls, phases = [], {}
+    for _ in range(BATCH_CALLS):
+        timings: dict = {}
+        zero_stage_counts()
+        t0 = time.perf_counter()
+        rigs = pred.predict_rig_batch(entries, frames, timings=timings)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches = read_stage_counts()
+        check_rigs(rigs, entries)
+        check_counts("batch serve", launches, EXPECTED_BATCH_SERVE)
+        add(launches)
+        for k, v in timings.items():
+            phases.setdefault(k, []).append(v * 1e3)
+    print(f"batch serve: {B_MESH} rigs, joints {[len(r.pos) for r in rigs]}; one call "
+          f"{median_line(walls)}: {B_MESH / np.median(walls) * 1e3:.3f} meshes/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per call "
+          f"{EXPECTED_BATCH_SERVE}")
+    print("batch serve phase medians ms: "
+          + ", ".join(f"{k} {np.median(v):.2f}" for k, v in phases.items()))
+    if profile_phase:
+        profile_programs("batch serve", pred, entries, frames)
+    del pred
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    model = corr_state.model
+    t0 = time.perf_counter()
+    first = corr_stage.train_step(corr_state, batch, gen)
+    torch.cuda.synchronize()
+    print(f"batch train warm-up step: {time.perf_counter() - t0:.3f} s, total_loss "
+          f"{first['total_loss']:.6f}")
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(BATCH_STEPS):
+        params, stats = param_snapshot(model), buffer_snapshot(model)
+        zero_stage_counts()
+        t0 = time.perf_counter()
+        m = corr_stage.train_step(corr_state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches = read_stage_counts()
+        check_counts("batch train", launches, EXPECTED_BATCH_CORR)
+        add(launches)
+        moved = any(not torch.equal(a, p) for a, p in zip(params, model.parameters()))
+        stats_moved = any(not torch.equal(a, b) for a, b in zip(stats, model.buffers()))
+        if not (all(math.isfinite(v) for v in m.values()) and moved and stats_moved):
+            raise AssertionError(f"batch train step: {m}, parameters moved {moved}, running "
+                                 f"statistics moved {stats_moved}")
+    print(f"batch train: CorrPoseStage step {median_line(walls)}: "
+          f"{1e3 / np.median(walls):.3f} steps/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last step {m}; launches per "
+          f"step {EXPECTED_BATCH_CORR}")
+    ev = corr_stage.eval_step(corr_state, batch)
+    print(f"batch train eval_step (running statistics): {ev}")
+    if not all(math.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"batch eval_step: {ev}")
+    if profile_phase:
+        profile_step("batch train", corr_stage, corr_state, batch, gen)
+
+    deform_state = deform_stage.init_extractor_from(deform_state, corr_state)
+    extractor, completing = deform_state.model.corr_extractor, deform_state.model.completing
+    loaded = param_snapshot(extractor) + buffer_snapshot(extractor)
+    stats = buffer_snapshot(completing)
+    zero_stage_counts()
+    t0 = time.perf_counter()
+    m = deform_stage.train_step(deform_state, batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_stage_counts()
+    check_counts("batch deform", launches, EXPECTED_BATCH_DEFORM)
+    add(launches)
+    same = all(torch.equal(a, b) for a, b in
+               zip(loaded, list(extractor.parameters()) + list(extractor.buffers())))
+    moved = any(not torch.equal(a, b) for a, b in zip(stats, completing.buffers()))
+    print(f"batch deform: one DeformPoseStage step {ms:.2f} ms, {m}; the frozen extractor's "
+          f"parameters and running statistics equal the loaded CorrNet's bit for bit: {same}; "
+          f"GCNDeform's running statistics moved: {moved}; launches {launches}")
+    if not (all(math.isfinite(v) for v in m.values()) and same and moved):
+        raise AssertionError(f"batch deform: {m}, extractor unchanged {same}, GCNDeform's "
+                             f"statistics moved {moved}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the single-mesh API
 # ---------------------------------------------------------------------------
 
@@ -1693,6 +1878,7 @@ def main(profile_phase: bool = False):
                train_skel("root", RootStage(), skel, dev, profile_phase)]
     del skel
     demo_counts = demo(dev)
+    batch_counts = batch_norm_phase(entries, frames, batch, dev, profile_phase)
     single = single_mesh(pred, entries[0], frames[0],
                          {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
                           "K4": 0, "K5": 0, "K6": 0})
@@ -1701,7 +1887,7 @@ def main(profile_phase: bool = False):
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
         n = (path1[name] + path2[name] + trained[name] + sum(m[name] for m in motion)
-             + demo_counts[name] + single[name] + tracked[name])
+             + demo_counts[name] + batch_counts[name] + single[name] + tracked[name])
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,9 @@ only).  In training BoneNet also swaps the joints of each pair with
 probability 1/2 (`permute`) and drops the mixed features after
 `mix_transform` with probability `dropout` (flax semantics: the kept
 entries are scaled by 1 / (1 - dropout)); both draws come from the
-caller's generator."""
+caller's generator.  In "batch" norm mode `expand_joint_feature` and
+`mix_transform` take no mask, as in the JAX package and the reference:
+padded pairs enter their batch statistics."""
 from __future__ import annotations
 
 from typing import Optional
@@ -61,7 +63,7 @@ class ShapeEncoder(nn.Module):
         x1 = self.gcu_1(mesh.verts, mesh, train)
         x2 = self.gcu_2(x1, mesh, train)
         x3 = self.gcu_3(x2, mesh, train)
-        x4 = self.mlp_glb(torch.cat([x1, x2, x3], -1), train)
+        x4 = self.mlp_glb(torch.cat([x1, x2, x3], -1), mesh.vert_mask, train)
         return nbk.masked_max(x4, mesh.vert_mask, dim=1)
 
 
@@ -112,9 +114,10 @@ class BoneNet(nn.Module):
             ja, jb = torch.where(swap, jb, ja), torch.where(swap, ja, jb)
         mixed = torch.cat([shape_code[:, None, :].expand(-1, P, -1),
                            joint_code[:, None, :].expand(-1, P, -1),
-                           self.expand_joint_feature(torch.cat([ja, jb, pair_attr], -1), train)],
+                           self.expand_joint_feature(torch.cat([ja, jb, pair_attr], -1), None,
+                                                     train)],
                           -1)
-        h = self.mix_transform(mixed, train)
+        h = self.mix_transform(mixed, None, train)
         if train:
             h = dropout(h, self.dropout, generator)
         return self.out(h)
@@ -146,4 +149,4 @@ class RootNet(nn.Module):
         f2, _, _ = self.fp2(f3, p2, m2, x1, p1, m1, train)
         f1, _, _ = self.fp1(f2, p1, m1, x0, joints, joints_mask, train)
         per_joint = torch.cat([shape_code[:, None, :].expand(-1, J, -1), f1], -1)
-        return self.back_layers(per_joint, train)
+        return self.back_layers(per_joint, joints_mask, train)

@@ -39,9 +39,10 @@ class MeshEncoder(nn.Module):
         x3 = self.vtx_gcu_3(x2, mesh, train)
         x4 = self.vtx_gcu_4(x3, mesh, train)
         skips = torch.cat([x1, x2, x3, x4], -1)
-        glb = nbk.masked_max(self.vtx_mlp_glb(skips, train), mesh.vert_mask, dim=1)
+        glb = nbk.masked_max(self.vtx_mlp_glb(skips, mesh.vert_mask, train), mesh.vert_mask, dim=1)
         glb = glb[:, None, :].expand(-1, skips.shape[1], -1)
-        return l2_normalize(self.vtx_mlp(torch.cat([glb, mesh.verts, skips], -1), train))
+        return l2_normalize(self.vtx_mlp(torch.cat([glb, mesh.verts, skips], -1), mesh.vert_mask,
+                                          train))
 
 
 class PointEncoder(nn.Module):
@@ -72,7 +73,7 @@ class PointEncoder(nn.Module):
         f3, _, _ = self.fp3(f4, pos3, m3, x2, pos2, m2, train)
         f2, _, _ = self.fp2(f3, pos2, m2, x1, pos1, m1, train)
         f1, _, _ = self.fp1(f2, pos1, m1, None, pos0, m0, train)
-        return l2_normalize(self.pts_mlp(f1, train))
+        return l2_normalize(self.pts_mlp(f1, m0, train))
 
 
 class CorrNet(nn.Module):
@@ -109,5 +110,6 @@ class CorrNet(nn.Module):
             _, _, nn_feat = knn_batched(vtx_f, pts_f, 1, points.pts_mask, gather_values=pts_f)
             nn_feat = nn_feat[:, :, 0, :]
             nn_sim = (vtx_f * nn_feat).sum(-1, keepdim=True)
-            vis_logits = self.lin_vismask(torch.cat([vtx_f, nn_feat, nn_sim], -1), train)
+            vis_logits = self.lin_vismask(torch.cat([vtx_f, nn_feat, nn_sim], -1), mesh.vert_mask,
+                                          train)
         return vtx_f, pts_f, vis_logits, self.temperature

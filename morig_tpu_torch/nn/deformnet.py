@@ -38,9 +38,10 @@ class GCNDeform(nn.Module):
         x2 = self.gcu_2(pos, x1, mesh, train)
         x3 = self.gcu_3(pos, x2, mesh, train)
         skips = torch.cat([x1, x2, x3], -1)
-        glb = nbk.masked_max(self.mlp_glb(skips, train), mesh.vert_mask, dim=1)
+        glb = nbk.masked_max(self.mlp_glb(skips, mesh.vert_mask, train), mesh.vert_mask, dim=1)
         glb = glb[:, None, :].expand(-1, skips.shape[1], -1)
-        return self.mlp_transform(torch.cat([glb, pos, feature, skips], -1), train)
+        return self.mlp_transform(torch.cat([glb, pos, feature, skips], -1), mesh.vert_mask,
+                                  train)
 
 
 def minmax_normalize(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -19,6 +19,14 @@ narrow layers of a net built with a small `width_scale`) runs K1's plain
 version, `plain_edge`, in training and at inference, differentiated by
 autograd.  The choice is made on the widths alone, like the JAX package's
 `_fusable`, and each such call is counted in `plain_edge.launches`.
+
+In "batch" and "none" norm mode (`nn.mlp.set_default_norm`) an EdgeMLP
+has no LayerNorm tail, so no edge kernel computes it: the JAX package's
+`_fusable` refuses every mode but "layer" too.  Its tail is plain fp32
+PyTorch, as the JAX package's XLA path: gather, relu, `norm_0`, `dense_1`,
+relu, `norm_1`, masked max, each `norm_i.bn` a `MaskedBatchNorm` over the
+edge tensor masked by the table's validity ("batch"; nothing in "none").
+The fuse MLPs of GCU and GCUMotion take the vertex mask.
 """
 from __future__ import annotations
 
@@ -32,7 +40,10 @@ from morig_tpu_torch.core.batch import MeshBatch
 from morig_tpu_torch.kernels.edge_fused import (
     WIDTHS, check_neighbor_locality, edge_mlp_plain, fused_edge_mlp, fused_edge_mlp_trainable,
     fused_edge_mlp_windowed)
-from morig_tpu_torch.nn.mlp import MLP, Dense, lecun_normal_
+from morig_tpu_torch.kernels.gather_fused import gather_plain
+from morig_tpu_torch.kernels.neighbors import masked_max
+from morig_tpu_torch.nn.mlp import MLP, Dense, get_default_norm, lecun_normal_
+from morig_tpu_torch.nn.norm import MaskedBatchNorm
 
 
 def auto_select_edge_impl(entries: Sequence[dict], tile_v: int = 128) -> str:
@@ -68,16 +79,37 @@ def plain_edge(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
 plain_edge.launches = 0
 
 
+class EdgeNorm(nn.Module):
+    """One post-ReLU norm stage of an edge MLP outside "layer" mode: its
+    `bn` in "batch" mode, the identity in "none"."""
+
+    def __init__(self, n: int, norm: str):
+        super().__init__()
+        if norm == "batch":
+            self.bn = MaskedBatchNorm(n)
+
+    def forward(self, h, mask, train: bool):
+        return self.bn(h, mask, train) if hasattr(self, "bn") else h
+
+
 class EdgeMLP(nn.Module):
     """Edge message MLP [h1, h2] over [x_i, x_j - x_i] + masked max over the
-    table; returns (B,V,h2) fp32."""
+    table; returns (B,V,h2) fp32.  Its tail is the LayerNorm one of the
+    edge kernels in "layer" mode, `norm_0` / `dense_1` / `norm_1` in the
+    others (the mode current when it is built)."""
 
     def __init__(self, fin: int, channels: Sequence[int]):
         super().__init__()
         h1, h2 = channels
-        self.kernel_route = kernel_widths(h1, h2)
+        self.norm = get_default_norm()
+        self.kernel_route = self.norm == "layer" and kernel_widths(h1, h2)
         self.lin_self = Dense(fin, h1)
         self.lin_nbr = Dense(fin, h1, bias=False)
+        if self.norm != "layer":
+            self.norm_0 = EdgeNorm(h1, self.norm)
+            self.dense_1 = Dense(h1, h2)
+            self.norm_1 = EdgeNorm(h2, self.norm)
+            return
         self.dense_1_kernel = nn.Parameter(torch.empty(h1, h2))   # (in, out)
         self.dense_1_bias = nn.Parameter(torch.empty(h2))
         self.ln0_scale = nn.Parameter(torch.empty(h1))
@@ -86,6 +118,8 @@ class EdgeMLP(nn.Module):
         self.ln1_bias = nn.Parameter(torch.empty(h2))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.norm != "layer":
+            return
         lecun_normal_(self.dense_1_kernel, self.dense_1_kernel.shape[0], generator)
         self.dense_1_bias.zero_()
         self.ln0_scale.fill_(1.0)
@@ -94,9 +128,16 @@ class EdgeMLP(nn.Module):
         self.ln1_bias.zero_()
 
     def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None, train: bool = False):
-        """Training: K1 forward and K6 backward on fp32 lin_self/lin_nbr.
-        Inference: K5 at `edge_tile` when given, K1 otherwise.  Widths the
-        kernels do not take: `plain_edge` in both."""
+        """"layer" mode: in training K1 forward and K6 backward on fp32
+        lin_self/lin_nbr; at inference K5 at `edge_tile` when given, K1
+        otherwise; widths the kernels do not take: `plain_edge` in both.
+        Other modes: the fp32 tail in PyTorch (`edge_tile` unused)."""
+        if self.norm != "layer":
+            a = self.lin_self(x)
+            h = torch.relu(a[:, :, None, :] + gather_plain(self.lin_nbr(x), nbr))
+            h = self.norm_0(h, nbr_mask, train)
+            h = self.norm_1(torch.relu(self.dense_1(h)), nbr_mask, train)
+            return masked_max(h, nbr_mask, dim=2).float()
         dt = torch.float32 if train else torch.bfloat16
         a = self.lin_self(x, dt)
         b = self.lin_nbr(x, dt)
@@ -135,7 +176,7 @@ class GCU(nn.Module):
     def forward(self, x, mesh: MeshBatch, train: bool = False):
         x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train)
         x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train)
-        return self.mlp(torch.cat([x_tpl, x_geo], -1), train)
+        return self.mlp(torch.cat([x_tpl, x_geo], -1), mesh.vert_mask, train)
 
 
 class EdgeConvMotion(nn.Module):
@@ -165,4 +206,4 @@ class GCUMotion(nn.Module):
     def forward(self, pos, x, mesh: MeshBatch, train: bool = False):
         x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train)
         x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train)
-        return self.mlp(torch.cat([x_tpl, x_geo], -1), train)
+        return self.mlp(torch.cat([x_tpl, x_geo], -1), mesh.vert_mask, train)

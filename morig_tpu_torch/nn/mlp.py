@@ -1,14 +1,25 @@
-"""The MLP block: Linear -> ReLU -> LayerNorm per stage ("layer" norm mode).
+"""The MLP block: Linear -> ReLU -> Norm per stage.  Counterpart of
+morig_tpu/nn/mlp.py.
 
-Counterpart of morig_tpu/nn/mlp.py.  Initialization follows flax: lecun-
-normal kernels (truncated at two standard deviations), zero biases, LN
-ones and zeros, zero heads where `zero_init`.  `init_parameters` walks a
-module tree and re-initializes every parameter from one torch.Generator.
+The norm is the process-wide mode of `set_default_norm`:
+  * "layer" (the default): LayerNorm, stages dense_i -> relu -> ln_i;
+  * "batch": `MaskedBatchNorm` (nn/norm.py), stages dense_i -> relu ->
+    bn_i, the reference's numerics and the mode its trained weights load
+    in (eval/torch_import.py);
+  * "none": dense_i -> relu.
+A module reads the mode when it is built and keeps it: its parameter tree
+depends on the mode, so a module built in one mode never runs in another.
 
-Precision: at inference MLP matmuls run in bf16 on the GPU and fp32 on the
-CPU, in training in fp32 everywhere (the JAX package's `infer_matmul_dtype`
-in "layer" mode); LayerNorm statistics and outputs are fp32 (eps 1e-6,
-flax's E[x^2] - E[x]^2 variance).
+Initialization follows flax: lecun-normal kernels (truncated at two
+standard deviations), zero biases, norm scales one and offsets zero, zero
+heads where `zero_init`.  `init_parameters` walks a module tree and
+re-initializes every parameter from one torch.Generator.
+
+Precision: in "layer" mode MLP matmuls run in bf16 on the GPU and fp32 on
+the CPU at inference, in fp32 in training (the JAX package's
+`infer_matmul_dtype`); LayerNorm statistics and outputs are fp32 (eps 1e-6,
+flax's E[x^2] - E[x]^2 variance).  In "batch" and "none" mode every matmul
+is fp32, on the GPU too.
 """
 from __future__ import annotations
 
@@ -19,8 +30,24 @@ import torch
 from torch import nn
 
 from morig_tpu_torch.kernels.edge_fused import layer_norm
+from morig_tpu_torch.nn.norm import MaskedBatchNorm
 
+NORMS = ("layer", "batch", "none")
+_DEFAULT_NORM = "layer"
 _TRUNC_STD = 0.87962566103423978   # std of a standard normal truncated at +-2
+
+
+def set_default_norm(name: str) -> None:
+    """Set the process-wide norm mode ("layer" | "batch" | "none") of the
+    modules built after the call."""
+    global _DEFAULT_NORM
+    if name not in NORMS:
+        raise ValueError(f"norm must be one of {NORMS}, got {name!r}")
+    _DEFAULT_NORM = name
+
+
+def get_default_norm() -> str:
+    return _DEFAULT_NORM
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -42,8 +69,9 @@ def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
 
 
 def matmul_dtype(x: torch.Tensor, train: bool = False) -> torch.dtype:
-    """Matmul dtype of the MLP layers: fp32 in training; at inference bf16 on
-    the GPU and fp32 on the CPU."""
+    """Matmul dtype of the "layer"-mode MLP layers: fp32 in training; at
+    inference bf16 on the GPU and fp32 on the CPU.  The other modes compute
+    in fp32 (`MLP.compute_dtype`)."""
     return torch.bfloat16 if x.is_cuda and not train else torch.float32
 
 
@@ -88,21 +116,36 @@ class LayerNorm(nn.Module):
 
 
 class MLP(nn.Module):
-    """Stages dense_i -> relu -> ln_i; returns fp32."""
+    """Stages dense_i -> relu -> ln_i ("layer"), -> bn_i ("batch") or no
+    norm ("none"), in the mode current when it is built; returns fp32.
+    `mask` (a prefix of x's axes) selects the elements of the batch
+    statistics in "batch" mode; the other modes ignore it."""
 
     def __init__(self, fin: int, channels: Sequence[int]):
         super().__init__()
         self.channels = list(channels)
+        self.norm = get_default_norm()
         dims = [fin] + self.channels
         for i, ch in enumerate(self.channels):
             self.add_module(f"dense_{i}", Dense(dims[i], ch))
-            self.add_module(f"ln_{i}", LayerNorm(ch))
+            if self.norm == "layer":
+                self.add_module(f"ln_{i}", LayerNorm(ch))
+            elif self.norm == "batch":
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        dt = matmul_dtype(x, train)
+    def compute_dtype(self, x: torch.Tensor, train: bool) -> torch.dtype:
+        """The matmul dtype: `matmul_dtype` in "layer" mode, else fp32."""
+        return matmul_dtype(x, train) if self.norm == "layer" else torch.float32
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        dt = self.compute_dtype(x, train)
         for i in range(len(self.channels)):
             x = torch.relu(getattr(self, f"dense_{i}")(x, dt))
-            x = getattr(self, f"ln_{i}")(x)
+            if self.norm == "layer":
+                x = getattr(self, f"ln_{i}")(x)
+            elif self.norm == "batch":
+                x = getattr(self, f"bn_{i}")(x, mask, train)
         return x.float()
 
 
@@ -114,6 +157,7 @@ class MLPHead(nn.Module):
         self.mlp = MLP(fin, channels)
         self.out = Dense(channels[-1], out, zero_init=zero_init)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        h = self.mlp(x, train)
-        return self.out(h, matmul_dtype(h, train)).float()
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        h = self.mlp(x, mask, train)
+        return self.out(h, self.mlp.compute_dtype(h, train)).float()

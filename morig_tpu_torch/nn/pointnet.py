@@ -5,6 +5,8 @@ FPS starts where the caller says (index 0, the eval start, by default);
 radius grouping keeps the exact nearest neighbors.  At inference the row
 gathers run in kernel K3; in training they are plain, differentiable
 indexed gathers, as the JAX package keeps its gather kernel for inference.
+Each MLP takes the mask of its rows (the batch statistics of "batch" norm
+mode): the valid neighbours of valid centroids, the valid points.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ class SAModule(nn.Module):
             C = x.shape[-1]
             feat_in = torch.cat([g[..., :C], g[..., C:] - new_pos[:, :, None, :]], -1)
         grp_valid = grp_valid & new_mask[:, :, None]
-        new_x = nbk.masked_max(self.conv(feat_in, train), grp_valid, dim=2)
+        new_x = nbk.masked_max(self.conv(feat_in, grp_valid, train), grp_valid, dim=2)
         return new_x, new_pos, new_mask
 
 
@@ -61,7 +63,7 @@ class GlobalSAModule(nn.Module):
         self.nn = MLP(fin + 3, mlp_channels)
 
     def forward(self, x, pos, mask, train: bool = False):
-        return nbk.masked_max(self.nn(torch.cat([x, pos], -1), train), mask, dim=1)
+        return nbk.masked_max(self.nn(torch.cat([x, pos], -1), mask, train), mask, dim=1)
 
 
 class FPModule(nn.Module):
@@ -83,4 +85,4 @@ class FPModule(nn.Module):
             up = (_gather(train)(x, idx) * w[..., None]).sum(2)
         if x_skip is not None:
             up = torch.cat([up, x_skip], -1)
-        return self.nn(up, train), pos_skip, mask_skip
+        return self.nn(up, mask_skip, train), pos_skip, mask_skip

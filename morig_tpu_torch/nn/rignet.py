@@ -5,7 +5,9 @@ aggregation by attention (`attn`), `mean` or `max`, and `width_scale`,
 which shrinks every hidden width c to max(8, int(c * width_scale)) as the
 JAX modules do (the reference widths at 1.0).  `train` selects the training
 numerics (fp32 matmuls, every edge layer through K1 + K6 where the kernels
-take its widths)."""
+take its widths).  In "batch" norm mode the per-keyframe loop takes batch
+statistics per keyframe, as the reference does, and the shared trunk
+updates its running statistics once per keyframe, T times a step."""
 from __future__ import annotations
 
 import math
@@ -47,7 +49,8 @@ class TemporalAttn(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.cls_token, 0.0, 1.0, generator=generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, vert_mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         B, V, T, C = x.shape
         H, D = self.num_heads, self.hidden_size
         seq = torch.cat([self.cls_token.expand(B, V, 1, C), x], 2)      # (B,V,T+1,C)
@@ -56,7 +59,7 @@ class TemporalAttn(nn.Module):
         attn = torch.einsum("bvthd,bvshd->bvhts", q, k) / math.sqrt(D)
         attn = torch.softmax(attn, dim=-1)
         res = torch.einsum("bvhts,bvshd->bvthd", attn, v).reshape(B, V, T + 1, H * D)
-        return self.feedforward(self.w_o(res)[:, :, 0, :], train)
+        return self.feedforward(self.w_o(res)[:, :, 0, :], vert_mask, train)
 
 
 class GCNRig(nn.Module):
@@ -78,9 +81,10 @@ class GCNRig(nn.Module):
         x2 = self.gcu_2(pos, x1, mesh, train)
         x3 = self.gcu_3(pos, x2, mesh, train)
         skips = torch.cat([x1, x2, x3], -1)
-        glb = nbk.masked_max(self.mlp_glb(skips, train), mesh.vert_mask, dim=1)
+        glb = nbk.masked_max(self.mlp_glb(skips, mesh.vert_mask, train), mesh.vert_mask, dim=1)
         glb = glb[:, None, :].expand(-1, skips.shape[1], -1)
-        return self.mlp_transform(torch.cat([glb, mesh.verts, feature, skips], -1), train)
+        return self.mlp_transform(torch.cat([glb, mesh.verts, feature, skips], -1), mesh.vert_mask,
+                                  train)
 
 
 class MotionAggregator(nn.Module):
@@ -101,10 +105,11 @@ class MotionAggregator(nn.Module):
             self.aggregator = TemporalAttn(motion_dim, 2, scaled(64, width_scale),
                                            scaled(512, width_scale), attn_output)
 
-    def aggregate(self, motion_all: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def aggregate(self, motion_all: torch.Tensor, vert_mask: Optional[torch.Tensor] = None,
+                  train: bool = False) -> torch.Tensor:
         """(B,V,T,M) per-keyframe features -> the L2-normalized aggregate."""
         if self.aggr_method == "attn":
-            aggr = self.aggregator(motion_all, train)
+            aggr = self.aggregator(motion_all, vert_mask, train)
         elif self.aggr_method == "mean":
             aggr = motion_all.mean(2)
         else:
@@ -116,7 +121,7 @@ class MotionAggregator(nn.Module):
                                              train))
                  for t in range(self.num_keyframes)]
         motion_all = torch.stack(feats, 2)
-        return motion_all, self.aggregate(motion_all, train)
+        return motion_all, self.aggregate(motion_all, mesh.vert_mask, train)
 
 
 class JointNetMotion(nn.Module):
@@ -182,11 +187,12 @@ class SkinNetInner(nn.Module):
         samples = slice_skin_descriptor(skin_input, self.nearest_bone, self.use_Dg, self.use_Lf)
         raw = torch.cat([mesh.verts, samples], -1)
         x1 = self.gcu1(raw, motion, mesh, train)
-        xg = nbk.masked_max(self.multi_layer_transform2(x1, train), mesh.vert_mask, dim=1)
+        xg = nbk.masked_max(self.multi_layer_transform2(x1, mesh.vert_mask, train), mesh.vert_mask,
+                            dim=1)
         x2 = self.gcu2(raw, x1, mesh, train)
         x3 = self.gcu3(raw, x2, mesh, train)
         xg = xg[:, None, :].expand(-1, x3.shape[1], -1)
-        return self.cls_branch(torch.cat([x3, xg], -1), train)
+        return self.cls_branch(torch.cat([x3, xg], -1), mesh.vert_mask, train)
 
 
 class SkinMotion(nn.Module):

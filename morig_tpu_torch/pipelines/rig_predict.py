@@ -35,6 +35,7 @@ import torch
 
 from morig_tpu_torch.core.batch import MeshBatch, PointBatch, stack_meshes
 from morig_tpu_torch.core.config import DEFAULT_CONFIG, Config
+from morig_tpu_torch.eval.torch_import import IMPORTERS
 from morig_tpu_torch.geometry import skeleton as sk
 from morig_tpu_torch.geometry.bones import (pack_skin_descriptors, point_to_segment_dist,
                                             scatter_skin_full)
@@ -168,17 +169,36 @@ class RigPredictor(torch.nn.Module):
                      for i, net in enumerate(NET_CLASSES))).to(device)
 
     @classmethod
-    def from_flax_params(cls, params_by_net: dict, device="cuda") -> "RigPredictor":
-        """The six networks from flax parameter trees keyed by NETS (e.g. the
-        `params` of `train.checkpoint.load_flax_checkpoint` for each stage's
-        checkpoint), loaded with `load_state_dict(strict=True)`, on
-        `device`."""
+    def _from_state_dicts(cls, state_dicts_by_net: dict, device="cuda") -> "RigPredictor":
+        """The six networks, built in the current norm mode, from the port's
+        state dicts keyed by NETS, loaded with `load_state_dict(strict=True)`,
+        on `device`."""
         built = []
         for name, net_cls in zip(NETS, NET_CLASSES):
             net = net_cls()
-            net.load_state_dict(flax_to_state_dict(params_by_net[name]), strict=True)
+            net.load_state_dict(state_dicts_by_net[name], strict=True)
             built.append(net)
         return cls(*built).to(device)
+
+    @classmethod
+    def from_flax_params(cls, params_by_net: dict, batch_stats_by_net: Optional[dict] = None,
+                         device="cuda") -> "RigPredictor":
+        """The six networks from flax parameter trees keyed by NETS (e.g. the
+        `params` of `train.checkpoint.load_flax_checkpoint` for each stage's
+        checkpoint) and, for networks of the "batch" norm mode, their
+        `batch_stats` trees, on `device`."""
+        stats = batch_stats_by_net or {}
+        return cls._from_state_dicts({name: flax_to_state_dict(params_by_net[name], stats.get(name))
+                                     for name in NETS}, device)
+
+    @classmethod
+    def from_reference(cls, state_dicts_by_net: dict, device="cuda") -> "RigPredictor":
+        """The six networks from the reference's PyTorch state dicts keyed by
+        NETS, mapped by `eval.torch_import.IMPORTERS`; call
+        `nn.mlp.set_default_norm("batch")` first, the only mode they load
+        in."""
+        return cls._from_state_dicts({name: IMPORTERS[name](state_dicts_by_net[name])
+                                     for name in NETS}, device)
 
     @property
     def device(self) -> torch.device:

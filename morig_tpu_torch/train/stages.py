@@ -10,6 +10,13 @@ autograd backward, plain indexed gathers in PointNet++), one `backward()`,
 a global-norm clip at 10 over the trained parameters and one optimizer
 step.  It returns its losses and the gradient norm as floats, read with
 one transfer.
+
+In "batch" norm mode (`nn.mlp.set_default_norm`) the train step's forward
+normalizes with batch statistics and updates the running statistics (the
+JAX steps' `mutable=["batch_stats"]`); `eval_step` and `infer` normalize
+with the running statistics.  A frozen DeformNet extractor runs on batch
+statistics too, but its running statistics are put back after the
+forward: they stay those of the loaded CorrNet.
 """
 from __future__ import annotations
 
@@ -176,8 +183,15 @@ class DeformPoseStage:
     def train_step(self, state: trainer.TrainState, batch: PoseSample,
                    generator: Optional[torch.Generator] = None) -> dict[str, float]:
         """One optimizer step on `batch`; the extractor's FPS starts are drawn
-        from `generator` (index 0 when None)."""
+        from `generator` (index 0 when None).  With the extractor frozen its
+        running statistics ("batch" norm mode) are restored after the
+        forward, as the JAX stage's `_keep_frozen_stats` does."""
+        frozen = [] if self.train_extractor else list(state.model.corr_extractor.buffers())
+        saved = [b.clone() for b in frozen]
         outputs = state.model(batch.mesh, batch.points, train=True, generator=generator)
+        with torch.no_grad():
+            for b, old in zip(frozen, saved):
+                b.copy_(old)
         return _step(state, *self._losses(outputs, batch))
 
     @torch.no_grad()

@@ -1,11 +1,13 @@
 """Weights of the port's networks: the bridge from flax parameter trees, and
 seeded random weights at a trained network's scale.
 
-The port's module tree mirrors the flax tree name for name ("layer" norm
-mode), so the map is structural:
+The port's module tree mirrors the flax tree name for name, in every norm
+mode, so the map is structural:
 
   * a Dense `{kernel (in, out), bias}` becomes `weight` (out, in) + `bias`;
-  * a LayerNorm `{scale, bias}` becomes `weight` + `bias`;
+  * a LayerNorm or MaskedBatchNorm `{scale, bias}` becomes `weight` +
+    `bias`, and a MaskedBatchNorm's `batch_stats` `{mean, var}`
+    `running_mean` + `running_var` ("batch" mode);
   * EdgeMLP's explicit tail parameters (`dense_1_kernel` (in, out),
     `dense_1_bias`, `ln0_*`, `ln1_*`), the TemporalAttn `cls_token` and the
     CorrNet `temperature` keep their names and layouts.
@@ -22,7 +24,7 @@ RootNet).
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,8 +36,13 @@ def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
-def flax_to_state_dict(params: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+def flax_to_state_dict(params: Mapping, batch_stats: Optional[Mapping] = None,
+                       prefix: str = "") -> dict[str, torch.Tensor]:
+    """The state dict of a flax `params` tree and, in "batch" norm mode, its
+    `batch_stats` tree."""
     out: dict[str, torch.Tensor] = {}
+    if batch_stats:
+        out.update(_stats_to_state_dict(batch_stats, prefix))
     for name, val in params.items():
         path = f"{prefix}{name}"
         if not isinstance(val, Mapping):
@@ -48,16 +55,29 @@ def flax_to_state_dict(params: Mapping, prefix: str = "") -> dict[str, torch.Ten
             out[f"{path}.weight"] = _tensor(val["scale"])
             out[f"{path}.bias"] = _tensor(val["bias"])
         else:
-            out.update(flax_to_state_dict(val, f"{path}."))
+            out.update(flax_to_state_dict(val, prefix=f"{path}."))
+    return out
+
+
+def _stats_to_state_dict(stats: Mapping, prefix: str) -> dict[str, torch.Tensor]:
+    if set(stats) == {"mean", "var"}:
+        return {f"{prefix}running_mean": _tensor(stats["mean"]),
+                f"{prefix}running_var": _tensor(stats["var"])}
+    out: dict[str, torch.Tensor] = {}
+    for name, val in stats.items():
+        out.update(_stats_to_state_dict(val, f"{prefix}{name}."))
     return out
 
 
 def randomize_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Fill every parameter, zero-initialized heads included, with seeded
     values of a trained network's scale: kernels N(0, 1/fan_in), biases
-    0.1*N(0, 1), LayerNorm scales U(0.5, 1.5), cls_token N(0, 1); CorrNet's
-    temperature keeps its value.  Fresh heads are zero, which makes the flow
-    exactly 0 and leaves most of the DAG untested."""
+    0.1*N(0, 1), LayerNorm and BatchNorm scales U(0.5, 1.5), cls_token
+    N(0, 1); CorrNet's temperature keeps its value.  Fresh heads are zero,
+    which makes the flow exactly 0 and leaves most of the DAG untested.
+    Then the BatchNorm buffers ("batch" mode): running means N(0, 0.5),
+    running variances U(0.5, 2), without which an eval-mode forward would
+    not test the statistics."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in net.named_parameters():
@@ -74,4 +94,9 @@ def randomize_(net: torch.nn.Module, seed: int) -> torch.nn.Module:
                 p.copy_(torch.rand(p.shape, generator=g) + 0.5)
             else:
                 p.copy_(0.1 * torch.randn(p.shape, generator=g))
+        for name, b in net.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.5 * torch.randn(b.shape, generator=g))
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) * 1.5 + 0.5)
     return net

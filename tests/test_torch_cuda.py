@@ -30,7 +30,10 @@ all-masked batch and ragged last steps, and K6's dW2 kernel alone at 1, 2
 and its grid +- 1 live tiles; K1 and K6 at each edge layer of a real
 GCUMotion on degree-16 creature tables, with the dout its backward
 received (the motion training stages' widths); a BoneStage and a RootStage
-step on the card against the same step on the CPU.  Shapes and types
+step on the card against the same step on the CPU; in the "batch" norm
+mode, MaskedBatchNorm and a GCU on the card against the CPU, a
+predict_rig_batch call that launches no edge kernel, and a DeformPoseStage
+step whose frozen extractor keeps its running statistics bit for bit.  Shapes and types
 a kernel does not take raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -970,3 +973,150 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     assert counts == (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
                       kf.knn_batched.launches, kf.knn_topk.launches, gf.gather_rows.launches)
     assert ef.fused_edge_mlp_bwd.launches == k6
+
+
+# ---------------------------------------------------------------------------
+# the "batch" norm mode on the card
+# ---------------------------------------------------------------------------
+
+# "batch" mode is fp32 throughout, on the card without TF32 as on the CPU, so
+# the card and the CPU differ by fp32 sums in another order: outputs and
+# statistics held at 1e-5 absolute and relative (MaskedBatchNorm) and 1e-4
+# (a GCU: two edge layers, a max and a fuse MLP behind each output).
+BN_TOL, GCU_BN_TOL = 1e-5, 1e-4
+
+
+@pytest.fixture
+def batch_mode():
+    from morig_tpu_torch.nn import mlp
+
+    prev = mlp.get_default_norm()
+    mlp.set_default_norm("batch")
+    yield
+    mlp.set_default_norm(prev)
+
+
+def _edge_counts():
+    from morig_tpu_torch.nn import gcu
+
+    return (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
+            ef.fused_edge_mlp_bwd.launches, gcu.plain_edge.launches)
+
+
+def _bn_close(got, ref, tol, what):
+    err = (got.detach().cpu().double() - ref.detach().double()).abs()
+    lim = tol + tol * ref.detach().double().abs()
+    assert bool((err <= lim).all()), f"{what}: max abs err {err.max().item():.3g}"
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_masked_batch_norm_on_card_matches_cpu(cuda, train):
+    """MaskedBatchNorm over an edge tensor (B, V, D, C) masked by (B, V, D),
+    on the card and the CPU from the same statistics: the output, its input
+    gradient and (in training) the updated running statistics."""
+    import copy
+
+    from morig_tpu_torch.nn.norm import MaskedBatchNorm
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 300, 12, 64, generator=g) * 2.0 + 0.5
+    mask = torch.rand(2, 300, 12, generator=g) < 0.6
+    dout = torch.randn(x.shape, generator=g)
+    bn = MaskedBatchNorm(64)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.normal_(0.0, 0.2, generator=g)
+        bn.running_mean.normal_(0.0, 0.5, generator=g)
+        bn.running_var.uniform_(0.5, 2.0, generator=g)
+    bn_card = copy.deepcopy(bn).to(cuda)
+    xs = [x.clone().requires_grad_(), x.to(cuda).requires_grad_()]
+    ys = [bn(xs[0], mask, train), bn_card(xs[1], mask.to(cuda), train)]
+    for y, d in zip(ys, (dout, dout.to(cuda))):
+        y.backward(d)
+    _bn_close(ys[1], ys[0], BN_TOL, "output")
+    _bn_close(xs[1].grad, xs[0].grad, BN_TOL, "input gradient")
+    for name in ("running_mean", "running_var"):
+        _bn_close(getattr(bn_card, name), getattr(bn, name), 1e-6, name)
+
+
+def _capsule_mesh(dev, B=2):
+    from morig_tpu_torch.core.batch import stack_meshes
+    from morig_tpu_torch.data.synthetic import capsule_batch
+
+    entries, frames = capsule_batch(B, 5, 256, 512, 12, n_lat=17, n_lon=16)
+    return entries, frames, stack_meshes(entries, dev)
+
+
+def test_gcu_batch_mode_on_card_matches_cpu(cuda, batch_mode):
+    """A GCU(64 -> 128) built in "batch" mode with seeded weights and
+    statistics, on the card and the CPU: inference, and training with its
+    updated running statistics.  No edge kernel (K1, K5, K6) and no
+    `plain_edge` call runs."""
+    import copy
+
+    from morig_tpu_torch.nn import gcu
+    from morig_tpu_torch.weights import randomize_
+
+    _, _, mesh_card = _capsule_mesh(cuda)
+    mesh = mesh_card.to("cpu")
+    net = randomize_(gcu.GCU(64, 128), 5)
+    net_card = copy.deepcopy(net).to(cuda)
+    x = torch.randn(*mesh.verts.shape[:2], 64, generator=torch.Generator().manual_seed(4))
+    vm = mesh.vert_mask
+    before = _edge_counts()
+    for train in (False, True):
+        y = net(x, mesh, train=train)
+        y_card = net_card(x.to(cuda), mesh_card, train=train)
+        _bn_close(y_card[vm.to(cuda)], y[vm], GCU_BN_TOL, f"GCU train={train}")
+    for (name, b), b_card in zip(net.named_buffers(), net_card.buffers()):
+        _bn_close(b_card, b, GCU_BN_TOL, name)
+    assert _edge_counts() == before
+
+
+def test_predict_rig_batch_batch_mode_on_card(cuda, batch_mode):
+    """One predict_rig_batch call in "batch" mode on the card (B=2 capsules
+    of 290 vertices in 512, P=256, T=5): valid rigs, skin rows summing to 1,
+    and the counts of one call: K2 3, K3 12, no edge kernel and no
+    `plain_edge`."""
+    import numpy as np
+
+    from morig_tpu_torch.nn import gcu
+    from morig_tpu_torch.pipelines.rig_predict import RigPredictor
+
+    entries, frames, _ = _capsule_mesh(cuda)
+    pred = RigPredictor.random(0, device=cuda)
+    pred.predict_rig_batch(entries, frames)
+    for c in (ef.fused_edge_mlp, ef.fused_edge_mlp_windowed, ef.fused_edge_mlp_bwd,
+              kf.knn_batched, gf.gather_rows):
+        c.launches = 0
+    gcu.plain_edge.launches = 0
+    rigs = pred.predict_rig_batch(entries, frames)
+    torch.cuda.synchronize()
+    assert _edge_counts() == (0, 0, 0, 0)
+    assert (kf.knn_batched.launches, gf.gather_rows.launches) == (3, 12)
+    for rig, e in zip(rigs, entries):
+        assert len(rig.pos) >= 1 and np.isfinite(rig.pos).all()
+        assert rig.skins.shape == (int(e["vert_mask"].sum()), len(rig.pos))
+        if (rig.parents >= 0).any():
+            assert np.abs(rig.skins.sum(1) - 1.0).max() <= 1e-3
+
+
+def test_frozen_extractor_keeps_its_statistics_on_card(cuda, batch_mode):
+    """A DeformPoseStage step in "batch" mode on the card with the extractor
+    frozen: its parameters and running statistics stay as they were bit for
+    bit, GCNDeform's running statistics move."""
+    from morig_tpu_torch.data.pose import capsule_pose_dataset
+    from morig_tpu_torch.train.stages import DeformPoseStage
+
+    batch = capsule_pose_dataset(num_models=2, num_frames=3, num_points=128, n_lat=9,
+                                 n_lon=8).batch([0, 1], 0, 2, device=cuda)
+    stage = DeformPoseStage()
+    state = stage.init_state(0, device=cuda)
+    ext, comp = state.model.corr_extractor, state.model.completing
+    before = [t.detach().clone() for t in list(ext.parameters()) + list(ext.buffers())]
+    comp_stats = [b.clone() for b in comp.buffers()]
+    m = stage.train_step(state, batch, torch.Generator(device=cuda).manual_seed(1))
+    assert all(math.isfinite(v) for v in m.values()), m
+    after = list(ext.parameters()) + list(ext.buffers())
+    assert len(before) == len(after) and all(torch.equal(a, b) for a, b in zip(before, after))
+    assert any(not torch.equal(a, b) for a, b in zip(comp_stats, comp.buffers()))

@@ -439,6 +439,7 @@ def test_package_runs_with_jax_blocked():
         mods = [m.name for m in pkgutil.walk_packages(morig_tpu_torch.__path__, "morig_tpu_torch.")]
         for m in mods:
             importlib.import_module(m)
+        assert {"morig_tpu_torch.nn.norm", "morig_tpu_torch.eval.torch_import"} <= set(mods)
         from morig_tpu_torch.data.synthetic import capsule_batch
         from morig_tpu_torch.pipelines.rig_predict import RigPredictor
         entries, frames = capsule_batch(1, 5, 64, 64, n_lat=7, n_lon=6)

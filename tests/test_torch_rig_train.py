@@ -91,12 +91,11 @@ def test_rig_dataset_batches_match_jax(kind):
         assert tds.epoch_schedule(np.random.default_rng(4), 2, train) == js
 
 
-def test_volumetric_creature_rig_dataset_is_not_ported():
+def test_volumetric_creature_rig_dataset_matches_jax():
     """creature_rig_dataset(use_volumetric_geo=True) (each side its own
     voxels and surface geodesics) gives JAX's batch: the descriptors of the
     K nearest bones by volumetric geodesic within 1e-5 relative, every other
-    array equal.  (The name dates from before the volumetric path was
-    ported, when this test expected NotImplementedError.)"""
+    array equal."""
     kw = dict(num_models=1, seed=5, num_keyframes=2, num_points=64, target_verts=300,
               use_volumetric_geo=True)
     jds = jcreature.creature_rig_dataset(**kw)

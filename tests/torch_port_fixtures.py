@@ -75,6 +75,46 @@ def flax_params(model, seed: int, *args, **kwargs):
     return random_params(dict(shapes["params"]), seed)
 
 
+def random_stats(tree, seed: int):
+    """numpy values for a flax batch_stats shape tree: means N(0, 0.5),
+    variances U(0.5, 2), as tests/torch_oracle.py `randomize_bn_stats`."""
+    rng = np.random.default_rng(seed)
+
+    def fill(node):
+        if set(node) == {"mean", "var"}:
+            shape = tuple(node["mean"].shape)
+            return {"mean": (0.5 * rng.standard_normal(shape)).astype(np.float32),
+                    "var": rng.uniform(0.5, 2.0, shape).astype(np.float32)}
+        return {k: fill(v) for k, v in node.items()}
+
+    return fill(dict(tree))
+
+
+def flax_variables(model, seed: int, *args, **kwargs):
+    """Seeded numpy (params, batch_stats) for a "batch"-norm-mode `model`."""
+    shapes = jax.eval_shape(lambda: model.init(jax.random.key(0), *args, **kwargs))
+    return (random_params(dict(shapes["params"]), seed),
+            random_stats(shapes["batch_stats"], seed + 1))
+
+
+@contextlib.contextmanager
+def norm_mode(name: str):
+    """Both packages' process-wide norm mode set to `name`, each restored on
+    exit.  Port modules read the mode when built, flax modules when called:
+    build and call both inside."""
+    from morig_tpu.nn import mlp as jmlp
+    from morig_tpu_torch.nn import mlp as tmlp
+
+    prev = jmlp.get_default_norm(), tmlp.get_default_norm()
+    jmlp.set_default_norm(name)
+    tmlp.set_default_norm(name)
+    try:
+        yield
+    finally:
+        jmlp.set_default_norm(prev[0])
+        tmlp.set_default_norm(prev[1])
+
+
 def bridged(net_cls, state_dict):
     net = net_cls()
     net.load_state_dict(state_dict, strict=True)
