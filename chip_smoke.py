@@ -127,6 +127,36 @@ Phases, each printing its own lines:
                --profile also the serving call's device programs and one
                CorrPoseStage step under torch.profiler.  Runs after phase
                13.
+ 15. cli     — the command line (`morig_tpu_torch.cli.main`) on the card
+               in a temporary directory.  First a pose folder and a rig
+               folder in the reference's layout for
+               `creature_pose_dataset` / `creature_rig_dataset(num_models=4,
+               seed=0)` at their defaults (V 1300-1900 in the 2048 bucket):
+               each mesh written as OBJ and read back, its edge tables from
+               `preprocess_model` (surface and volumetric geodesics, 88^3
+               voxels, its .npz/.binvox cache), 101-frame trajectories with
+               the 6 frames at the modelsresource keyframes 0, 20, ..., 100;
+               both folders read back by `load_pose_models` /
+               `load_rig_models` and held to the datasets.  Then, in order:
+               train corr_pose (--epochs 1 --batch-size 4 --train-vismask),
+               train deform_pose --init-extractor (the extractor must equal
+               the CorrNet bit for bit), eval deform --resume, train joints
+               on the rig folder, predict-rig --save-intermediates, eval rig
+               against a GT folder of its `_gt_rig.txt` files, track
+               --frames 6 and eval tracking.  Each command's kernel counts
+               are zeroed before it and read after it and must be its
+               training steps' and evaluations' launches (train corr_pose:
+               K1 8 + 8, K6 8, K2 1 + 1, K3 6; train deform_pose: K1 20 + 20,
+               K6 12, K2 3 + 3, K3 6; eval deform: K1 20, K2 3, K3 6; train
+               joints: K1 2 x 72 + 2 x 72, K6 2 x 72; predict-rig: 10
+               capsule_predictor steps of K1 = K6 = 72 + 72 + 6 + 6, then 2
+               predict_rig calls of K1 one per edge layer, K2 3, K3 12;
+               track: 5 frames of K1 20, K2 3, K3 6; the evals of folders
+               none); its first K1, K2 and K3 calls and its training K1/K6
+               calls of each shape are held against their plain versions
+               (`check_recorded`, `check_recorded_training`); its outputs
+               must be finite and its files exist; it prints its wall
+               seconds and peak memory.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -159,7 +189,7 @@ Then a JSON line of kernel results (launches counted in the main paths'
 counted runs: path 1, path 2, the training step, the first timed step
 of each of phases 9-12 and phase 9's step with the extractor trained,
 phase 12's counted `eval_step`s, phase 13's calls, phase 14's timed
-calls and steps, the first timed
+calls and steps, phase 15's commands, the first timed
 single-mesh call and the two timed tracking runs; `ms` and
 `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
@@ -172,19 +202,30 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
+import os
+import shutil
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from morig_tpu_torch import cli, native
 from morig_tpu_torch.core.batch import build_mesh, pad_to, stack_meshes
-from morig_tpu_torch.data.creature import (creature_rig_dataset, creature_skel_dataset,
-                                           make_creature_sequence)
+from morig_tpu_torch.data import loaders, preprocess
+from morig_tpu_torch.data.creature import (creature_pose_dataset, creature_rig_dataset,
+                                           creature_skel_dataset, make_creature_sequence)
+from morig_tpu_torch.data.loaders import load_pose_models, load_rig_models
+from morig_tpu_torch.data.mesh_io import read_obj, write_obj
 from morig_tpu_torch.data.pose import PoseDataset, capsule_pose_dataset
+from morig_tpu_torch.data.preprocess import preprocess_model
 from morig_tpu_torch.data.synthetic import capsule_batch, make_capsule_rig, make_capsule_sequence
+from morig_tpu_torch.geometry import geodesic
 from morig_tpu_torch.geometry import skeleton as sk
 from morig_tpu_torch.geometry.geodesic import surface_geodesic
 from morig_tpu_torch.geometry.voxel import voxelize_mesh
@@ -1608,6 +1649,285 @@ def batch_norm_phase(entries, frames, batch, dev, profile_phase: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the command line on dataset folders in the reference's layout
+# ---------------------------------------------------------------------------
+
+CLI_MODELS = 4            # creatures per dataset folder
+CLI_STEP = 20             # modelsresource keyframes: 0, 20, ..., 100
+CLI_PREDICT_STEPS = 10    # predict-rig's --train-steps default
+CLI_TRACK_FRAMES = 6      # track --frames: 5 tracked frames
+
+
+def spread_frames(x: np.ndarray, step: int = CLI_STEP) -> np.ndarray:
+    """(N, K, ...) keyframes -> (N, (K - 1) * step + 1, ...): keyframe k at
+    frame k * step exactly, the frames between linearly interpolated."""
+    K = x.shape[1]
+    t = np.arange((K - 1) * step + 1) / step
+    k0 = np.minimum(np.floor(t).astype(int), K - 2)
+    w = (t - k0).reshape((1, -1) + (1,) * (x.ndim - 2))
+    return (x[:, k0] * (1.0 - w) + x[:, k0 + 1] * w).astype(x.dtype)
+
+
+@contextlib.contextmanager
+def timed_calls(totals: dict, sites):
+    """Add to totals[name] the wall seconds of every call of module.name for
+    each (module, name) in `sites`, by wrapping the functions where their
+    callers look them up."""
+    originals = [getattr(mod, name) for mod, name in sites]
+
+    def timed(fn, name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+        return call
+
+    for (mod, name), fn in zip(sites, originals):
+        setattr(mod, name, timed(fn, name))
+    try:
+        yield totals
+    finally:
+        for (mod, name), fn in zip(sites, originals):
+            setattr(mod, name, fn)
+
+
+PREPROCESS_STAGES = ((preprocess, "surface_geodesic"), (geodesic, "fps_numpy"),
+                     (native, "geodesic_all_pairs"), (preprocess, "vertex_bone_geodesic"),
+                     (preprocess, "voxelize_mesh"), (preprocess, "get_geo_edges"),
+                     (preprocess, "get_tpl_edges"), (preprocess, "write_binvox"))
+LOADER_STAGES = ((loaders, "build_rig_model"), (loaders, "load_edge_file"))
+
+
+def write_cli_folders(root: str, dev) -> tuple[str, str]:
+    """A pose folder and a rig folder in the reference's layout for
+    `creature_pose_dataset` / `creature_rig_dataset(num_models=4, seed=0)`
+    at their defaults: each creature's mesh written as OBJ and read back,
+    its edge tables from `preprocess_model` (cache and .binvox under
+    root/cache), 101-frame trajectories with the 6 frames at the
+    modelsresource keyframes, the rig, attention and predicted flows.  Both
+    folders are read back by the loaders and held to the datasets: pose
+    fields bit for bit, rig flows bit for bit and the rig within the text
+    format's rounding.  Returns (pose folder, rig folder)."""
+    t0 = time.perf_counter()
+    pose_ds = creature_pose_dataset(num_models=CLI_MODELS, seed=0)
+    rig_ds = creature_rig_dataset(num_models=CLI_MODELS, seed=0)
+    t_data = time.perf_counter() - t0
+    pose_dir, rig_dir, cache = (os.path.join(root, d) for d in ("pose", "rig", "cache"))
+    os.makedirs(pose_dir)
+    os.makedirs(os.path.join(rig_dir, "pred_flow"))
+    t_pre, attn, pre_stages, load_stages = [], {}, {}, {}
+    for i, (pm, rm) in enumerate(zip(pose_ds.models, rig_ds.models)):
+        c = make_creature_sequence(seed=i, num_frames=pm.num_frames)["rig"]   # the datasets' mesh
+        name, obj = pm.name, os.path.join(root, f"{pm.name}.obj")
+        write_obj(obj, c.verts, c.faces)
+        verts, faces = read_obj(obj)
+        t0 = time.perf_counter()
+        with timed_calls(pre_stages, PREPROCESS_STAGES):
+            pre = preprocess_model(verts, faces, rm.rig, cache_dir=cache, name=name, device=dev)
+        t_pre.append(time.perf_counter() - t0)
+        for folder in (pose_dir, rig_dir):
+            np.savetxt(os.path.join(folder, f"{name}_tpl_e.txt"), pre["tpl_edges"], fmt="%d")
+            np.savetxt(os.path.join(folder, f"{name}_geo_e.txt"), pre["geo_edges"], fmt="%d")
+        p = os.path.join(pose_dir, name)
+        for key in ("vtx_traj", "pts_traj", "vismask"):
+            np.save(f"{p}_{key}.npy", spread_frames(getattr(pm, key)))
+        for key in ("corr_v2p", "corr_p2v"):
+            corr = getattr(pm, key).astype(np.int64)
+            corr[:, -1] *= CLI_STEP
+            np.save(f"{p}_{key}.npy", corr)
+        r = os.path.join(rig_dir, name)
+        np.save(f"{r}_vtx_traj.npy", spread_frames(pm.vtx_traj))
+        rm.rig.save(f"{r}_rig.txt")
+        np.savetxt(f"{r}_attn.txt", pre["attn"])
+        attn[name] = pre["attn"]
+        for t in range(rm.gt_flow.shape[1] // 3):
+            np.save(os.path.join(rig_dir, "pred_flow", f"{name}_{t + 1}_pred_flow.npy"),
+                    rm.pred_flow[:, 3 * t:3 * t + 3])
+    t0 = time.perf_counter()
+    with timed_calls(load_stages, LOADER_STAGES):
+        poses, rigs = load_pose_models(pose_dir), load_rig_models(rig_dir)
+    t_load = time.perf_counter() - t0
+    for pm, lm in zip(pose_ds.models, poses, strict=True):
+        for key in ("vtx_traj", "pts_traj", "vismask", "corr_v2p", "corr_p2v"):
+            np.testing.assert_array_equal(getattr(lm, key), getattr(pm, key), err_msg=key)
+    for rm, lm in zip(rig_ds.models, rigs, strict=True):
+        for key in ("verts", "gt_flow", "pred_flow"):
+            np.testing.assert_array_equal(getattr(lm, key), getattr(rm, key), err_msg=key)
+        np.testing.assert_array_equal(lm.attn, attn[lm.name])
+        np.testing.assert_allclose(lm.rig.pos, rm.rig.pos, rtol=0, atol=1e-8)
+        np.testing.assert_allclose(lm.rig.skins, rm.rig.skins, rtol=0, atol=5e-5)
+        if not (lm.rig.names == rm.rig.names and np.isfinite(lm.skin_input).all()):
+            raise AssertionError(f"cli data: rig model {lm.name} read back wrong")
+    print(f"cli data: {CLI_MODELS} creatures (V {[m.num_verts for m in poses]}, T "
+          f"{[m.num_frames for m in poses]}, J {[m.rig.num_joints for m in rigs]}) in "
+          f"{t_data:.2f} s; preprocess_model {[round(x, 2) for x in t_pre]} s (tpl / geo "
+          f"edges, surface and volumetric geodesics, 88^3 voxels); both folders read back by "
+          f"load_pose_models / load_rig_models in {t_load:.2f} s, equal to the datasets")
+    print("cli data: preprocess_model's stages, s over the 4 creatures: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in pre_stages.items())
+          + f" (fps_numpy and geodesic_all_pairs inside surface_geodesic); the loaders: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in load_stages.items())
+          + f", the rest (np.load, the rig and attention files) "
+          f"{t_load - sum(load_stages.values()):.3f}")
+    return pose_dir, rig_dir
+
+
+class Tee(io.StringIO):
+    """Text written to it goes to `out` too."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, s):
+        self.out.write(s)
+        return super().write(s)
+
+
+def stage_counts(**per) -> dict:
+    return dict({"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "plain_edge": 0}, **per)
+
+
+def run_cli(name: str, argv: list, expected: dict, dev) -> tuple[dict, str]:
+    """`cli.main(argv + --device)` with the kernel counts zeroed before it and
+    read after it (they must be `expected`), its first K1, K2, K3 (inference)
+    and K1/K6 (training) call of each shape recorded and held against their
+    plain versions.  Prints its wall seconds and peak memory; returns
+    (launches, its standard output)."""
+    calls, training = {}, {}
+    out = Tee(sys.stdout)
+    zero_stage_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording_kernel_calls(calls), recording_training_calls(training), \
+            contextlib.redirect_stdout(out):
+        cli.main(argv + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_stage_counts()
+    print(f"cli {name}: {wall:.2f} s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB; launches {launches}, expected {expected}")
+    check_counts(f"cli {name}", launches, expected)
+    if calls:
+        check_recorded(f"cli {name}", calls)
+    if training:
+        check_recorded_training(f"cli {name}", training)
+    return launches, out.getvalue()
+
+
+def check_finite_log(name: str, logdir: str) -> None:
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    if not rows or not all(math.isfinite(v) for r in rows for k, v in r.items() if k != "split"):
+        raise AssertionError(f"cli {name}: metrics {rows}")
+
+
+def cli_phase(dev, edge: int) -> dict:
+    """Phase 15: `morig_tpu_torch.cli.main` on the card in a temporary
+    directory: the reference-layout folders (`write_cli_folders`), then
+    train corr_pose -> train deform_pose --init-extractor (the extractor
+    must equal the CorrNet bit for bit) -> eval deform -> train joints ->
+    predict-rig --save-intermediates -> eval rig -> track -> eval tracking,
+    each through `run_cli`, its outputs checked.  `edge` is K1's launches
+    per predict_rig call.  Returns the launches summed over the commands."""
+    corr_step, corr_eval = stage_counts(K1=8, K2=1, K6=8), stage_counts(K1=8, K2=1, K3=6)
+    deform_step, deform_eval = stage_counts(K1=20, K2=3, K6=12), stage_counts(K1=20, K2=3, K3=6)
+    motion = EXPECTED_MOTION["K1"]
+    capsule_step = 2 * motion + 2 * EXPECTED_SKEL["K1"]     # joint, mask, bone, root
+    predict_calls = 2                                        # capsule_predictor's two capsules
+    tracked = CLI_TRACK_FRAMES - 1
+
+    def total(*parts):
+        return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+    expected = {
+        "train corr_pose": total(corr_step, corr_eval),
+        "train deform_pose": total(deform_step, deform_eval),
+        "eval deform": deform_eval,
+        "train joints": stage_counts(K1=2 * motion + 2 * motion, K6=2 * motion),
+        "predict-rig": stage_counts(K1=CLI_PREDICT_STEPS * capsule_step + predict_calls * edge,
+                                    K6=CLI_PREDICT_STEPS * capsule_step,
+                                    K2=predict_calls * EXPECTED_KNN_LAUNCHES,
+                                    K3=predict_calls * EXPECTED_GATHER_LAUNCHES),
+        "eval rig": stage_counts(),
+        "track": stage_counts(K1=tracked * 20, K2=tracked * EXPECTED_KNN_LAUNCHES, K3=tracked * 6),
+        "eval tracking": stage_counts(),
+    }
+    launches = []
+    with tempfile.TemporaryDirectory() as root:
+        pose_dir, rig_dir = write_cli_folders(root, dev)
+        d = {k: os.path.join(root, k) for k in ("corr", "deform", "joints", "res", "gt", "track",
+                                                "track_gt", "logs")}
+        pose = ["--data", pose_dir, "--batch-size", str(CLI_MODELS), "--seed", "0"]
+
+        def run(name, argv):
+            n, text = run_cli(name, argv, expected[name], dev)
+            launches.append(n)
+            return text
+
+        run("train corr_pose", ["train", "corr_pose", *pose, "--epochs", "1", "--train-vismask",
+                                "--checkpoint", d["corr"], "--logdir", d["logs"] + "/corr"])
+        check_finite_log("train corr_pose", d["logs"] + "/corr")
+        run("train deform_pose", ["train", "deform_pose", *pose, "--epochs", "1",
+                                  "--init-extractor", os.path.join(d["corr"], "model_best.pt"),
+                                  "--checkpoint", d["deform"], "--logdir", d["logs"] + "/deform"])
+        check_finite_log("train deform_pose", d["logs"] + "/deform")
+        corr_sd = torch.load(os.path.join(d["corr"], "model_best.pt"), weights_only=True)["model"]
+        deform_sd = torch.load(os.path.join(d["deform"], "checkpoint.pt"),
+                               weights_only=True)["model"]
+        same = all(torch.equal(deform_sd[f"corr_extractor.{k}"], v) for k, v in corr_sd.items())
+        print(f"cli train deform_pose: the extractor equals the CorrNet bit for bit: {same}")
+        if not same:
+            raise AssertionError("cli train deform_pose: the extractor is not the CorrNet")
+        text = run("eval deform", ["eval", "deform", *pose, "--resume",
+                                   os.path.join(d["deform"], "model_best.pt")])
+        err = float(text.split("mean flow L2:")[1].split()[0])
+        if not math.isfinite(err):
+            raise AssertionError(f"cli eval deform: {err}")
+        run("train joints", ["train", "joints", "--data", rig_dir, "--epochs", "1",
+                             "--checkpoint", d["joints"], "--logdir", d["logs"] + "/joints"])
+        check_finite_log("train joints", d["logs"] + "/joints")
+        run("predict-rig", ["predict-rig", "--out", d["res"], "--save-intermediates"])
+        os.makedirs(d["gt"])
+        names = sorted(f[:-len("_gt_rig.txt")] for f in os.listdir(d["res"])
+                       if f.endswith("_gt_rig.txt"))
+        for name in names:
+            for suffix in ("_rig.txt", "_shift.ply", "_attn.npy"):
+                if not os.path.exists(os.path.join(d["res"], name + suffix)):
+                    raise AssertionError(f"cli predict-rig: no {name}{suffix}")
+            rig = sk.Rig.load(os.path.join(d["res"], f"{name}_rig.txt"))
+            err = np.abs(rig.skins.sum(1) - 1.0).max()
+            if not (np.isfinite(rig.pos).all() and err <= 1e-3):
+                raise AssertionError(f"cli predict-rig {name}: joints finite "
+                                     f"{np.isfinite(rig.pos).all()}, skin rows off 1 by {err}")
+            shutil.copyfile(os.path.join(d["res"], f"{name}_gt_rig.txt"),
+                            os.path.join(d["gt"], f"{name}_rig.txt"))
+        if len(names) != predict_calls:
+            raise AssertionError(f"cli predict-rig: rigs {names}")
+        run("eval rig", ["eval", "rig", "--res", d["res"], "--gt", d["gt"]])
+        ev = np.load(os.path.join(d["res"], "rig_eval.npz"))
+        if not all(np.isfinite(ev[k]).all() for k in ev.files if k.startswith("mean_")):
+            raise AssertionError(f"cli eval rig: {dict(ev)}")
+        run("track", ["track", "--out", d["track"], "--frames", str(CLI_TRACK_FRAMES)])
+        tr = np.load(os.path.join(d["track"], "capsule_tracking.npz"))
+        norm = np.abs(np.linalg.norm(tr["pred_quats"], axis=-1) - 1.0).max()
+        if not (all(np.isfinite(tr[k]).all() for k in tr.files) and norm <= 1e-4
+                and os.path.exists(os.path.join(d["track"], "capsule_smooth_frame000.ply"))):
+            raise AssertionError(f"cli track: keys {tr.files}, quaternion norms off 1 by {norm}")
+        seq = make_capsule_sequence(num_frames=CLI_TRACK_FRAMES, num_points=256)
+        os.makedirs(d["track_gt"])
+        np.save(os.path.join(d["track_gt"], "capsule_vtx_traj.npy"), seq["vtx_traj"])
+        np.save(os.path.join(d["track_gt"], "capsule_vismask.npy"), seq["vismask"])
+        run("eval tracking", ["eval", "tracking", "--res", d["track"], "--gt", d["track_gt"]])
+        fe = np.load(os.path.join(d["track"], "capsule_flow_errors.npz"))
+        if not all(np.isfinite(fe[k]).all() for k in fe.files):
+            raise AssertionError(f"cli eval tracking: {dict(fe)}")
+    return {k: sum(n[k] for n in launches) for k in COUNTERS}
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the single-mesh API
 # ---------------------------------------------------------------------------
 
@@ -1879,6 +2199,7 @@ def main(profile_phase: bool = False):
     del skel
     demo_counts = demo(dev)
     batch_counts = batch_norm_phase(entries, frames, batch, dev, profile_phase)
+    cli_counts = cli_phase(dev, edge)
     single = single_mesh(pred, entries[0], frames[0],
                          {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
                           "K4": 0, "K5": 0, "K6": 0})
@@ -1887,7 +2208,8 @@ def main(profile_phase: bool = False):
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
         n = (path1[name] + path2[name] + trained[name] + sum(m[name] for m in motion)
-             + demo_counts[name] + batch_counts[name] + single[name] + tracked[name])
+             + demo_counts[name] + batch_counts[name] + cli_counts[name] + single[name]
+             + tracked[name])
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
     print(json.dumps({"kernels": kernels}))

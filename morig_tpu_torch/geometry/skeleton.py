@@ -1,11 +1,14 @@
 """Skeleton structure and the host algorithms of rig assembly (numpy) —
-counterpart of the parts of morig_tpu/geometry/skeleton.py the rig DAG and
-tracking run: `get_bones`, `prim_mst`, `prim_mst_symmetry` (with `side_of`
-and `mirror_map`), `increase_cost_for_outside_bone`, `rig_from_parents`,
-`assemble_skel_skin` and `remove_duplicate_joints`, with the `Rig`
-structure they share (offsets, adjacency, and the *_rig.txt format of
-`save` / `load`: `joints <name> <x> <y> <z>`, `root <name>`,
-`skin <vid> (<joint> <w>)*`, `hier <parent> <child>`).
+counterpart of morig_tpu/geometry/skeleton.py: `get_bones`, `map_bones`,
+`prim_mst`, `prim_mst_symmetry` (with `side_of` and `mirror_map`),
+`prim_mst_middle_first`, `increase_cost_for_outside_bone`,
+`rig_from_parents`, `assemble_skel_skin` and `remove_duplicate_joints`,
+with the `Rig` structure they share (offsets, adjacency, numpy forward
+kinematics, and the *_rig.txt format of `save` / `load`:
+`joints <name> <x> <y> <z>`, `root <name>`, `skin <vid> (<joint> <w>)*`,
+`hier <parent> <child>`), and the *_skel.txt level format
+(`save_skel_format` / `load_skel_format`: `<level> <name> <x> <y> <z>
+<parent or None>`).
 
 These work on graphs of at most ~50 joints and stay on the host.
 """
@@ -57,6 +60,23 @@ class Rig:
         nonroot = np.argwhere(self.parents >= 0).reshape(-1)
         A[nonroot, self.parents[nonroot]] = 1.0
         return np.maximum(A, A.T)
+
+    def fk(self, local_rots: np.ndarray, root_trans: Optional[np.ndarray] = None):
+        """(global rotations (J,3,3), joint positions (J,3)) from per-joint
+        local rotations (J,3,3), the rest frames being the identity."""
+        G = np.zeros((self.num_joints, 3, 3), local_rots.dtype)
+        q = np.zeros((self.num_joints, 3), np.float64)
+        off = self.offsets()
+        for level in self.levels():
+            for j in level:
+                p = self.parents[j]
+                if p < 0:
+                    G[j] = local_rots[j]
+                    q[j] = self.pos[j] + (root_trans if root_trans is not None else 0.0)
+                else:
+                    G[j] = G[p] @ local_rots[j]
+                    q[j] = q[p] + G[p] @ off[j]
+        return G, q
 
     def save(self, path: str) -> None:
         root = self.root_id
@@ -199,14 +219,19 @@ def remove_duplicate_joints(rig: Rig) -> Rig:
                parents=np.asarray(keep_parents, int), skins=np.stack(keep_skin, axis=1))
 
 
+def map_bones(bones_old: np.ndarray, bones_new: np.ndarray) -> np.ndarray:
+    """For each old bone (6 floats), the index of the nearest new bone."""
+    d = np.linalg.norm(bones_new[None] - bones_old[:, None], axis=-1)
+    return d.argmin(1)
+
+
 def assemble_skel_skin(skel: Rig, attachment: np.ndarray) -> Rig:
     """Attach per-bone skin weights (V, bones of `skel`) to the rig with
     duplicated branch joints: each bone's weight binds to its parent joint."""
     bones_old, _, _ = get_bones(skel)
     rig_new = add_duplicate_joints(skel)
     bones_new, names_new, _ = get_bones(rig_new)
-    d = np.linalg.norm(bones_new[None] - bones_old[:, None], axis=-1)
-    mapping = d.argmin(1)                          # nearest new bone of each old one
+    mapping = map_bones(bones_old, bones_new)
     idx = {n: i for i, n in enumerate(rig_new.names)}
     skins = np.zeros((attachment.shape[0], rig_new.num_joints))
     for b in range(attachment.shape[1]):
@@ -323,3 +348,60 @@ def increase_cost_for_outside_bone(cost: np.ndarray, joints: np.ndarray,
     cost[ii[both_mid], jj[both_mid]] *= 0.5
     cost[jj[both_mid], ii[both_mid]] *= 0.5
     return cost
+
+
+def prim_mst_middle_first(cost: np.ndarray, root: int, joints: np.ndarray,
+                          tol: float = 2e-2) -> tuple[np.ndarray, int]:
+    """Prim that spans every middle-plane joint before attaching a side
+    joint; the root is snapped to the nearest middle joint.  Returns
+    (parents, root)."""
+    n = cost.shape[0]
+    s = side_of(joints, tol)
+    mids = np.argwhere(s == 0).reshape(-1)
+    if s[root] != 0 and len(mids) > 0:
+        root = int(mids[np.argmin(np.linalg.norm(joints[mids] - joints[root], axis=1))])
+    key = np.full(n, np.inf)
+    parent = np.full(n, -1, int)
+    in_tree = np.zeros(n, bool)
+    key[root] = 0.0
+
+    def attach(u):
+        in_tree[u] = True
+        upd = (~in_tree) & (cost[u] > 0) & (cost[u] < key)
+        key[upd] = cost[u][upd]
+        parent[upd] = u
+
+    while len(mids) and not in_tree[mids].all():
+        attach(int(mids[np.argmin(np.where(in_tree[mids], np.inf, key[mids]))]))
+    while not in_tree.all():
+        attach(int(np.argmin(np.where(in_tree, np.inf, key))))
+    parent[root] = -1
+    return parent, root
+
+
+def save_skel_format(rig: Rig, path: str) -> None:
+    """Write `rig` as *_skel.txt: one `<level> <name> <x> <y> <z> <parent>`
+    line per joint, level by level from the root (level 1, parent None)."""
+    with open(path, "w") as f:
+        for depth, level in enumerate(rig.levels(), start=1):
+            for j in level:
+                parent = rig.parents[j]
+                pname = rig.names[parent] if parent >= 0 else "None"
+                p = rig.pos[j]
+                f.write(f"{depth} {rig.names[j]} {p[0]:8f} {p[1]:8f} {p[2]:8f} {pname}\n")
+
+
+def load_skel_format(path: str) -> Rig:
+    """Read a *_skel.txt file (lines of fewer than 6 words are skipped)."""
+    names, pos, parent_names = [], [], []
+    with open(path) as f:
+        for line in f:
+            w = line.split()
+            if len(w) < 6:
+                continue
+            names.append(w[1])
+            pos.append([float(w[2]), float(w[3]), float(w[4])])
+            parent_names.append(w[5])
+    idx = {n: i for i, n in enumerate(names)}
+    parents = np.array([idx.get(p, -1) if p != "None" else -1 for p in parent_names], int)
+    return Rig(names=names, pos=np.asarray(pos, float), parents=parents)

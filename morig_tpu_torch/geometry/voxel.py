@@ -1,7 +1,8 @@
-"""Voxel grids: solid voxelization (host), containment and line of sight
-(device) — counterpart of morig_tpu/geometry/voxel.py.
+"""Voxel grids: binvox IO and solid voxelization (host), containment and
+line of sight (device) — counterpart of morig_tpu/geometry/voxel.py.
 
-`Voxels`, `voxelize_mesh` and `inside_check_np` are host copies (numpy;
+`Voxels`, `read_binvox` / `write_binvox` (the .binvox format, byte for byte
+the JAX package's), `voxelize_mesh` and `inside_check_np` are host copies (numpy;
 the flood fill runs in the repository's C++ code through
 `morig_tpu_torch.native`).  On the device
 a grid travels as the triple (grid (B,D,D,D) bool, translate (B,3) fp32,
@@ -25,6 +26,51 @@ class Voxels:
     translate: np.ndarray     # (3,)
     scale: float
     dims: int = 88
+
+
+def read_binvox(path: str) -> Voxels:
+    """A .binvox file (https://www.patrickmin.com/binvox/binvox.html): the
+    header's dims, translate and scale, then run-length (value, count)
+    byte pairs of the grid in x-z-y order."""
+    with open(path, "rb") as f:
+        if not f.readline().strip().startswith(b"#binvox"):
+            raise ValueError(f"not a binvox file: {path}")
+        dims = translate = scale = None
+        while True:
+            line = f.readline().strip().split()
+            if not line:
+                continue
+            if line[0] == b"dim":
+                dims = [int(x) for x in line[1:4]]
+            elif line[0] == b"translate":
+                translate = [float(x) for x in line[1:4]]
+            elif line[0] == b"scale":
+                scale = float(line[1])
+            elif line[0] == b"data":
+                break
+        raw = np.frombuffer(f.read(), dtype=np.uint8)
+    flat = np.repeat(raw[::2].astype(bool), raw[1::2].astype(np.int64))
+    data = np.transpose(flat.reshape(dims), (0, 2, 1))      # stored [x][z][y]
+    return Voxels(data=np.ascontiguousarray(data), translate=np.asarray(translate, np.float64),
+                  scale=scale, dims=dims[0])
+
+
+def write_binvox(vox: Voxels, path: str) -> None:
+    """Write `vox` as .binvox: runs of one value, each at most 255 long."""
+    data = np.transpose(vox.data, (0, 2, 1)).reshape(-1).astype(np.uint8)
+    starts = np.flatnonzero(np.r_[True, data[1:] != data[:-1]])
+    lengths = np.diff(np.r_[starts, len(data)])
+    chunks = (lengths + 254) // 255                         # runs split every 255
+    values = np.repeat(data[starts], chunks)
+    counts = np.full(len(values), 255, np.int64)
+    counts[np.cumsum(chunks) - 1] = lengths - 255 * (chunks - 1)
+    with open(path, "wb") as f:
+        f.write(b"#binvox 1\n")
+        f.write(f"dim {vox.dims} {vox.dims} {vox.dims}\n".encode())
+        f.write(("translate " + " ".join(f"{t:g}" for t in vox.translate) + "\n").encode())
+        f.write(f"scale {vox.scale:g}\n".encode())
+        f.write(b"data\n")
+        f.write(np.stack([values, counts], 1).astype(np.uint8).tobytes())
 
 
 def voxelize_mesh(verts: np.ndarray, faces: np.ndarray, dims: int = 88,

@@ -73,6 +73,19 @@ def _choice(p: torch.Tensor, n: int, generator: Optional[torch.Generator]) -> to
     return torch.searchsorted(cdf, r).clamp(max=p.shape[-1] - 1)
 
 
+def draw_rows(generator: Optional[torch.Generator], vert_mask: torch.Tensor,
+              num_sample: int) -> torch.Tensor:
+    """(B, num_sample) int64: per sample, num_sample distinct rows drawn
+    uniformly among the valid ones of vert_mask (B, V) by Gumbel top-k, as
+    jax.random.choice(replace=False, p=mask / sum) draws; past the valid
+    count the draw runs into padded rows."""
+    p = vert_mask.float()
+    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1.0)
+    u = torch.rand(p.shape, generator=generator, device=p.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
+    return torch.topk(torch.log(p) + gumbel, num_sample, dim=-1).indices
+
+
 def draw_multi_pos(generator: Optional[torch.Generator], gt_skin: torch.Tensor,
                    vert_mask: torch.Tensor, num_sample: int = 512, num_pos: int = 10,
                    num_neg: int = 200, sim_threshold: float = 0.9):
@@ -82,11 +95,7 @@ def draw_multi_pos(generator: Optional[torch.Generator], gt_skin: torch.Tensor,
     drops), then per anchor num_pos positives and num_neg negatives with
     replacement.  Returns (ids (B,S), pos_ids (B,S,num_pos), neg_ids
     (B,S,num_neg)), int64."""
-    p = vert_mask.float()
-    p = p / torch.clamp(p.sum(-1, keepdim=True), min=1.0)
-    u = torch.rand(p.shape, generator=generator, device=p.device)
-    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
-    ids = torch.topk(torch.log(p) + gumbel, num_sample, dim=-1).indices
+    ids = draw_rows(generator, vert_mask, num_sample)
     _, pos_mat, neg_mat = _skin_pairs(gt_skin, vert_mask, ids, sim_threshold)
     pos_p = pos_mat / torch.clamp(pos_mat.sum(-1, keepdim=True), min=1e-9)
     neg_p = neg_mat / torch.clamp(neg_mat.sum(-1, keepdim=True), min=1e-9)

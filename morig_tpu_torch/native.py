@@ -1,7 +1,7 @@
 """ctypes bindings for the repository's C++ preprocessing code
-(native/morig_native.cpp) — counterpart of morig_tpu/native.py, for the two
-functions the port's host preprocessing calls: the voxelizer's flood fill
-and the surface-geodesic Dijkstra.
+(native/morig_native.cpp) — counterpart of morig_tpu/native.py: the
+voxelizer's flood fill, the surface-geodesic Dijkstra, the one-ring edge
+extraction and the voxel BFS of the volumetric geodesic.
 
 The library is built with g++ at first use into `build/morig_tpu_torch/`
 at the repository root, named by a hash of the source (nothing is written
@@ -48,7 +48,14 @@ def library() -> ctypes.CDLL:
             u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
             lib.geodesic_knn_dijkstra.argtypes = [
                 f32, f32, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, f32]
+            i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            lib.geodesic_knn_dijkstra.restype = None
             lib.solid_fill.argtypes = [u8, ctypes.c_int]
+            lib.solid_fill.restype = None
+            lib.one_ring_edges.argtypes = [i32, ctypes.c_int, i32, ctypes.c_int]
+            lib.one_ring_edges.restype = ctypes.c_int
+            lib.voxel_bfs.argtypes = [u8, ctypes.c_int, i32, ctypes.c_int, i32]
+            lib.voxel_bfs.restype = None
             _lib = lib
     return _lib
 
@@ -71,3 +78,26 @@ def solid_fill(shell: np.ndarray) -> np.ndarray:
     grid = np.ascontiguousarray(shell.astype(np.uint8))
     library().solid_fill(grid, grid.shape[0])
     return grid.astype(bool)
+
+
+def one_ring_edges(faces: np.ndarray) -> np.ndarray:
+    """(F, 3) triangles -> (E, 2) int32 unique edges (i < j), sorted."""
+    faces = np.ascontiguousarray(faces, np.int32)
+    cap = len(faces) * 3
+    out = np.zeros((cap, 2), np.int32)
+    n = library().one_ring_edges(faces, len(faces), out, cap)
+    if n < 0:
+        raise RuntimeError(f"one_ring_edges: more than {cap} edges")
+    return out[:n].copy()
+
+
+def voxel_bfs(solid: np.ndarray, seeds: np.ndarray) -> np.ndarray:
+    """(d, d, d) occupancy and (S, 3) seed voxels -> (d, d, d) int32
+    26-connected dilation steps from the nearest seed (0) through occupied
+    voxels (-1 where unreachable; seeds outside the grid are skipped)."""
+    grid = np.ascontiguousarray(solid.astype(np.uint8))
+    seeds = np.ascontiguousarray(seeds, np.int32)
+    d = grid.shape[0]
+    out = np.zeros(d * d * d, np.int32)
+    library().voxel_bfs(grid, d, seeds, len(seeds), out)
+    return out.reshape(d, d, d)

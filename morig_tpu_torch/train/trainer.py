@@ -127,9 +127,11 @@ def run_epochs(
     checkpoint_dir: Optional[str] = None,
     logger: Optional[MetricLogger] = None,
     generator: Optional[torch.Generator] = None,
+    start_epoch: int = 0,
 ):
-    """The shared epoch loop: train / val / test, then a checkpoint each
-    epoch and a `model_best` copy whenever the validation total loss
+    """The shared epoch loop over epochs start_epoch..epochs-1 (a resumed run
+    passes its checkpoint's epoch): train / val / test, then a checkpoint
+    each epoch and a `model_best` copy whenever the validation total loss
     improves.  `generator` draws the training randomness (a seeded one on
     the model's device when None).  Returns (state, best_epoch)."""
     from morig_tpu_torch.train import checkpoint as ckpt
@@ -139,7 +141,7 @@ def run_epochs(
         generator = torch.Generator(device=state.device).manual_seed(0)
     lowest = math.inf
     best_epoch = -1
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         stage.on_epoch(epoch)
         meters: dict[str, Meter] = {}
         for batch in train_batches(epoch):
