@@ -28,11 +28,12 @@ from morig_tpu_torch.train.trainer import MetricLogger, run_epochs
 
 NOT_CARRIED_OVER = """\
 Flags of the JAX CLI that are not defined here (argparse rejects them):
---platform (use --device), --edge-impl, --edge-bwd and --knn-impl (the
-port has one implementation of each: its CUDA kernels, their plain
-versions on the CPU), --scan-epochs (train/scanned.py fuses epochs to cut
-dispatch round trips to a TPU; not ported), and the `bench` subcommand
-(it runs the repository's JAX bench.py).  Networks are initialized from
+--platform (use --device), --edge-bwd and --knn-impl (the port has one
+implementation of each: its CUDA kernels, their plain versions on the
+CPU), --edge-impl outside `train` and its values auto and xla,
+--scan-epochs (train/scanned.py fuses epochs to cut dispatch round trips
+to a TPU; not ported), and the `bench` subcommand (it runs the
+repository's JAX bench.py).  Networks are initialized from
 the port's own seeded generator (--seed), not from JAX's: the same seed
 gives other initial weights than the JAX CLI."""
 
@@ -158,13 +159,18 @@ def _train_loop(stage, args, batch_fn, default_epochs: int, state=None):
     return state
 
 
+EDGE_TILE = 128      # --edge-impl windowed: the windowed kernel's vertex tile
+
+
 def cmd_train(args):
     from morig_tpu_torch.train import stages as S
 
     dev = _device(args)
     name = args.stage
+    tile = EDGE_TILE if args.edge_impl == "windowed" else None
     if name in ("corr_pose", "corr_shape", "deform_pose", "deform_shape"):
         ds = _pose_dataset(args, shape=name.endswith("_shape"))
+        ds.edge_tile = tile
 
         def batches(rng, train=True):
             return ds.epoch_batches(rng, args.batch_size, args.kind, args.sequential, train,
@@ -185,6 +191,7 @@ def cmd_train(args):
         _train_loop(stage, args, batches, 150, state=state)
     elif name in ("joints", "mask", "skin"):
         ds = _rig_dataset(args)
+        ds.edge_tile = tile
         n_embed = min(512, ds.pad_verts)
         stage = S.SkinStage(num_embed_sample=n_embed) if name == "skin" else S.RigStage(
             arch="jointnet" if name == "joints" else "masknet", num_embed_sample=n_embed)
@@ -200,13 +207,15 @@ def cmd_train(args):
             from morig_tpu_torch.data.creature import creature_skel_dataset
 
             sample = creature_skel_dataset(num_models=args.num_models, seed=args.seed,
-                                           device=dev)
+                                           device=dev, edge_tile=tile)
         elif args.data != "capsule":
             rig_ds = _rig_dataset(args)
             sample = build_skel_sample(rig_ds._mesh_cache, [m.rig.pos for m in rig_ds.models],
-                                       [m.rig for m in rig_ds.models], device=dev)
+                                       [m.rig for m in rig_ds.models], device=dev,
+                                       edge_tile=tile)
         else:
-            sample = capsule_skel_dataset(num_models=args.num_models, max_joints=16, device=dev)
+            sample = capsule_skel_dataset(num_models=args.num_models, max_joints=16, device=dev,
+                                          edge_tile=tile)
         stage = S.BoneStage() if name == "bone" else S.RootStage()
 
         def batches(rng, train=True):
@@ -348,6 +357,12 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--init-extractor", default="",
                    help="corr checkpoint (.pt, or a JAX CLI .msgpack) to initialize "
                         "the deform extractor")
+    t.add_argument("--edge-impl", default="fused", choices=["fused", "windowed"],
+                   help="the edge layers' forward in training: 'fused', the "
+                        "full-table kernel K1; 'windowed', the windowed kernel K5 at "
+                        f"a {EDGE_TILE}-vertex tile on every batch whose tables are "
+                        "local at it (a batch whose tables are not local trains on "
+                        "K1); the backward is K6 either way")
     t.set_defaults(fn=cmd_train)
 
     ev = sub.add_parser("eval", help="offline metrics (corr/deform/attn) and "

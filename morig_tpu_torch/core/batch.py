@@ -9,11 +9,13 @@ int32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from morig_tpu_torch.kernels.gather_fused import reverse_table
 
 _TENSORS = ("verts", "vert_mask", "tpl_nbr", "tpl_mask", "geo_nbr", "geo_mask")
 
@@ -23,7 +25,11 @@ class MeshBatch:
     """verts (B,V,3) f32, vert_mask (B,V) bool, tpl_nbr/geo_nbr (B,V,D)
     int64, tpl_mask/geo_mask (B,V,D) bool.  `edge_tile`: the vertex tile of
     the windowed edge kernel K5 when every table is local at it
-    (nn/gcu.py `auto_select_edge_impl`), None for the full-table K1."""
+    (nn/gcu.py `auto_select_edge_impl`), None for the full-table K1.
+    `tpl_rev`/`geo_rev`: each table's reverse table, the order in which the
+    edge backward K6 sums its db_table, built on the tables' device on first
+    use and then held for the batch (its tensors are not changed in place;
+    `to` and `repeat_interleave` give a new batch that builds its own)."""
 
     verts: torch.Tensor
     vert_mask: torch.Tensor
@@ -32,6 +38,14 @@ class MeshBatch:
     geo_nbr: torch.Tensor
     geo_mask: torch.Tensor
     edge_tile: Optional[int] = None
+
+    @functools.cached_property
+    def tpl_rev(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return reverse_table(self.tpl_nbr, self.tpl_nbr.shape[1], self.tpl_mask)
+
+    @functools.cached_property
+    def geo_rev(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return reverse_table(self.geo_nbr, self.geo_nbr.shape[1], self.geo_mask)
 
     def to(self, device) -> "MeshBatch":
         return dataclasses.replace(self, **{k: getattr(self, k).to(device) for k in _TENSORS})

@@ -1,6 +1,7 @@
 """The constants of the rig DAG, of tracking and of training — the part of
 morig_tpu/core/config.py's `Config` tree that `RigPredictor`, the
-trackers and the training stages read, with the same names and defaults.
+trackers and the training stages read, with the same names and defaults,
+and its point-branch and mesh-bucket groups.
 """
 from __future__ import annotations
 
@@ -19,6 +20,17 @@ class ModelConfig:
     nearest_bone: int = 5              # bones per vertex in the skin descriptor
     use_Dg: bool = False               # skin descriptor carries 1/distance per bone
     use_Lf: bool = False               # skin descriptor carries isleaf per bone
+
+
+@dataclasses.dataclass(frozen=True)
+class PointBranchConfig:
+    """PointNet++ encoder/decoder shape constants."""
+
+    num_points: int = 1024
+    sa_ratios: Sequence[float] = (0.5, 0.25, 0.25)
+    sa_radii: Sequence[float] = (0.12, 0.25, 0.5)
+    sa_max_neighbors: int = 64
+    fp_ks: Sequence[int] = (1, 3, 3, 3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,12 +81,25 @@ class SkinPostConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshBucketConfig:
+    """Static-shape padding buckets for meshes."""
+
+    vertex_buckets: Sequence[int] = (1024, 2048, 4096, 8192)
+    tpl_max_degree: int = 16           # one-ring degree bound (+1 self loop)
+    geo_max_degree: int = 16           # geodesic ball capped at 15 + self
+    max_joints: int = 48
+    max_corr: int = 1024               # per-frame correspondence pairs cap
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    points: PointBranchConfig = dataclasses.field(default_factory=PointBranchConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     joints: JointExtractConfig = dataclasses.field(default_factory=JointExtractConfig)
     tracking: TrackingConfig = dataclasses.field(default_factory=TrackingConfig)
     skin_post: SkinPostConfig = dataclasses.field(default_factory=SkinPostConfig)
+    buckets: MeshBucketConfig = dataclasses.field(default_factory=MeshBucketConfig)
 
 
 DEFAULT_CONFIG = Config()

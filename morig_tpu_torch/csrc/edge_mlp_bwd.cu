@@ -22,14 +22,18 @@
 //
 // What does not carry over from the TPU: there the grid runs in order, so the
 // db_table block and the dW2/vector sums stay resident across grid steps.
-// Here blocks run in parallel: db_table is a scatter of fp32 atomics into a
-// buffer the wrapper zeroes (the order of the adds varies from run to run, so
-// db_table is not bitwise deterministic); the five vector sums are per-block
-// partials and dW2 per-split partials of its own kernel, each added over the
-// blocks in a fixed order by `sum_parts_kernel`, so they are deterministic
-// for a given grid.
+// Here blocks run in parallel, and every sum is taken in an order that does
+// not depend on them, so K6 is bitwise deterministic for a given grid: the
+// main kernel writes each valid edge's bf16(dx) row to a per-edge buffer
+// (`dxe`, (B*V*D, H1) bf16, the rows of masked edges left unwritten) and the
+// ordered row scatter (csrc/row_scatter.cu, launched by the wrapper as
+// `edge_db_sum_kernel` over the batch's reverse table of nbr) sums,
+// for each table row u, the rows of the edges (v, d) with nbr[v, d] == u in
+// (v, d) order in fp32, the order of the TPU's grid; the five vector sums
+// are per-block partials and dW2 per-split partials of its own kernel, each
+// added over the blocks in a fixed order by `sum_parts_kernel`.
 //
-// Three kernels per call.
+// Three kernels per call here, then the ordered scatter.
 //
 // `edge_mlp_bwd_kernel` walks 64-edge-row steps (the D edges of 64 / D
 // vertices) over a persistent grid of 8-warp blocks.  A step none of whose
@@ -76,7 +80,9 @@
 //
 // What bounds it on the H100: three products of 2*E*H1*H2 FLOPs each (the
 // recompute, dh and dW2; E = the valid edge rows) against reading a, b, dout
-// and writing da and db_table, so the tensor cores at every width.  What
+// and writing da and db_table, so the tensor cores at every width.  The
+// per-edge dx rows add 2*E*H1 bytes, written here and read once by the
+// ordered scatter.  What
 // costs the time (PERF.md): the chain of barriers of a step, with half of
 // the block idle during the recompute below H = 256, and the per-vertex
 // route.
@@ -138,6 +144,26 @@ __device__ __forceinline__ void load_bf16_row(const __nv_bfloat16* p, float (&x)
     x[1] = f.y;
   } else {
     x[0] = __bfloat162float(*p);
+  }
+}
+
+// P (1, 2, 4 or 8) fp32 values as contiguous bf16 at a 2P-byte aligned
+// address, in one store.
+template <int P>
+__device__ __forceinline__ void store_bf16_row(__nv_bfloat16* p, const float (&x)[P]) {
+  if constexpr (P == 1) {
+    *p = __float2bfloat16(x[0]);
+  } else {
+    __nv_bfloat162 w[P / 2];
+#pragma unroll
+    for (int k = 0; k < P / 2; ++k) w[k] = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+    if constexpr (P == 8) {
+      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(w);
+    } else if constexpr (P == 4) {
+      *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(w);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = w[0];
+    }
   }
 }
 
@@ -241,7 +267,8 @@ __device__ __forceinline__ void dh_product(const __nv_bfloat16* w2s, const __nv_
   }
 }
 
-// vecs: g1 | be1 | b2 | g2 | be2 (5 H fp32); w2l: W2 in K1's layout; ymax,
+// vecs: g1 | be1 | b2 | g2 | be2 (5 H fp32); w2l: W2 in K1's layout; dxe gets
+// each valid edge's bf16(dx) row (edge (b V + v) D + d at that row); ymax,
 // where not null, gets the recomputed per-vertex max (0 where no edge is
 // valid), the forward's output.
 template <int H>
@@ -249,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
     const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
     const long long* __restrict__ nbr, const unsigned char* __restrict__ mask,
     const __nv_bfloat16* __restrict__ w2l, const float* __restrict__ vecs,
-    const float* __restrict__ dout, float* __restrict__ da, float* __restrict__ db,
+    const float* __restrict__ dout, float* __restrict__ da, __nv_bfloat16* __restrict__ dxe,
     uint4* __restrict__ scratch, unsigned char* __restrict__ live,
     float* __restrict__ vec_part, float* __restrict__ ymax, int B, int V, int D) {
   using L = BwdLayout<H>;
@@ -465,7 +492,8 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
     });
     __syncthreads();
 
-    // ---- LN1 backward, relu, one edge row per warp: dx over dh, db scatter
+    // ---- LN1 backward, relu, one edge row per warp: dx over dh and, in bf16,
+    // to the edge's row of dxe
     for (int r = warp; r < nv * D; r += kWarps) {
       if (!(rows >> r & 1ull)) continue;
       const long long e = vb * D + r;
@@ -497,14 +525,14 @@ __global__ void __launch_bounds__(kThreads) edge_mlp_bwd_kernel(
       }
       const float m1 = warp_sum(p1) / H, m2 = warp_sum(p2) / H;
       if (own) {
-        float* dbrow = db + (static_cast<long long>(bi) * V + j) * H + c0;
+        float dx[P];
 #pragma unroll
         for (int k = 0; k < P; ++k) {
           // x holds relu(a + b): positive exactly where a + b is
-          const float dx = x[k] > 0.f ? (dxn[k] - m1 - xn[k] * m2) * inv : 0.f;
-          row[c0 + k] = dx;
-          atomicAdd(dbrow + k, __bfloat162float(__float2bfloat16(dx)));
+          dx[k] = x[k] > 0.f ? (dxn[k] - m1 - xn[k] * m2) * inv : 0.f;
+          row[c0 + k] = dx[k];
         }
+        store_bf16_row<P>(dxe + e * H + c0, dx);
       }
     }
     __syncthreads();
@@ -745,7 +773,7 @@ cudaError_t launch_dw2(const void* scratch, const void* live, int n_steps, void*
 
 template <int H>
 cudaError_t launch_bwd(const void* a, const void* b, const void* nbr, const void* mask,
-                       const void* w2, const void* vecs, const void* dout, void* da, void* db,
+                       const void* w2, const void* vecs, const void* dout, void* da, void* dxe,
                        void* dw2, void* vec, void* scratch, void* live, void* dw2_part,
                        void* vec_part, void* ymax, int B, int V, int D, int grid, int splits,
                        cudaStream_t s) {
@@ -761,7 +789,8 @@ cudaError_t launch_bwd(const void* a, const void* b, const void* nbr, const void
         static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
         static_cast<const long long*>(nbr), static_cast<const unsigned char*>(mask),
         static_cast<const __nv_bfloat16*>(w2), static_cast<const float*>(vecs),
-        static_cast<const float*>(dout), static_cast<float*>(da), static_cast<float*>(db),
+        static_cast<const float*>(dout), static_cast<float*>(da),
+        static_cast<__nv_bfloat16*>(dxe),
         static_cast<uint4*>(scratch), static_cast<unsigned char*>(live),
         static_cast<float*>(vec_part), static_cast<float*>(ymax), B, V, D);
     err = cudaGetLastError();
@@ -801,8 +830,9 @@ extern "C" int edge_mlp_backward_grid(int B, int V, int D, int H1, int H2, int* 
 // a, b (B,V,H) bf16, 16-byte aligned; nbr (B,V,D) int64; mask (B,V,D) bool;
 // w2 (H,H) in K1's layout (kernels/edge_fused.py `wgmma_w2_layout`); vecs
 // (5H fp32: g1 | be1 | b2 | g2 | be2); dout (B,V,H) fp32.  Writes da
-// (B,V,H), adds into db (B,V,H, zeroed by the caller), writes dw2 (H,H) and
-// vec (5H: dg1 | dbe1 | db2 | dg2 | dbe2), all fp32, and, where ymax is not
+// (B,V,H) fp32, each valid edge's bf16(dx) row to dxe (B*V*D, H) bf16 (the
+// caller sums them into db_table with the ordered row scatter), dw2 (H,H) and
+// vec (5H: dg1 | dbe1 | db2 | dg2 | dbe2) fp32, and, where ymax is not
 // null, the recomputed forward (B,V,H) fp32, using scratch (per step 256 H
 // bytes: B * ceil(V / (64 / D)) steps), live (a byte per step) and the
 // partial buffers.  Requires H1 == H2 in {16, 32, 64, 128, 256}, 1 <= D <=
@@ -811,13 +841,13 @@ extern "C" int edge_mlp_backward_grid(int B, int V, int D, int H1, int H2, int* 
 // launches.
 extern "C" int edge_mlp_backward(const void* a, const void* b, const void* nbr, const void* mask,
                                  const void* w2, const void* vecs, const void* dout, void* da,
-                                 void* db, void* dw2, void* vec, void* scratch, void* live,
+                                 void* dxe, void* dw2, void* vec, void* scratch, void* live,
                                  void* dw2_part, void* vec_part, void* ymax, int B, int V, int D,
                                  int H1, int H2, int grid, int splits, void* stream) {
   if (H1 != H2 || D < 1 || D > 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MORIG_BWD(H)                                                                         \
-  launch_bwd<H>(a, b, nbr, mask, w2, vecs, dout, da, db, dw2, vec, scratch, live, dw2_part, \
+  launch_bwd<H>(a, b, nbr, mask, w2, vecs, dout, da, dxe, dw2, vec, scratch, live, dw2_part, \
                 vec_part, ymax, B, V, D, grid, splits, s)
   MORIG_BWD_WIDTHS(MORIG_BWD)
 #undef MORIG_BWD

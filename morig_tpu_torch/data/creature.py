@@ -509,12 +509,14 @@ def creature_rig_dataset(num_models: int = 8, seed: int = 0, num_keyframes: int 
 
 def creature_skel_dataset(num_models: int = 8, seed: int = 0, max_joints: int = 32,
                           perturb: float = 0.02, extra_per_model: int = 2,
-                          target_verts: int = 1900, device="cuda", **kw):
+                          target_verts: int = 1900, device="cuda",
+                          edge_tile: Optional[int] = None, **kw):
     """One SkelSample for Bone/Root training on `device`: per creature
     (`make_creature`, `kw` going to it) the GT joint set plus
     `extra_per_model` copies jittered by perturb * N(0, 1) (the kind of joint
     sets a trained JointNet emits), each a row of its own, the mesh padded
-    to its 1024/2048/4096 bucket."""
+    to its 1024/2048/4096 bucket; stacked with `edge_tile` where every
+    table is local at it."""
     from morig_tpu_torch.core import batch as B
     from morig_tpu_torch.data.skeleton_data import build_skel_sample
     from morig_tpu_torch.geometry import skeleton as sk
@@ -532,4 +534,5 @@ def creature_skel_dataset(num_models: int = 8, seed: int = 0, max_joints: int = 
             entries.append(entry)
             joints_list.append(c.joints + jit)
             rigs.append(rig)
-    return build_skel_sample(entries, joints_list, rigs, max_joints=max_joints, device=device)
+    return build_skel_sample(entries, joints_list, rigs, max_joints=max_joints, device=device,
+                             edge_tile=edge_tile)

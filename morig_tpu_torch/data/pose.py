@@ -10,13 +10,14 @@ the JAX package's generator call for call.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from morig_tpu_torch.core import batch as B
 from morig_tpu_torch.data.synthetic import make_capsule_sequence
+from morig_tpu_torch.nn.gcu import windowed_tile
 
 MAX_CORR = 1024    # correspondence rows per frame in a batch
 
@@ -67,7 +68,14 @@ def eval_frame_pair(sequential: bool) -> tuple[int, int]:
 class PoseDataset:
     """Models grouped into vertex-size buckets: each model pads to the
     smallest bucket that fits it, and every batch is homogeneous in bucket.
-    Each frame's correspondences are cut or padded to MAX_CORR rows."""
+    Each frame's correspondences are cut or padded to MAX_CORR rows.
+
+    `edge_tile` (None: every batch on the full-table K1): a batch whose
+    models' tables are all local at it (`nn.gcu.windowed_tile`) is stacked
+    with it, so its edge layers run the windowed K5, in training too; any
+    other batch stays on K1.  Nothing is reordered here
+    (`data.preprocess.rcm_vertex_order` bounds how far a neighbour lies
+    from its vertex, which may still exceed the tile)."""
 
     def __init__(
         self,
@@ -75,8 +83,10 @@ class PoseDataset:
         tpl_max_degree: int = 16,
         geo_max_degree: int = 16,
         buckets: Sequence[int] = (256, 512, 1024, 2048, 4096, 8192),
+        edge_tile: Optional[int] = None,
     ):
         self.models = list(models)
+        self.edge_tile = edge_tile
         self.bucket_of = [B.bucket_size(m.num_verts, buckets) for m in self.models]
         self._mesh_cache = [
             B.build_mesh(m.vtx_traj[:, 0, :], m.tpl_edges, m.geo_edges,
@@ -126,7 +136,7 @@ class PoseDataset:
             return torch.as_tensor(np.stack(arrays), device=device)
 
         return B.PoseSample(
-            mesh=B.stack_meshes(meshes, device),
+            mesh=B.stack_meshes(meshes, device, edge_tile=windowed_tile(meshes, self.edge_tile)),
             points=B.PointBatch(t(ptss), t(ptms)),
             corr=B.CorrBatch(t(v2ps), t(v2pms), t(p2vs), t(p2vms)),
             vismask=t(viss),

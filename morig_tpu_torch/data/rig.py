@@ -16,6 +16,7 @@ import torch
 from morig_tpu_torch.core import batch as B
 from morig_tpu_torch.geometry import skeleton as sk
 from morig_tpu_torch.geometry.bones import pack_skin_descriptors
+from morig_tpu_torch.nn.gcu import windowed_tile
 
 
 @dataclasses.dataclass
@@ -102,12 +103,14 @@ def build_rig_model(name: str, verts: np.ndarray, tpl_edges: np.ndarray,
 
 class RigDataset:
     """RigModels padded to one vertex bucket, with their mesh tables built
-    once."""
+    once.  `edge_tile` as PoseDataset's: a batch whose tables are all local
+    at it runs its edge layers on the windowed K5."""
 
     def __init__(self, models: Sequence[RigModel], pad_verts: Optional[int] = None,
                  max_joints: int = 48, nearest_bone: int = 5, tpl_max_degree: int = 16,
-                 geo_max_degree: int = 16):
+                 geo_max_degree: int = 16, edge_tile: Optional[int] = None):
         self.models = list(models)
+        self.edge_tile = edge_tile
         if pad_verts is None:
             top = max(len(m.verts) for m in self.models)
             pad_verts = B.bucket_size(top, (256, 512, 1024, 2048, 4096, 8192))
@@ -152,7 +155,9 @@ class RigDataset:
         dtypes = {"joints_mask": torch.bool, "skin_nn": torch.int64, "loss_mask": torch.int32}
         arr = {k: torch.as_tensor(np.stack(v), dtype=dtypes.get(k, torch.float32), device=device)
                for k, v in cols.items()}
-        mesh = B.stack_meshes([self._mesh_cache[i] for i in indices], device=device)
+        entries = [self._mesh_cache[i] for i in indices]
+        mesh = B.stack_meshes(entries, device=device,
+                              edge_tile=windowed_tile(entries, self.edge_tile))
         return B.RigSample(mesh=mesh, joints=arr["joints"], joints_mask=arr["joints_mask"],
                            offsets=arr["offsets"], attn_mask=arr["attn"], gt_skin=arr["gt_skin"],
                            gt_flow=arr["gt_flow"], pred_flow=arr["pred_flow"],

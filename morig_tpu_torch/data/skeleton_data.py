@@ -18,6 +18,7 @@ import torch
 from morig_tpu_torch.core.batch import SkelSample, stack_meshes
 from morig_tpu_torch.geometry import skeleton as sk
 from morig_tpu_torch.geometry.voxel import segment_inside_fraction, vox_to_device
+from morig_tpu_torch.nn.gcu import windowed_tile
 
 
 def pair_attrs(joints: np.ndarray, vox=None, device="cuda") -> tuple[np.ndarray, np.ndarray]:
@@ -39,10 +40,13 @@ def pair_attrs(joints: np.ndarray, vox=None, device="cuda") -> tuple[np.ndarray,
 
 def build_skel_sample(mesh_entries: Sequence[dict], joints_list: Sequence[np.ndarray],
                       rigs: Optional[Sequence[sk.Rig]] = None, voxes: Optional[Sequence] = None,
-                      max_joints: int = 48, device="cuda") -> SkelSample:
+                      max_joints: int = 48, device="cuda",
+                      edge_tile: Optional[int] = None) -> SkelSample:
     """A padded SkelSample on `device` (the card unless the caller asks for
     another).  With `rigs`, labels come from GT adjacency and the GT root;
-    otherwise they are zero (inference)."""
+    otherwise they are zero (inference).  `edge_tile`: the mesh batch
+    carries it where every table is local at it (`nn.gcu.windowed_tile`),
+    so its edge layers run the windowed K5."""
     max_pairs = max_joints * (max_joints - 1) // 2
     Bn = len(mesh_entries)
     joints_a = np.zeros((Bn, max_joints, 3), np.float32)
@@ -71,18 +75,21 @@ def build_skel_sample(mesh_entries: Sequence[dict], joints_list: Sequence[np.nda
         return torch.as_tensor(x, device=device)
 
     return SkelSample(
-        mesh=stack_meshes(list(mesh_entries), device),
+        mesh=stack_meshes(list(mesh_entries), device,
+                          edge_tile=windowed_tile(mesh_entries, edge_tile)),
         joints=dev(joints_a), joints_mask=dev(joints_m), pairs=dev(pairs_a),
         pair_mask=dev(pairs_m), pair_attr=dev(attr_a), pair_label=dev(label_a),
         root_idx=dev(root_a))
 
 
 def capsule_skel_dataset(num_models: int = 2, max_joints: int = 16, device="cuda",
-                         **kw) -> SkelSample:
+                         edge_tile: Optional[int] = None, **kw) -> SkelSample:
     """One SkelSample over synthetic capsules (`capsule_rig_dataset`'s meshes,
-    GT joints and labels; `kw` goes to it), on `device`."""
+    GT joints and labels; `kw` goes to it), on `device`, stacked with
+    `edge_tile` where its tables are local at it."""
     from morig_tpu_torch.data.rig import capsule_rig_dataset
 
     ds = capsule_rig_dataset(num_models=num_models, **kw)
     return build_skel_sample(ds._mesh_cache, [m.rig.pos for m in ds.models],
-                             [m.rig for m in ds.models], max_joints=max_joints, device=device)
+                             [m.rig for m in ds.models], max_joints=max_joints, device=device,
+                             edge_tile=edge_tile)

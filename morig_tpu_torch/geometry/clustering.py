@@ -7,7 +7,8 @@ without voxel containment.  Host end (numpy, copied as it is because the JAX mod
 `nms_modes`, `symmetrize_reflect`, `flip_joints`, `nms_flip_host`.
 `extract_joints` is the single-mesh procedure: host filtering and
 reflection, then the device bandwidth and mean-shift on the one unpadded
-cloud, then host NMS and flip.
+cloud, then host NMS and flip; `extract_joints_batch` is its padded-batch
+form, one device pass over the batch.
 """
 from __future__ import annotations
 
@@ -216,3 +217,45 @@ def extract_joints(shifted_pts: np.ndarray, attn: np.ndarray, inside_fn=None,
     if symmetrize:
         modes, _ = flip_joints(modes)
     return modes
+
+
+def extract_joints_batch(shifted: np.ndarray, attn: np.ndarray, valid_mask: np.ndarray,
+                         inside_fns=None, bandwidth_quantile: float = 0.04,
+                         attn_keep_threshold: float = 0.1, density_threshold: float = 0.02,
+                         attn_nms_threshold: float = 0.7, meanshift_iters: int = 30,
+                         symmetrize: bool = True, bandwidth_sample_rows: int = 0,
+                         device="cuda") -> list:
+    """The padded-batch form of `extract_joints`: shifted (B,V,3), attn
+    (B,V) and valid_mask (B,V) -> per mesh its joints (J, 3).  Host
+    filtering (attention min-max over the valid points, `inside_fns[i]`
+    where given, `attn_keep_threshold`) and reflection as masks, then one
+    batched bandwidth, mean-shift and density count on `device` over the
+    whole padded batch (masked points neither attract nor count), then host
+    NMS and flip per mesh."""
+    Bn = attn.shape[0]
+    shifted = np.asarray(shifted, np.float32)
+    attn = np.asarray(attn, np.float64)
+    sel = np.asarray(valid_mask, bool).copy()
+    attn_n = np.zeros_like(attn)
+    for i in range(Bn):
+        a, v = attn[i], sel[i]
+        if v.any():
+            lo, hi = a[v].min(), a[v].max()
+            attn_n[i] = (a - lo) / (hi - lo) if hi - lo > 1e-10 else a
+        if inside_fns is not None and inside_fns[i] is not None:
+            sel[i] &= np.asarray(inside_fns[i](shifted[i]), bool)
+        sel[i] &= attn_n[i] > attn_keep_threshold
+    if symmetrize:
+        pts2 = np.concatenate([shifted, shifted * np.array([[[-1.0, 1.0, 1.0]]], np.float32)], 1)
+        attn2, sel2 = np.concatenate([attn_n, attn_n], 1), np.concatenate([sel, sel], 1)
+    else:
+        pts2, attn2, sel2 = shifted, attn_n, sel
+    p = torch.as_tensor(pts2, device=device)
+    m = torch.as_tensor(sel2, device=device)
+    bw = estimate_bandwidth(p, m, bandwidth_quantile, bandwidth_sample_rows)
+    moved = meanshift_cluster(p, bw, torch.as_tensor(attn2, dtype=torch.float32, device=device),
+                              m, meanshift_iters)
+    within = (pairwise_sqdist(moved, moved) <= (bw * bw)[:, None, None]) & m[:, None, :]
+    counts = within.sum(2) * m
+    return nms_flip_host(moved.cpu().numpy(), bw.cpu().numpy(), counts.cpu().numpy(), attn2,
+                         sel2, density_threshold, attn_nms_threshold, symmetrize)

@@ -1,9 +1,10 @@
 """Surface geodesics (host) and volumetric vertex-to-bone geodesics —
 counterpart of morig_tpu/geometry/geodesic.py.
 
-`fps_numpy` and `surface_geodesic` are host copies: the surface is sampled,
-each sample joined to its nearest neighbours whose normals are not opposed,
-and all-pairs Dijkstra runs in the repository's C++ code.
+`vertex_normals`, `fps_numpy` and `surface_geodesic` are host copies: the
+surface is sampled, each sample joined to its nearest neighbours whose
+normals are not opposed, and all-pairs Dijkstra runs in the repository's
+C++ code.
 `vertex_bone_geodesic` is the one-mesh host form (the line of sight on a
 device, the per-bone fallback in numpy), which the rig datasets use;
 `vertex_bone_geodesic_device` is the served form, batched over meshes.
@@ -20,6 +21,18 @@ from morig_tpu_torch.geometry.bones import (point_to_segment_dist, prune_far_vis
 from morig_tpu_torch.geometry.voxel import Voxels, segment_inside_fraction, vox_to_device
 
 POS = 1e30
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """(V, 3) unit vertex normals: the sum of the (area-weighted) normals of
+    the faces around each vertex, normalized."""
+    fn = np.cross(verts[faces[:, 1]] - verts[faces[:, 0]],
+                  verts[faces[:, 2]] - verts[faces[:, 0]])
+    vn = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    n = np.linalg.norm(vn, axis=1, keepdims=True)
+    return vn / np.maximum(n, 1e-12)
 
 
 def fps_numpy(pts: np.ndarray, k: int, start: int = 0) -> np.ndarray:

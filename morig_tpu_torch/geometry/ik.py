@@ -165,3 +165,9 @@ def make_ik_solver_masked(max_depth: int, cfg: IKConfig):
         return locals_out, G, q
 
     return solve
+
+
+def ik_objective_weights(vismask: torch.Tensor, threshold: float, w_invis: float) -> torch.Tensor:
+    """Per-vertex weights of the IK objective: 1 where the vertex is visible
+    (vismask above `threshold`), `w_invis` where it is not."""
+    return torch.where(vismask > threshold, 1.0, w_invis)

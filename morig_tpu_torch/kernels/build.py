@@ -49,6 +49,8 @@ _SIGNATURES = {
     "knn_topk": [_P] * 5 + [_I] * 5 + [_P],
     # values, idx, out, B, N, M, C, vec, stream
     "gather_rows_forward": [_P] * 3 + [_I] * 5 + [_P],
+    # rows, bf16, edge_db, order, offsets, out, R, C, stream
+    "row_scatter": [_P, _I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -17,8 +17,10 @@ local (`check_neighbor_locality`).  Both run the wgmma step code
 with an in-kernel recompute of the forward on K1's own step code, bit for
 bit, so that its max routes by exact equality (dW2 in a kernel of its own
 over scratch tiles the main kernel writes; `fused_edge_mlp_dw2` runs it
-alone), and `fused_edge_mlp_trainable` the autograd Function of the
-training path: forward K1, backward K6.  Each launches its CUDA kernel
+alone; db_table by the ordered row scatter of kernels/gather_fused.py, so
+every gradient repeats bit for bit), and `fused_edge_mlp_trainable` the
+autograd Function of the training path: forward K1, or K5 on tables local
+at a tile, backward K6.  Each launches its CUDA kernel
 (csrc/edge_mlp.cu, csrc/edge_mlp_bwd.cu) for a CUDA tensor and runs its
 plain version (`edge_mlp_plain`, `edge_mlp_windowed_plain`,
 `edge_mlp_bwd_plain`) for a CPU tensor.
@@ -31,7 +33,8 @@ import numpy as np
 import torch
 
 from morig_tpu_torch.kernels import build as kb
-from morig_tpu_torch.kernels.gather_fused import scatter_rows
+from morig_tpu_torch.kernels.gather_fused import (reverse_table, row_scatter_launch,
+                                                  scatter_rows_plain)
 
 LN_EPS = 1e-6
 MAX_DEGREE = 16
@@ -254,7 +257,7 @@ def _bwd_plain_parts(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: b
     dh = torch.matmul(rnd(ds), rnd(w2).t())
     dw2 = torch.einsum("bvdi,bvdo->io", rnd(h), rnd(ds))
     dx = torch.where(x > 0, _ln_bwd(dh, g1, xn1, inv1), torch.zeros_like(x))
-    db = scatter_rows(nbr, rnd(dx), b.shape[1])
+    db = scatter_rows_plain(nbr, rnd(dx), b.shape[1])
     dims = (0, 1, 2)
     grads = (dx.sum(2), db, dw2, ds.sum(dims), (dh * xn1).sum(dims), dh.sum(dims),
              (dy * xn2).sum(dims), dy.sum(dims))
@@ -390,13 +393,18 @@ fused_edge_mlp_dw2.launches = 0
 
 
 def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout,
-                       return_forward: bool = False):
-    """K6.  Same arguments (a, b bf16) and result as `edge_mlp_bwd_plain`;
-    db_table is summed with fp32 atomics, so its last bits vary between
-    runs; the other gradients are deterministic.  Four launches (the main
-    kernel, the dW2 kernel over its scratch tiles and two fixed-order sums),
-    counted as one.  `return_forward` (for the tests of the route's
-    invariant): also return the forward K6 recomputed, (B,V,H2) fp32 —
+                       return_forward: bool = False, rev=None):
+    """K6.  Same arguments (a, b bf16) and result as `edge_mlp_bwd_plain`,
+    every gradient summed in an order fixed for a given grid, so a call
+    repeats bit for bit: db_table by the ordered row scatter over the
+    per-edge bf16(dx) rows the main kernel writes, each table row adding its
+    edges in (v, d) order over `rev`, the table's (order, offsets) from
+    `reverse_table(nbr, V, mask)` (built here when not given; a MeshBatch
+    holds its tables'), dW2 and the vectors by fixed-order sums of partials.
+    Five launches (the main kernel, the dW2 kernel over its scratch tiles,
+    two fixed-order sums and the ordered scatter), counted as one.
+    `return_forward` (for the tests of the route's invariant): also return
+    the forward K6 recomputed, (B,V,H2) fp32 —
     the per-vertex max its route compares against, which equals
     `fused_edge_mlp`'s output bit for bit — as (gradients, forward)."""
     if not a.is_cuda:
@@ -419,17 +427,20 @@ def fused_edge_mlp_bwd(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout,
     vpt = STEP_ROWS // D
     n_steps = B * -(-V // vpt)
     f32 = dict(dtype=torch.float32, device=a.device)
-    da, db = torch.empty((B, V, H1), **f32), torch.zeros((B, V, H1), **f32)
+    da = torch.empty((B, V, H1), **f32)
+    dxe = torch.empty((B * V * D, H1), dtype=torch.bfloat16, device=a.device)
     dw2, vec = torch.empty((H1, H2), **f32), torch.empty(2 * H1 + 3 * H2, **f32)
     scratch = torch.empty((n_steps, 2 * STEP_ROWS * H1), dtype=torch.bfloat16, device=a.device)
     live = torch.empty(n_steps, dtype=torch.uint8, device=a.device)
     dw2_part = torch.empty((splits.value, H1, H2), **f32)
     vec_part = torch.empty((grid.value, vec.numel()), **f32)
-    ptrs = [t.data_ptr() for t in args[:5] + [vecs, dout, da, db, dw2, vec, scratch, live,
+    ptrs = [t.data_ptr() for t in args[:5] + [vecs, dout, da, dxe, dw2, vec, scratch, live,
                                               dw2_part, vec_part]]
     err = lib.edge_mlp_backward(*ptrs, ymax.data_ptr() if return_forward else None, B, V, D, H1,
                                 H2, grid.value, splits.value, kb.stream(a.device))
     kb.check(err, "edge_mlp_backward")
+    order, offsets = rev if rev is not None else reverse_table(nbr, V, mask)
+    db = row_scatter_launch(dxe, order, offsets, B * V, edge_db=True).reshape(B, V, H1)
     fused_edge_mlp_bwd.launches += 1
     dg1, dbe1, db2, dg2, dbe2 = torch.split(vec, [H1, H1, H2, H2, H2])
     grads = da, db, dw2, db2, dg1, dbe1, dg2, dbe2
@@ -440,25 +451,43 @@ fused_edge_mlp_bwd.launches = 0
 
 
 class _TrainableTail(torch.autograd.Function):
-    """Forward K1 on bf16(a), bf16(b); backward K6, whose recompute repeats
-    K1's bits.  The gradients of a and b return to the fp32 inputs as
-    through the cast."""
+    """Forward K1 on bf16(a), bf16(b), or K5 at `tile_v` where one is given;
+    backward K6 on the whole table, whose recompute repeats the forward's
+    bits (K5 on tables local at its tile computes K1's function with K1's
+    step code, bit for bit).  The gradients of a and b return to the fp32
+    inputs as through the cast.  `order`, `offsets`: the table's reverse
+    table for K6's db_table, or None."""
 
     @staticmethod
-    def forward(ctx, a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+    def forward(ctx, a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v, order, offsets):
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        ctx.save_for_backward(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
+        ctx.save_for_backward(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2, order, offsets)
+        if tile_v:
+            return fused_edge_mlp_windowed(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2,
+                                           tile_v=tile_v)
         return fused_edge_mlp(a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2)
 
     @staticmethod
     def backward(ctx, dout):
-        a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2 = ctx.saved_tensors
+        a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2, order, offsets = ctx.saved_tensors
+        rev = None if order is None else (order, offsets)
         da, db, dw2, db2, dg1, dbe1, dg2, dbe2 = fused_edge_mlp_bwd(
-            a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2, dout.float())
-        return da, db, None, None, dw2, db2, dg1, dbe1, dg2, dbe2
+            a16, b16, nbr, mask, w2, b2, g1, be1, g2, be2, dout.float(), rev=rev)
+        return da, db, None, None, dw2, db2, dg1, dbe1, dg2, dbe2, None, None, None
 
 
-def fused_edge_mlp_trainable(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
+def fused_edge_mlp_trainable(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v=None,
+                             rev=None):
     """The edge tail with gradients: a, b (B,V,H1) fp32 (rounded to bf16 for
-    the forward inside), the rest as `fused_edge_mlp`; returns (B,V,H2) fp32."""
-    return _TrainableTail.apply(a, b, nbr, mask, w2, b2, g1, be1, g2, be2)
+    the forward inside), the rest as `fused_edge_mlp`; returns (B,V,H2) fp32.
+    The forward is K1, or with `tile_v` the windowed K5 (the caller
+    guarantees tables local at it, `check_neighbor_locality`); the backward
+    is K6 either way, as the JAX package's
+    `fused_edge_mlp_trainable(..., windowed=True, pallas_bwd=True)`, its
+    db_table summed over `rev` (the table's reverse table, as a MeshBatch
+    holds it; built in the backward when None).  On a
+    CPU tensor the plain versions: `edge_mlp_plain` or
+    `edge_mlp_windowed_plain`, and `edge_mlp_bwd_plain`."""
+    order, offsets = (None, None) if rev is None else rev
+    return _TrainableTail.apply(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, tile_v, order,
+                                offsets)

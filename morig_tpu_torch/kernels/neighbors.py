@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows
+
 NEG = -1e30
 POS = 1e30
 
@@ -48,6 +50,19 @@ def knn(query, cand, k: int, cand_mask=None):
         score = torch.cat([score, torch.full(score.shape[:-1] + (pad,), NEG,
                                              dtype=score.dtype, device=score.device)], -1)
     return idx, score
+
+
+def knn_interpolate(x, pos_src, pos_tar, k: int = 3, src_mask=None, eps: float = 1e-8,
+                    train: bool = False):
+    """Inverse-distance-weighted kNN interpolation: (B,M,C) features at
+    (B,M,3) source positions -> (B,N,C) at (B,N,3) targets, each the mean of
+    its k nearest valid sources weighted by 1 / (d^2 + eps).  The rows are
+    gathered by K3 (`gather_rows`, fp32 x), in training by differentiable
+    indexing."""
+    idx, negd2 = knn(pos_tar, pos_src, k, cand_mask=src_mask)
+    w = 1.0 / (torch.clamp(-negd2, min=0.0) + eps)
+    w = w / w.sum(-1, keepdim=True)
+    return ((gather_plain if train else gather_rows)(x, idx) * w[..., None]).sum(2)
 
 
 def radius_group(centroids, points, r: float, max_neighbors: int, points_mask=None):
@@ -96,6 +111,16 @@ def random_starts(generator: torch.Generator | None, mask: torch.Tensor) -> torc
     u = torch.rand(mask.shape, generator=generator, device=generator.device)
     u = torch.where(mask.to(u.device), u, torch.full_like(u, -1.0))
     return u.argmax(dim=-1).to(mask.device)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int, eps: float = 1e-10) -> torch.Tensor:
+    """Mean over `dim` of the unmasked entries (mask a prefix of x's axes);
+    0 where all are masked."""
+    while mask.dim() < x.dim():
+        mask = mask[..., None]
+    num = torch.where(mask, x, torch.zeros_like(x)).sum(dim)
+    den = mask.to(x.dtype).sum(dim)
+    return num / torch.clamp(den, min=eps)
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:

@@ -2,12 +2,20 @@
 morig_tpu/losses/nce.py: the correspondence infoNCE (`info_nce`) and the
 multi-positive skin-similarity infoNCE of the rig and skin stages, split
 into its draw (`draw_multi_pos`, from a torch.Generator) and the loss on
-the drawn indices (`multi_pos_info_nce_drawn`)."""
+the drawn indices (`multi_pos_info_nce_drawn`).
+
+The gathers that carry a gradient (anchor rows, the logits of drawn
+positives and negatives) run through `gather_rows_trainable`: K3 forward and
+the ordered row scatter backward, so a training step repeats bit for bit;
+`torch.gather`'s backward on the card adds the gradients of a repeated
+index in no fixed order."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from morig_tpu_torch.kernels.gather_fused import gather_rows_trainable
 
 NEG = -1e30
 
@@ -25,9 +33,23 @@ def _masked_ce_rows(logits: torch.Tensor, labels: torch.Tensor,
     return torch.where(den > 0, num / torch.clamp(den, min=1.0), torch.zeros_like(num))
 
 
+def _takes_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def _rows(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B,V,C), (B,N) -> (B,N,C)."""
+    if _takes_grad(feature):
+        return gather_rows_trainable(feature, idx.long())
     return torch.gather(feature, 1, idx.long()[..., None].expand(-1, -1, feature.shape[-1]))
+
+
+def _take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """torch.gather(x, -1, idx) for (B,S,M) x and (B,S,K) idx."""
+    if not _takes_grad(x):
+        return torch.gather(x, -1, idx)
+    B, S, M = x.shape
+    return gather_rows_trainable(x.reshape(B * S, M, 1), idx.reshape(B * S, -1)).reshape(idx.shape)
 
 
 def info_nce(vtx_feature, pts_feature, corr_v2p, corr_v2p_mask, corr_p2v, corr_p2v_mask,
@@ -113,8 +135,8 @@ def multi_pos_info_nce_drawn(feature: torch.Tensor, gt_skin: torch.Tensor,
     row_ok, _, neg_mat = _skin_pairs(gt_skin, vert_mask, ids, sim_threshold)
     f = _rows(feature, ids)
     prod = torch.matmul(f, f.transpose(1, 2))                            # (B,S,S)
-    prod_pos = torch.gather(prod, 2, pos_ids)
-    lse_neg = torch.logsumexp(torch.gather(prod, 2, neg_ids), -1, keepdim=True)
+    prod_pos = _take_last(prod, pos_ids)
+    lse_neg = torch.logsumexp(_take_last(prod, neg_ids), -1, keepdim=True)
     ce = torch.logaddexp(prod_pos, lse_neg) - prod_pos                   # (B,S,num_pos)
     ok = (neg_mat.sum(-1) > 0) & row_ok
     ce = torch.where(ok[..., None], ce, torch.zeros_like(ce))

@@ -8,11 +8,14 @@ package's bf16 edge messages) and the per-edge tail runs in kernel K1, or in
 the windowed kernel K5 when the mesh batch carries an `edge_tile`
 (`auto_select_edge_impl`).  In training (`train=True`) both run in fp32 and
 the tail goes through `fused_edge_mlp_trainable`: K1 forward on bf16(a),
-bf16(b), K6 backward, at every width K1 takes.  The JAX package trains
-only 128-multiple widths through its kernels (its TPU lane tiling) and
-narrower ones in XLA; here all widths K1 takes train through K1 + K6, and
-the full table is used even where the batch carries an `edge_tile` (K5 has
-no backward; on local tables K5 and K1 compute the same function).
+bf16(b), or K5 where the batch carries an `edge_tile`, and K6 backward on
+the whole table either way (on tables local at the tile K5 computes K1's
+function bit for bit, which K6's max routing needs; K6 sums db_table over
+the reverse table the batch holds, `MeshBatch.tpl_rev`), at every width the
+kernels take: the JAX package's `set_edge_impl("fused")` and
+`set_edge_impl("windowed")` training.  The JAX package trains only
+128-multiple widths through its kernels (its TPU lane tiling) and narrower
+ones in XLA; here all widths the kernels take train through them.
 
 A layer whose widths the kernels do not take (`kernel_widths` false: the
 narrow layers of a net built with a small `width_scale`) runs K1's plain
@@ -60,6 +63,16 @@ def auto_select_edge_impl(entries: Sequence[dict], tile_v: int = 128) -> str:
         check_neighbor_locality(np.asarray(e[k])[None], tile_v=tile_v)
         for e in entries for k in ("tpl_nbr", "geo_nbr"))
     return "windowed" if local else "fused"
+
+
+def windowed_tile(entries: Sequence[dict], tile_v: Optional[int]) -> Optional[int]:
+    """The `edge_tile` to stack these mesh entries with: `tile_v` where
+    `auto_select_edge_impl(entries, tile_v)` says "windowed", None (the
+    full-table K1) where it says "fused" or no tile is asked for.  The
+    datasets' `edge_tile` option, the rule `predict_rig_batch` follows."""
+    if tile_v and auto_select_edge_impl(entries, tile_v) == "windowed":
+        return tile_v
+    return None
 
 
 def kernel_widths(h1: int, h2: int) -> bool:
@@ -127,10 +140,12 @@ class EdgeMLP(nn.Module):
         self.ln1_scale.fill_(1.0)
         self.ln1_bias.zero_()
 
-    def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None, train: bool = False):
-        """"layer" mode: in training K1 forward and K6 backward on fp32
-        lin_self/lin_nbr; at inference K5 at `edge_tile` when given, K1
-        otherwise; widths the kernels do not take: `plain_edge` in both.
+    def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None, train: bool = False,
+                rev=None):
+        """"layer" mode: K5 at `edge_tile` when given, K1 otherwise, in
+        training on fp32 lin_self/lin_nbr with K6 backward (its db_table
+        over `rev`, the table's reverse table, when given); widths the
+        kernels do not take: `plain_edge` in both.
         Other modes: the fp32 tail in PyTorch (`edge_tile` unused)."""
         if self.norm != "layer":
             a = self.lin_self(x)
@@ -146,10 +161,16 @@ class EdgeMLP(nn.Module):
         if not self.kernel_route:
             return plain_edge(*args)
         if train:
-            return fused_edge_mlp_trainable(*args)
+            return fused_edge_mlp_trainable(*args, tile_v=edge_tile, rev=rev)
         if edge_tile:
             return fused_edge_mlp_windowed(*args, tile_v=edge_tile)
         return fused_edge_mlp(*args)
+
+
+def reverse_tables(mesh: MeshBatch, train: bool):
+    """The batch's (tpl, geo) reverse tables, which K6 reads in training;
+    (None, None) at inference."""
+    return (mesh.tpl_rev, mesh.geo_rev) if train else (None, None)
 
 
 class EdgeConv(nn.Module):
@@ -159,8 +180,8 @@ class EdgeConv(nn.Module):
         super().__init__()
         self.nn_pos = EdgeMLP(fin, channels)
 
-    def forward(self, x, nbr, nbr_mask, edge_tile=None, train: bool = False):
-        return self.nn_pos(x, nbr, nbr_mask, edge_tile, train)
+    def forward(self, x, nbr, nbr_mask, edge_tile=None, train: bool = False, rev=None):
+        return self.nn_pos(x, nbr, nbr_mask, edge_tile, train, rev)
 
 
 class GCU(nn.Module):
@@ -174,8 +195,9 @@ class GCU(nn.Module):
         self.mlp = MLP(2 * half, [out_channels])
 
     def forward(self, x, mesh: MeshBatch, train: bool = False):
-        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train)
-        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train)
+        tpl_rev, geo_rev = reverse_tables(mesh, train)
+        x_tpl = self.edge_conv_tpl(x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train, tpl_rev)
+        x_geo = self.edge_conv_geo(x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train, geo_rev)
         return self.mlp(torch.cat([x_tpl, x_geo], -1), mesh.vert_mask, train)
 
 
@@ -187,9 +209,9 @@ class EdgeConvMotion(nn.Module):
         self.nn_x = EdgeMLP(x_in, x_channels)
         self.nn_pos = EdgeMLP(pos_in, pos_channels)
 
-    def forward(self, pos, x, nbr, nbr_mask, edge_tile=None, train: bool = False):
-        return torch.cat([self.nn_x(x, nbr, nbr_mask, edge_tile, train),
-                          self.nn_pos(pos, nbr, nbr_mask, edge_tile, train)], -1)
+    def forward(self, pos, x, nbr, nbr_mask, edge_tile=None, train: bool = False, rev=None):
+        return torch.cat([self.nn_x(x, nbr, nbr_mask, edge_tile, train, rev),
+                          self.nn_pos(pos, nbr, nbr_mask, edge_tile, train, rev)], -1)
 
 
 class GCUMotion(nn.Module):
@@ -204,6 +226,9 @@ class GCUMotion(nn.Module):
         self.mlp = MLP(2 * (half + dim_pos_feat), [out_channels])
 
     def forward(self, pos, x, mesh: MeshBatch, train: bool = False):
-        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train)
-        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train)
+        tpl_rev, geo_rev = reverse_tables(mesh, train)
+        x_tpl = self.edge_conv_tpl(pos, x, mesh.tpl_nbr, mesh.tpl_mask, mesh.edge_tile, train,
+                                   tpl_rev)
+        x_geo = self.edge_conv_geo(pos, x, mesh.geo_nbr, mesh.geo_mask, mesh.edge_tile, train,
+                                   geo_rev)
         return self.mlp(torch.cat([x_tpl, x_geo], -1), mesh.vert_mask, train)

@@ -15,11 +15,14 @@ standard deviations), zero biases, norm scales one and offsets zero, zero
 heads where `zero_init`.  `init_parameters` walks a module tree and
 re-initializes every parameter from one torch.Generator.
 
-Precision: in "layer" mode MLP matmuls run in bf16 on the GPU and fp32 on
-the CPU at inference, in fp32 in training (the JAX package's
-`infer_matmul_dtype`); LayerNorm statistics and outputs are fp32 (eps 1e-6,
-flax's E[x^2] - E[x]^2 variance).  In "batch" and "none" mode every matmul
-is fp32, on the GPU too.
+Precision: in "layer" mode MLP matmuls run in fp32 in training and at
+inference in the dtype `set_inference_dtype` selects (the JAX package's
+`infer_matmul_dtype`): "auto" (the default) bf16 on the GPU and fp32 on
+the CPU, "bf16" everywhere, "f32" everywhere; LayerNorm statistics and
+outputs are fp32 (eps 1e-6, flax's E[x^2] - E[x]^2 variance).  In "batch"
+and "none" mode every matmul is fp32, on the GPU too.  The edge layers'
+messages (nn/gcu.py) stay bf16 at inference whatever the setting, as the
+JAX package's `edge_dtype` does.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from morig_tpu_torch.nn.norm import MaskedBatchNorm
 
 NORMS = ("layer", "batch", "none")
 _DEFAULT_NORM = "layer"
+INFERENCE_DTYPES = ("auto", "bf16", "f32")
+_INFER_DTYPE = "auto"
 _TRUNC_STD = 0.87962566103423978   # std of a standard normal truncated at +-2
 
 
@@ -48,6 +53,21 @@ def set_default_norm(name: str) -> None:
 
 def get_default_norm() -> str:
     return _DEFAULT_NORM
+
+
+def set_inference_dtype(name: str) -> None:
+    """Set the process-wide matmul precision of the "layer"-mode MLP layers
+    at inference: "auto" (bf16 on the GPU, fp32 on the CPU), "bf16" or
+    "f32".  Read at every call; training and the other norm modes compute
+    in fp32 whatever it says."""
+    global _INFER_DTYPE
+    if name not in INFERENCE_DTYPES:
+        raise ValueError(f"inference dtype must be one of {INFERENCE_DTYPES}, got {name!r}")
+    _INFER_DTYPE = name
+
+
+def get_inference_dtype() -> str:
+    return _INFER_DTYPE
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -70,9 +90,13 @@ def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
 
 def matmul_dtype(x: torch.Tensor, train: bool = False) -> torch.dtype:
     """Matmul dtype of the "layer"-mode MLP layers: fp32 in training; at
-    inference bf16 on the GPU and fp32 on the CPU.  The other modes compute
-    in fp32 (`MLP.compute_dtype`)."""
-    return torch.bfloat16 if x.is_cuda and not train else torch.float32
+    inference as `set_inference_dtype` says ("auto": bf16 on the GPU, fp32
+    on the CPU).  The other modes compute in fp32 (`MLP.compute_dtype`)."""
+    if train or _INFER_DTYPE == "f32":
+        return torch.float32
+    if _INFER_DTYPE == "bf16":
+        return torch.bfloat16
+    return torch.bfloat16 if x.is_cuda else torch.float32
 
 
 class Dense(nn.Module):

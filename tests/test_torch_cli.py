@@ -89,10 +89,14 @@ def test_cli_flags_are_the_jax_clis(cmd):
     ports = _port_flags()
     assert set(ports) == {"train", "eval", "predict-rig", "track"}
     ref = set(re.findall(r"(--[a-z][a-z-]+)", _help(jcli.main, [cmd]))) - {"--help"}
-    assert ports[cmd] == (ref - NOT_CARRIED_OVER) | {"--device"}
+    # `train --edge-impl fused|windowed` picks the training forward (K1 or K5)
+    carried = {"--edge-impl"} if cmd == "train" else set()
+    assert ports[cmd] == (ref - NOT_CARRIED_OVER) | {"--device"} | carried
 
 
-@pytest.mark.parametrize("argv", [["--edge-impl", "fused"], ["--edge-bwd", "pallas"],
+# the JAX CLI's `--edge-impl xla` (and "auto") has no counterpart: the port
+# trains through its kernels, K1 or K5
+@pytest.mark.parametrize("argv", [["--edge-impl", "xla"], ["--edge-bwd", "pallas"],
                                   ["--knn-impl", "fused"], ["--platform", "cpu"],
                                   ["--scan-epochs", "2"]])
 def test_cli_rejects_jax_only_flags(argv):

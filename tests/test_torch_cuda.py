@@ -602,8 +602,8 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
     calls = []
     original = gcu.fused_edge_mlp_trainable
 
-    def record(a, b, nbr, mask, *params):
-        y = original(a, b, nbr, mask, *params)
+    def record(a, b, nbr, mask, *params, **kw):
+        y = original(a, b, nbr, mask, *params, **kw)
         entry = [(a.detach().to(torch.bfloat16), b.detach().to(torch.bfloat16), nbr, mask,
                   *(q.detach().clone() for q in params)), None]
         y.register_hook(lambda d, e=entry: e.__setitem__(1, d.detach().float().clone()))
@@ -1120,3 +1120,163 @@ def test_frozen_extractor_keeps_its_statistics_on_card(cuda, batch_mode):
     after = list(ext.parameters()) + list(ext.buffers())
     assert len(before) == len(after) and all(torch.equal(a, b) for a, b in zip(before, after))
     assert any(not torch.equal(a, b) for a, b in zip(comp_stats, comp.buffers()))
+
+
+# ---------------------------------------------------------------------------
+# Repeatable training: the ordered row scatter, K6 bit for bit, the K5
+# trainable, and whole steps run twice
+# ---------------------------------------------------------------------------
+
+def _scatter_case(dev, case):
+    """(idx, rows, n, mask): K2's backward shapes (the vismask 1-NN: 4 x 2048
+    vertex queries into 1024 points, 64 wide; the completion's k=3 gather of
+    3-wide values) and K6's training tables (B=4, V=2048, D=16, 1298 valid
+    rows, bf16 dx rows at H=256)."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    if case == "knn_vismask":
+        idx = torch.randint(0, 1024, (4, 2048, 1), device=dev, generator=g)
+        return idx, torch.randn(4, 2048, 1, 64, device=dev, generator=g), 1024, None
+    if case == "knn_values":
+        idx = torch.randint(0, 300, (4, 1024, 3), device=dev, generator=g)
+        return idx, torch.randn(4, 1024, 3, 3, device=dev, generator=g), 300, None
+    B, V, D = 4, 2048, 16
+    v = torch.arange(V, device=dev)[None, :, None]
+    idx = (v + torch.randint(-20, 21, (B, V, D), device=dev, generator=g)).clamp(0, 1297)
+    mask = torch.rand(B, V, D, device=dev, generator=g) < 0.8
+    mask[:, 1298:] = False
+    rows = torch.randn(B, V, D, 256, device=dev, generator=g).to(torch.bfloat16)
+    return idx, rows, V, mask
+
+
+@pytest.mark.parametrize("case", ["knn_vismask", "knn_values", "k6_tables"])
+def test_row_scatter_is_ordered(cuda, case):
+    """The ordered row scatter against `index_add_`: on the card (atomics in
+    no fixed order) within fp32 summation order, 1e-5 of the largest sum;
+    against the CPU's `index_add_` (sequential, the kernel's order) and
+    against itself run twice, bit for bit.  K6's case goes through the
+    reverse table of a masked table and the kernel's bf16 rows."""
+    idx, rows, n, mask = _scatter_case(cuda, case)
+    before = gf.scatter_rows.launches
+    if mask is None:
+        got = [gf.scatter_rows(idx, rows, n) for _ in range(2)]
+        assert gf.scatter_rows.launches == before + 2
+    else:
+        order, offsets = gf.reverse_table(idx, n, mask)
+        again = gf.reverse_table(idx, n, mask)                   # built again, the same
+        assert torch.equal(again[0], order) and torch.equal(again[1], offsets)
+        flat = rows.reshape(-1, rows.shape[-1])
+        got = [gf.row_scatter_launch(flat, order, offsets, idx.shape[0] * n).reshape(
+            idx.shape[0], n, -1) for _ in range(2)]
+        rows = rows * mask[..., None]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    ref = gf.scatter_rows_plain(idx, rows, n)
+    assert (got[0] - ref).abs().max() <= 1e-5 * max(ref.abs().max().item(), 1.0)
+    assert torch.equal(got[0].cpu(), gf.scatter_rows_plain(idx.cpu(), rows.cpu(), n))
+
+
+def _training_tables(dev, H, D, seed, local=False):
+    """K6's training tables: B=4, V=2048 with 1298 valid rows, degree D; with
+    `local`, every neighbour inside its 128-vertex tile's window."""
+    args = (_windowed_args(dev, H, D, 128, 2048, seed=seed, B=4, leave=False) if local
+            else _edge_args(dev, H, B=4, V=2048, D=D, seed=seed))
+    args[3][:, 1298:] = False
+    dout = torch.randn(4, 2048, H, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    return args, dout
+
+
+@pytest.mark.parametrize("H", WIDTHS)
+def test_edge_mlp_bwd_repeats_bit_for_bit(cuda, H):
+    """K6 twice on the training tables (D=16): every gradient, db_table
+    included, equal bit for bit; and within the plain version's bounds."""
+    args, dout = _training_tables(cuda, H, 16, seed=H)
+    first = ef.fused_edge_mlp_bwd(*args, dout)
+    again = ef.fused_edge_mlp_bwd(*args, dout)
+    torch.cuda.synchronize()
+    for name, x, y in zip(K6_NAMES, first, again):
+        assert torch.equal(x, y), name
+    assert_k6_close(first, ef.edge_mlp_bwd_plain(*args, dout))
+
+
+@pytest.mark.parametrize("D", [12, 16])
+@pytest.mark.parametrize("H", WIDTHS)
+def test_k5_is_k6_recomputed_forward_on_local_tables(cuda, H, D):
+    """The K5 trainable's invariant: on tables local at the tile (B=4,
+    V=2048, TV=128, the training shapes), K5's output equals the forward K6
+    recomputes (the max its route compares against) bit for bit."""
+    args, dout = _training_tables(cuda, H, D, seed=H + D, local=True)
+    k5 = ef.fused_edge_mlp_windowed(*args, tile_v=128)
+    _, ymax = ef.fused_edge_mlp_bwd(*args, dout, return_forward=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k5, ymax)
+
+
+def test_windowed_trainable_launches_k5_and_k6(cuda):
+    """fused_edge_mlp_trainable with a tile: forward K5 (counted there, not
+    as K1), backward K6; on local tables its output and gradients equal the
+    K1 trainable's bit for bit."""
+    args, dout = _training_tables(cuda, 64, 16, seed=7, local=True)
+    a, b, nbr, mask, *params = args
+    runs = []
+    for tile in (128, None):
+        leaves = [t.detach().float().requires_grad_() for t in (a, b, *params)]
+        before = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
+                  ef.fused_edge_mlp_bwd.launches)
+        out = ef.fused_edge_mlp_trainable(leaves[0], leaves[1], nbr, mask, *leaves[2:],
+                                          tile_v=tile)
+        (out * dout).sum().backward()
+        torch.cuda.synchronize()
+        after = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_windowed.launches,
+                 ef.fused_edge_mlp_bwd.launches)
+        assert tuple(x - y for x, y in zip(after, before)) == ((0, 1, 1) if tile else (1, 0, 1))
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def _repro_stages(dev):
+    """The seven training steps at small sizes: (name, stage factory, batch,
+    norm mode of the networks)."""
+    from morig_tpu_torch.data.creature import creature_rig_dataset
+    from morig_tpu_torch.data.pose import capsule_pose_dataset
+    from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
+    from morig_tpu_torch.train.stages import (BoneStage, CorrPoseStage, DeformPoseStage,
+                                              RigStage, RootStage, SkinStage)
+
+    def corr():
+        stage = CorrPoseStage()
+        stage.train_vismask = True
+        return stage
+
+    pose = capsule_pose_dataset(num_models=2, num_frames=4, num_points=256, n_lat=17,
+                                n_lon=16).batch([0, 1], 0, 2, device=dev)
+    rig = creature_rig_dataset(num_models=2, seed=0, num_points=64,
+                               target_verts=600).batch([0, 1], device=dev)
+    skel = capsule_skel_dataset(2, max_joints=8, num_points=64, n_lat=9, n_lon=8, device=dev)
+    return [("corr", corr, pose, "layer"), ("deform", DeformPoseStage, pose, "layer"),
+            ("rig jointnet", lambda: RigStage(arch="jointnet"), rig, "layer"),
+            ("skin", SkinStage, rig, "layer"), ("bone", BoneStage, skel, "layer"),
+            ("root", RootStage, skel, "layer"), ("corr batch mode", corr, pose, "batch")]
+
+
+def test_training_steps_repeat_bit_for_bit(cuda):
+    """Each of the seven training steps (CorrPoseStage, DeformPoseStage,
+    RigStage jointnet, SkinStage, BoneStage, RootStage, and CorrPoseStage in
+    "batch" norm mode), a seeded init and two steps, run twice on the card:
+    every loss, gradient, parameter and running statistic equal bit for
+    bit.  A failure names the stage and the first tensor that differs."""
+    from morig_tpu_torch.nn import mlp
+    from morig_tpu_torch.train.repro import first_difference, run_steps
+
+    differing = {}
+    prev = mlp.get_default_norm()
+    try:
+        for name, make, batch, norm in _repro_stages(cuda):
+            mlp.set_default_norm(norm)
+            runs = [run_steps(make(), batch, 2, device=cuda) for _ in range(2)]
+            first = first_difference(*runs)
+            if first is not None:
+                differing[name] = first
+    finally:
+        mlp.set_default_norm(prev)
+    assert not differing, differing

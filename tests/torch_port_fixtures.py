@@ -146,11 +146,13 @@ def jax_fused_kernels():
 
 
 @contextlib.contextmanager
-def jax_training_kernels():
+def jax_training_kernels(edge_impl: str = "fused"):
     """Route the JAX package's training path through its Pallas kernels, in
     interpret mode on the CPU, as the port trains: every EdgeMLP tail through
-    the fused forward and the fused backward kernel (set_edge_impl("fused"),
-    set_edge_bwd("pallas")), and the kNN through the fused kernel with its
+    the fused forward (`edge_impl` "fused", or "windowed": the windowed
+    forward where V holds three tiles) and the fused backward kernel
+    (set_edge_impl(edge_impl), set_edge_bwd("pallas")), and the kNN through
+    the fused kernel with its
     VJP.  Three gates are patched: `gcu._fusable` (declines a CPU backend and
     widths below 128), `gcu._vmem_tile_bwd` (its TPU scoped-VMEM budget
     rejects H=256 at D=12, where the JAX side would silently take the
@@ -163,7 +165,7 @@ def jax_training_kernels():
     fusable, tile_bwd = jgcu._fusable, jgcu._vmem_tile_bwd
     trainable = jef.fused_edge_mlp_trainable
     jkf.set_knn_impl("fused")
-    jgcu.set_edge_impl("fused")
+    jgcu.set_edge_impl(edge_impl)
     jgcu.set_edge_bwd("pallas")
     jgcu._fusable = lambda channels, *_, **__: len(channels) == 2
     jgcu._vmem_tile_bwd = lambda *_, **__: 128

@@ -1,7 +1,7 @@
 """How reproducible morig_tpu_torch's `capsule_predictor` is on one NVIDIA
 GPU, and which of its trained networks moves the rig's joint count.
 
-    python3 tools/torch_demo_repro.py [--steps 12]
+    PYTHONPATH=. python3 tools/torch_demo_repro.py [--steps 12]
 
 Builds `capsule_predictor(train_steps=steps, seed=0)` on the card twice in
 one process, then twice more under `torch.use_deterministic_algorithms`
@@ -13,6 +13,12 @@ serves them), called twice on the first build.  Then each trained network
 of the pair's second build put alone into the first: the joint counts
 that gives, which names the networks whose difference moves the count.
 Prints one JSON line per pair.
+
+Every sum of the port's training steps is taken in a fixed order (K6's
+db_table and the backward of the gathers through the ordered row scatter),
+so both pairs show every parameter difference 0 and equal joint counts;
+with an atomic scatter the builds parted and the counts moved between runs.
+`chip_smoke.py` phase 16 checks the same bit for bit.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ width, the summed device ms of each of K6's kernels (`fused_edge_mlp_bwd`)
 and of the forward kernel that `fused_edge_mlp_trainable` launches (K1's
 `edge_mlp_table_kernel`, or on older trees the WMMA `edge_mlp_kernel` K6
 recomputed), each under torch.profiler over REPS calls, / REPS, and the
-sums over the four widths.  It makes its own inputs and profiles on its
+sums over the four widths (K6's kernels include the ordered sum of
+db_table, `edge_db_sum_kernel`, on trees that have it).  It makes its own inputs and profiles on its
 own, since it must run against packages older than chip_smoke.py's imports
 (K6 before its dW2 kernel, whose `sum_parts_kernel` it reads too).  Then,
 as a check that the training work leaves serving alone, K1
@@ -32,7 +33,7 @@ import torch
 
 REPS = 20
 WIDTHS = (16, 32, 128, 256)
-NAMES = ("edge_mlp_bwd_kernel", "edge_mlp_dw2_kernel", "sum_parts_kernel")
+NAMES = ("edge_mlp_bwd_kernel", "edge_mlp_dw2_kernel", "sum_parts_kernel", "edge_db_sum_kernel")
 FORWARD_NAMES = ("edge_mlp_table_kernel<", "edge_mlp_kernel<")   # K1; the older WMMA kernel
 
 
