@@ -191,6 +191,22 @@ Phases, each printing its own lines:
                step for step, and the medians side by side.
  18. f32     — path 1 with `set_inference_dtype("f32")`: phase 4's checks
                and counts, and its call median beside path 1's.
+ 19. parallel — data- and tensor-parallel training (last, after phase 8):
+               each of the seven stages' steps and the "batch"-mode
+               CorrPoseStage's (phases 6, 10 and 12's batches, seeded
+               random weights) on one device, then sharded at data = 2,
+               and DeformPoseStage and the "batch"-mode CorrPoseStage at
+               model = 2 and data = 2 x model = 2 (ranks spawned with
+               `parallel.sharding.spawn`: NCCL with one rank per card where
+               there are as many cards, else gloo with the ranks on the
+               cards, printed); each held to the one-device step on the
+               global batch (losses, every gradient before the clip,
+               running statistics) with rank 0's counts and its recorded
+               K1/K2/K3/K6/KS calls checked; the 2 x 2 deform step twice,
+               bit for bit (a difference names its collective); NCCL once
+               at world size 1; `dryrun_multichip(4)`.  Prints each step
+               median beside the one-device median, each rank's peak
+               memory, the backend and the ranks per card.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -224,8 +240,8 @@ the main paths' counted runs: path 1, path 2, the training step, the first
 timed step of each of phases 9-12 and 17 (its K5 steps) and phase 9's step
 with the extractor trained, phase 12's counted `eval_step`s, phase 13's
 calls, phase 14's timed calls and steps, phase 18's first timed call,
-phase 15's commands, the first timed single-mesh call and the two timed
-tracking runs; `ms` and
+phase 15's commands, the first timed single-mesh call, the two timed
+tracking runs and rank 0's first step of each phase-19 run; `ms` and
 `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
 `library_device_ms` the library call's, `composite_ms` and
@@ -238,6 +254,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -250,6 +267,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from morig_tpu_torch import cli, native
 from morig_tpu_torch.core.batch import build_mesh, pad_to, stack_meshes
@@ -281,6 +299,10 @@ from morig_tpu_torch.nn import corrnet, deformnet, gcu, pointnet
 from morig_tpu_torch.nn.corrnet import l2_normalize
 from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl
 from morig_tpu_torch.nn.mlp import get_default_norm, set_default_norm, set_inference_dtype
+from morig_tpu_torch.parallel import steps
+from morig_tpu_torch.parallel.dryrun import dryrun_multichip
+from morig_tpu_torch.parallel.sharding import (make_device_mesh, shard_batch, shard_state,
+                                               spawn)
 from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer, capsule_predictor
 from morig_tpu_torch.pipelines.tracking import BatchedTracker, Tracker, make_scanned_tracker
 from morig_tpu_torch.train.repro import first_difference, run_steps
@@ -2531,6 +2553,210 @@ def tracking(pred: RigPredictor, profile_phase: bool) -> dict:
 
 # kernel: (route, source, the TPU kernel it replaces).  The edge kernels K1,
 # K5 and K6's recompute run the wgmma step code of csrc/edge_wgmma.cuh.
+# ---------------------------------------------------------------------------
+# phase 19: data- and tensor-parallel training
+# ---------------------------------------------------------------------------
+
+# Each rank of a sharded step runs every layer on its rows, so its kernel
+# counts per step are the one-device step's (a tensor-parallel Dense is no
+# kernel's).
+PAR_STEPS = 5             # timed steps after the recorded one, sharded and on one device
+# Held against the one-device step on the global batch at the tolerances
+# tests/test_torch_*_train.py use between the port and JAX: the losses
+# within NETWORK's 2e-2 relative, each gradient within STEP_GRAD's 0.8
+# relative L2 (a missing gradient reaches 1; one below 1e-5 of the step's
+# largest, zero by the loss's form, relative to that bound), the whole
+# vector within STEP_GRAD_TOTAL's 0.3, the running statistics within 2e-2.
+# On the CPU the same steps agree to <= 1.6e-6 at data = 2 and to 7.1e-3
+# where a split layer's input gradient reaches the edge layers
+# (tests/test_torch_parallel*.py).  On the card a matmul over half the
+# rows may sum in another order than over all of them, so the last bits
+# of a rank's activations can differ from the one-device step's: a K2
+# selection near a tie or a bf16 rounding in K6 then moves, and through
+# 12-72 edge layers that reaches the gradients.  The measured errors are
+# printed.
+PAR_LOSS_RTOL, PAR_GRAD_L2, PAR_TOTAL_L2, PAR_STATS_L2 = 2e-2, 0.8, 0.3, 2e-2
+PAR_MESHES = (("data=2", 2, 1), ("model=2", 1, 2), ("data=2 x model=2", 2, 2))
+PAR_EVERY_MESH = ("deform", "corr batch mode")
+
+
+def parallel_cases(pose, rig, skel) -> dict:
+    """Phase 19's cases: the seven stages on phases 6, 10 and 12's batches
+    (CorrPoseStage with its visibility branch, as phase 6) and
+    CorrPoseStage in "batch" norm mode, each with its expected counts per
+    step; draws from a generator seeded 1.  The weights are
+    `weights.randomize_`'s, heads included: the fresh heads are zero, so a
+    first step's gradients would be zero behind them, and the motion
+    stages' embeddings would sit at l2_normalize's zero vector, whose
+    gradient is scaled by 1e6, where a sum over the batch in another order
+    moves the motion head's gradient by up to 2x."""
+    pb, rb, sb = (functools.partial(steps.stored_batch, steps.batch_bytes(b))
+                  for b in (pose, rig, skel))
+    corr = functools.partial(steps.corr_stage, True)
+    C = functools.partial(steps.StepCase, randomize=7)
+    return {c.name: (c, e) for c, e in (
+        (C("corr", corr, pb), EXPECTED_TRAIN),
+        (C("deform", DeformPoseStage, pb), EXPECTED_DEFORM),
+        (C("rig jointnet", functools.partial(RigStage, arch="jointnet"), rb), EXPECTED_MOTION),
+        (C("rig masknet", functools.partial(RigStage, arch="masknet"), rb), EXPECTED_MOTION),
+        (C("skin", SkinStage, rb), EXPECTED_MOTION),
+        (C("bone", BoneStage, sb), EXPECTED_SKEL),
+        (C("root", RootStage, sb), EXPECTED_SKEL),
+        (C("corr batch mode", corr, pb, norm="batch"), EXPECTED_BATCH_CORR))}
+
+
+@contextlib.contextmanager
+def counted_first_step(counts: dict, calls: dict, kcalls: dict):
+    """Around a rank's first step: the kernel counts zeroed before it and
+    read after it into `counts`, its edge-layer calls recorded into
+    `calls` and its K1/K2/K3/KS calls into `kcalls`."""
+    zero_stage_counts()
+    with recording_training_calls(calls), recording_kernel_calls(kcalls):
+        yield
+    counts.update(read_stage_counts())
+
+
+def parallel_rank(rank: int, device, data: int, model: int, cases, repeat: bool) -> list:
+    """One rank of phase 19 (`parallel.sharding.spawn`): an all-reduce over
+    the world, then each case's sharded step (`parallel.steps.run_case`,
+    1 + PAR_STEPS steps).  Rank 0 counts and records its first step and
+    holds the recorded kernel calls to their plain versions.  With
+    `repeat`, the first case again: a sharded init and REPRO_STEPS steps,
+    twice, and the first tensor in which the runs part (None: equal bit
+    for bit)."""
+    mesh = make_device_mesh(data, model)
+    one = torch.ones(1, device=device)
+    dist.all_reduce(one)
+    if int(one.item()) != data * model:
+        raise AssertionError(f"rank {rank}: all_reduce of ones over the world gave {one.item()}")
+    out = []
+    for case, expected in cases:
+        counts, calls, kcalls = {}, {}, {}
+        first = (lambda: counted_first_step(counts, calls, kcalls)) if rank == 0 else None
+        rec = steps.run_case(case, device, mesh, 1 + PAR_STEPS, grads=rank == 0, on_first=first)
+        if rank == 0:
+            name = f"parallel {case.name} ({data} x {model}) rank 0"
+            print(f"{name} kernel launches in its first step: {counts}, expected {expected}")
+            check_counts(name, counts, expected)
+            if calls:                  # "batch" norm mode: no edge kernel
+                check_recorded_training(name, calls)
+            if kcalls:
+                check_recorded(name, kcalls)
+            rec["counts"] = counts
+        out.append(rec)
+        del calls, kcalls
+    if repeat:
+        case = cases[0][0]
+        runs = []
+        for _ in range(2):
+            stage, state = steps.build(case, device)
+            state = shard_state(state, mesh, tensor_parallel=model > 1, reinit_opt=True)
+            runs.append(run_steps(stage, shard_batch(case.batch(device), mesh), REPRO_STEPS,
+                                  make_state=lambda s=state: s, mesh=mesh))
+        out.append({"first_difference": first_difference(*runs), "tensors": len(runs[0])})
+    return out
+
+
+def collective_of(name: str, model: int) -> str:
+    """The collective behind the first tensor two sharded runs part in (a
+    `run_steps` record's name)."""
+    if name.startswith("buffer"):
+        return "MaskedBatchNorm's all-reduce of the moments over the data group"
+    if " grad " in name or name.startswith("param"):
+        return ("the data group's all-reduce of the gradients"
+                + (" or the model group's all-reduce of a split layer's input gradient"
+                   if model > 1 else ""))
+    return "the data group's all-reduce of the losses"
+
+
+def rank_devices(world: int) -> tuple[str, list]:
+    """Phase 19's backend and cards for `world` ranks: NCCL with one rank
+    per card where there are as many cards, else gloo with the ranks on the
+    cards in turn (all on cuda:0 with one card)."""
+    cards = torch.cuda.device_count()
+    if cards >= world:
+        return "nccl", [f"cuda:{i}" for i in range(world)]
+    return "gloo", [f"cuda:{i}" for i in range(cards)]
+
+
+def hold_parallel(label: str, name: str, got: dict, ref: dict, others: list) -> None:
+    """A sharded step's record against the one-device step's, at the PAR_*
+    tolerances; the other ranks' losses must be rank 0's.  Prints the
+    errors and the step medians."""
+    cmp = steps.compare(got, ref)
+    worst = max(cmp["per"], key=cmp["per"].get)
+    stats = max((steps.rel_l2(got["buffers"][n], b) for n, b in ref["buffers"].items()),
+                default=0.0)
+    med, ref_med = float(np.median(got["ms"])), float(np.median(ref["ms"]))
+    print(f"parallel {label} {name}: loss rel err {cmp['loss']:.3g}, gradients rel L2 whole "
+          f"{cmp['total']:.3g}, worst {cmp['per'][worst]:.3g} ({worst}), running statistics "
+          f"{stats:.3g}; step median {med:.2f} ms (one device {ref_med:.2f} ms, "
+          f"{PAR_STEPS} steps each); peak memory per rank "
+          f"{[round(g, 2) for g in [got['peak_gib']] + [o['peak_gib'] for o in others]]} GiB "
+          f"(one device {ref['peak_gib']:.2f})")
+    bad = [o["metrics"] for o in others if o["metrics"] != got["metrics"]]
+    if bad:
+        raise AssertionError(f"parallel {label} {name}: the ranks' losses differ: "
+                             f"{got['metrics']} vs {bad}")
+    if not (cmp["loss"] <= PAR_LOSS_RTOL and cmp["per"][worst] <= PAR_GRAD_L2
+            and cmp["total"] <= PAR_TOTAL_L2 and stats <= PAR_STATS_L2):
+        raise AssertionError(f"parallel {label} {name}: the sharded step is not the one-device "
+                             f"step: {cmp['loss']}, {cmp['per'][worst]} ({worst}), "
+                             f"{cmp['total']}, {stats}")
+    MEDIANS[f"parallel {label} {name}"] = med
+
+
+def parallel_phase(dev, pose, rig, skel) -> list[dict]:
+    """Phase 19: each case's one-device step on the global batch, then its
+    sharded steps on each mesh of PAR_MESHES (every case at data = 2,
+    PAR_EVERY_MESH on all three), each held to the one-device step
+    (`hold_parallel`) with rank 0's counts and recorded kernel calls
+    checked; on the 2 x 2 mesh the deform step twice, bit for bit; the
+    NCCL backend once at world size 1; `dryrun_multichip(4)`.  Returns rank
+    0's counts of each counted step."""
+    cases = parallel_cases(pose, rig, skel)
+    card = gpu_name_power()
+    torch.cuda.empty_cache()
+    ref = {}
+    for name, (case, _) in cases.items():
+        ref[name] = steps.run_case(case, dev, None, 1 + PAR_STEPS)
+        print(f"parallel one device {name}: step {median_line(ref[name]['ms'])}, total_loss "
+              f"{ref[name]['metrics']['total_loss']:.6f}")
+    counted = []
+    for label, data, model in PAR_MESHES:
+        world = data * model
+        names = list(cases) if (data, model) == (2, 1) else list(PAR_EVERY_MESH)
+        backend, devices = rank_devices(world)
+        repeat = (data, model) == (2, 2)
+        print(f"parallel {label}: backend {backend}, {world} ranks on {len(devices)} card(s) "
+              f"({', '.join(devices)}); {card}")
+        t0 = time.perf_counter()
+        ranks = spawn(parallel_rank, world, backend, devices,
+                      args=(data, model, [cases[n] for n in names], repeat))
+        print(f"parallel {label}: {time.perf_counter() - t0:.1f} s for {world} ranks "
+              f"(start-up, data, {len(names)} x {1 + PAR_STEPS} steps, rank 0's checks)")
+        for i, name in enumerate(names):
+            hold_parallel(label, name, ranks[0][i], ref[name], [r[i] for r in ranks[1:]])
+            counted.append(ranks[0][i]["counts"])
+        if repeat:
+            firsts = [r[-1]["first_difference"] for r in ranks]
+            print(f"parallel {label} repeat deform: a sharded init and {REPRO_STEPS} steps, "
+                  f"twice, {ranks[0][-1]['tensors']} tensors per rank: "
+                  + ("equal bit for bit on every rank" if not any(firsts) else
+                     f"differ, first {firsts}"))
+            if any(firsts):
+                f = next(x for x in firsts if x)
+                raise AssertionError(f"parallel {label}: two runs part at {f}: "
+                                     f"{collective_of(f, model)}")
+    print(f"parallel nccl: backend nccl, 1 rank on 1 card (cuda:0); {card}")
+    ranks = spawn(parallel_rank, 1, "nccl", ["cuda:0"], args=(1, 1, [cases["deform"]], False))
+    hold_parallel("nccl 1 x 1", "deform", ranks[0][0], ref["deform"], [])
+    counted.append(ranks[0][0]["counts"])
+    backend, _ = rank_devices(4)
+    dryrun_multichip(4, device="cuda", backend=backend)
+    return counted
+
+
 SOURCES = {
     "K1": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu", "morig_tpu/kernels/edge_fused.py:102"),
     "K2": ("cuda", "morig_tpu_torch/csrc/knn_topk.cu", "morig_tpu/kernels/knn_fused.py:109"),
@@ -2601,7 +2827,7 @@ def main(profile_phase: bool = False):
                train_skel("root", RootStage(), skel, dev, profile_phase)]
     demo_counts, demo_pred, demo_joint_counts = demo(dev)
     repro_phase(dev, batch, rig, skel, demo_pred, demo_joint_counts)
-    del rig, skel, demo_pred
+    del demo_pred
     batch_counts = batch_norm_phase(entries, frames, batch, dev, profile_phase)
     k5_counts = k5_training(dev, profile_phase)
     f32_counts = f32_inference(pred, entries, frames,
@@ -2612,9 +2838,10 @@ def main(profile_phase: bool = False):
                          {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
                           "K4": 0, "K5": 0, "K6": 0})
     tracked = tracking(pred, profile_phase)
+    parallel = parallel_phase(dev, batch, rig, skel)
 
     counted = [path1, path2, trained, *motion, demo_counts, batch_counts, k5_counts, f32_counts,
-               cli_counts, single, tracked]
+               cli_counts, single, tracked, *parallel]
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
         n = sum(c.get(name, 0) for c in counted)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows
+from morig_tpu_torch.parallel import rand as batch_rand
 
 NEG = -1e30
 POS = 1e30
@@ -104,11 +105,12 @@ def random_starts(generator: torch.Generator | None, mask: torch.Tensor) -> torc
     """A uniformly drawn valid FPS start per sample of mask (B,P), from
     `generator` (random in training, as morig_tpu/nn/corrnet.py
     `random_starts`); 0 when generator is None (the eval start).  The draws
-    come from the generator's own device and land on mask's."""
+    come from the generator's own device and land on mask's; on a mesh they
+    are drawn at the global batch (parallel/mesh.py `rand`)."""
     B = mask.shape[0]
     if generator is None:
         return torch.zeros(B, dtype=torch.int64, device=mask.device)
-    u = torch.rand(mask.shape, generator=generator, device=generator.device)
+    u = batch_rand(mask.shape, generator, generator.device)
     u = torch.where(mask.to(u.device), u, torch.full_like(u, -1.0))
     return u.argmax(dim=-1).to(mask.device)
 

@@ -1,7 +1,9 @@
 """Masked losses — counterpart of morig_tpu/losses/basic.py: chamfer
 distances, soft-label cross-entropy, masked BCE and L1/MSE.  The chamfer
 functions take batches (B,N,3) x (B,M,3) and return one value per sample
-where the JAX package's take one pair and are vmapped."""
+where the JAX package's take one pair and are vmapped.  Means over the
+batch and masked means follow parallel/mesh.py's convention on a mesh
+(`batch_mean`, `batch_sum`); without one they are the plain means."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,6 +11,7 @@ from typing import Optional
 import torch
 
 from morig_tpu_torch.kernels.neighbors import pairwise_sqdist
+from morig_tpu_torch.parallel import batch_mean, batch_sum
 
 POS = 1e30
 
@@ -25,21 +28,21 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     """Mean binary cross-entropy with logits over the valid elements."""
     per = torch.relu(logits) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
     if mask is None:
-        return per.mean()
+        return batch_mean(per)
     m = _broadcast_mask(mask, per)
-    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per * m).sum() / torch.clamp(batch_sum(m.sum()), min=1.0)
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean |pred - target| over the valid elements."""
     m = _broadcast_mask(mask, pred)
-    return ((pred - target).abs() * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return ((pred - target).abs() * m).sum() / torch.clamp(batch_sum(m.sum()), min=1.0)
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean (pred - target)^2 over the valid elements."""
     m = _broadcast_mask(mask, pred)
-    return ((pred - target) ** 2 * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return ((pred - target) ** 2 * m).sum() / torch.clamp(batch_sum(m.sum()), min=1.0)
 
 
 def masked_l1_weighted(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
@@ -47,7 +50,7 @@ def masked_l1_weighted(pred: torch.Tensor, target: torch.Tensor, mask: torch.Ten
     """masked_l1 with a per-element weight of mask's shape: sum(w m |err|) /
     sum(w m dims); masked_l1 at weights 1."""
     m = _broadcast_mask(mask.to(pred.dtype) * weights.to(pred.dtype), pred)
-    return ((pred - target).abs() * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return ((pred - target).abs() * m).sum() / torch.clamp(batch_sum(m.sum()), min=1.0)
 
 
 def cross_entropy_with_probs(logits: torch.Tensor, target_probs: torch.Tensor,
@@ -88,4 +91,4 @@ def chamfer_with_average(p1, p2, mask1=None, mask2=None) -> torch.Tensor:
 
 def batched_chamfer_with_average(p1, p2, mask1, mask2) -> torch.Tensor:
     """Mean over the batch of the per-sample chamfer."""
-    return chamfer_with_average(p1, p2, mask1, mask2).mean()
+    return batch_mean(chamfer_with_average(p1, p2, mask1, mask2))

@@ -8,7 +8,9 @@ The JAX module samples rows with jax.random inside the losses; here the
 draw is `draw_rows` (losses/nce.py: distinct valid rows per sample, from an
 explicit generator), made apart from the loss: each sampled loss has a
 `*_drawn` form that takes the (B, S) row indices, which a test can take
-from JAX, and a form that draws them from a generator first.
+from JAX, and a form that draws them from a generator first.  On a mesh
+(parallel/mesh.py) the batch means are this rank's share; `iou_loss` takes
+one sample and stays local.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from scipy.optimize import linear_sum_assignment
 
 from morig_tpu_torch.losses.nce import _rows, draw_rows
+from morig_tpu_torch.parallel import batch_mean, batch_sum
 
 
 def _bce_logits(s: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -43,7 +46,7 @@ def log_ratio_loss_drawn(feature: torch.Tensor, gt_skin: torch.Tensor, ids: torc
     n = pairs.shape[0]
     w = torch.triu(torch.ones(n, n, device=feature.device), diagonal=1)
     w = w / torch.clamp(w.sum(), min=1.0)
-    return (diff * diff * w).sum((-2, -1)).mean()
+    return batch_mean((diff * diff * w).sum((-2, -1)))
 
 
 def log_ratio_loss(generator: Optional[torch.Generator], feature, gt_skin, vert_mask,
@@ -64,7 +67,7 @@ def hinge_embedding_loss_drawn(feature: torch.Tensor, gt_skin: torch.Tensor, ids
     pos = gt_sim > sim_threshold
     w = torch.where(pos, torch.full_like(dist, pos_weight), torch.ones_like(dist))
     per = torch.where(pos, dist, torch.clamp(margin - dist, min=0.0))
-    return ((per * w * w).sum((-2, -1)) / torch.clamp(w.sum((-2, -1)), min=1.0)).mean()
+    return batch_mean((per * w * w).sum((-2, -1)) / torch.clamp(w.sum((-2, -1)), min=1.0))
 
 
 def hinge_embedding_loss(generator: Optional[torch.Generator], feature, gt_skin, vert_mask,
@@ -82,7 +85,8 @@ def multi_label_bce(feature: torch.Tensor, seg_onehot: torch.Tensor, vert_mask: 
     gt = torch.einsum("bvk,bwk->bvw", seg_onehot, seg_onehot)
     m = vert_mask[:, :, None] & vert_mask[:, None, :]
     per = _bce_logits(sim, gt)
-    return torch.where(m, per, torch.zeros_like(per)).sum() / torch.clamp(m.sum(), min=1.0)
+    total = torch.where(m, per, torch.zeros_like(per)).sum()
+    return total / torch.clamp(batch_sum(m.sum()), min=1.0)
 
 
 def trans_loss(adj_cost: torch.Tensor, seg_onehot: torch.Tensor,
@@ -94,7 +98,7 @@ def trans_loss(adj_cost: torch.Tensor, seg_onehot: torch.Tensor,
     steps = 1
     if adj_cost.ndim == 4:
         m, steps = m[..., None], adj_cost.shape[-1]
-    return (adj_cost * m).sum() / torch.clamp(m.sum() * steps, min=1.0)
+    return (adj_cost * m).sum() / torch.clamp(batch_sum(m.sum()) * steps, min=1.0)
 
 
 def motion_loss(pred_Rs: torch.Tensor, pred_ts: torch.Tensor, xyz: torch.Tensor,
@@ -108,14 +112,14 @@ def motion_loss(pred_Rs: torch.Tensor, pred_ts: torch.Tensor, xyz: torch.Tensor,
     err = ((moved - gt_flow[:, None, :, :]) ** 2).sum(-1)
     seg = torch.einsum("bnk,bmk->bnm", gt_seg, gt_seg)
     segn = seg / (seg.sum(2, keepdim=True) + 1e-8)
-    return (err * segn).sum() / torch.clamp(segn.sum(), min=1e-8)
+    return (err * segn).sum() / torch.clamp(batch_sum(segn.sum()), min=1e-8)
 
 
 def grouping_loss(pred_support: torch.Tensor, seg_onehot: torch.Tensor) -> torch.Tensor:
     """BCE between predicted support logits (B,N,N) and same-segment
     indicators."""
     gt = torch.einsum("bnk,bmk->bnm", seg_onehot, seg_onehot)
-    return _bce_logits(pred_support, gt).mean()
+    return batch_mean(_bce_logits(pred_support, gt))
 
 
 def hungarian_matching(pred_seg: np.ndarray, gt_seg: np.ndarray) -> np.ndarray:
@@ -146,7 +150,7 @@ def skin_difference_loss_drawn(pred_skin: torch.Tensor, gt_skin: torch.Tensor,
     pd = (ps[:, :, None] - ps[:, None]).abs().sum(-1)
     gd = (gs[:, :, None] - gs[:, None]).abs().sum(-1)
     same = (gd.abs() < 1e-6).to(pd.dtype)
-    return ((pd * same).sum((-2, -1)) / torch.clamp(same.sum((-2, -1)), min=1.0)).mean()
+    return batch_mean((pd * same).sum((-2, -1)) / torch.clamp(same.sum((-2, -1)), min=1.0))
 
 
 def skin_difference_loss(generator: Optional[torch.Generator], pred_skin, gt_skin, vert_mask,

@@ -8,7 +8,8 @@ The gathers that carry a gradient (anchor rows, the logits of drawn
 positives and negatives) run through `gather_rows_trainable`: K3 forward and
 the ordered row scatter backward, so a training step repeats bit for bit;
 `torch.gather`'s backward on the card adds the gradients of a repeated
-index in no fixed order."""
+index in no fixed order.  On a mesh (parallel/mesh.py) the batch means are
+this rank's share and the draws are made at the global batch."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,6 +17,8 @@ from typing import Optional
 import torch
 
 from morig_tpu_torch.kernels.gather_fused import gather_rows_trainable
+from morig_tpu_torch.parallel import batch_mean
+from morig_tpu_torch.parallel import rand as batch_rand
 
 NEG = -1e30
 
@@ -69,7 +72,7 @@ def info_nce(vtx_feature, pts_feature, corr_v2p, corr_v2p_mask, corr_p2v, corr_p
     logits_p = torch.einsum("bmc,bvc->bmv", anchors_p, vtx_feature) / tau
     logits_p = torch.where(vert_mask[:, None, :], logits_p, torch.full_like(logits_p, NEG))
     loss_p = _masked_ce_rows(logits_p, corr_p2v[..., 1], corr_p2v_mask)
-    return (loss_v + loss_p).mean()
+    return batch_mean(loss_v + loss_p)
 
 
 def _skin_pairs(gt_skin, vert_mask, ids, sim_threshold: float):
@@ -90,7 +93,7 @@ def _choice(p: torch.Tensor, n: int, generator: Optional[torch.Generator]) -> to
     of the cumulative sum as jax.random.choice draws; a row of zeros gives
     index S - 1."""
     cdf = torch.cumsum(p, -1)
-    u = torch.rand(p.shape[:-1] + (n,), generator=generator, device=p.device)
+    u = batch_rand(p.shape[:-1] + (n,), generator, p.device)
     r = cdf[..., -1:] * (1.0 - u)
     return torch.searchsorted(cdf, r).clamp(max=p.shape[-1] - 1)
 
@@ -103,7 +106,7 @@ def draw_rows(generator: Optional[torch.Generator], vert_mask: torch.Tensor,
     count the draw runs into padded rows."""
     p = vert_mask.float()
     p = p / torch.clamp(p.sum(-1, keepdim=True), min=1.0)
-    u = torch.rand(p.shape, generator=generator, device=p.device)
+    u = batch_rand(p.shape, generator, p.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
     return torch.topk(torch.log(p) + gumbel, num_sample, dim=-1).indices
 
@@ -140,7 +143,7 @@ def multi_pos_info_nce_drawn(feature: torch.Tensor, gt_skin: torch.Tensor,
     ce = torch.logaddexp(prod_pos, lse_neg) - prod_pos                   # (B,S,num_pos)
     ok = (neg_mat.sum(-1) > 0) & row_ok
     ce = torch.where(ok[..., None], ce, torch.zeros_like(ce))
-    return (ce.mean(-1).sum(-1) / torch.clamp(ok.sum(-1), min=1)).mean()
+    return batch_mean(ce.mean(-1).sum(-1) / torch.clamp(ok.sum(-1), min=1))
 
 
 def multi_pos_info_nce(generator: Optional[torch.Generator], feature: torch.Tensor,

@@ -23,13 +23,15 @@ from morig_tpu_torch.kernels import neighbors as nbk
 from morig_tpu_torch.nn.gcu import GCU
 from morig_tpu_torch.nn.mlp import MLP, Dense, MLPHead, default_generator, init_parameters
 from morig_tpu_torch.nn.pointnet import FPModule, GlobalSAModule, SAModule
+from morig_tpu_torch.parallel import rand as batch_rand
 
 
 def _rand(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Uniform [0, 1) draws from `generator` (the global generator when
-    None) on the generator's device, moved to `device`."""
+    None) on the generator's device, moved to `device`; axis 0 is the
+    batch (on a mesh drawn at the global batch, parallel/mesh.py `rand`)."""
     gen_dev = generator.device if generator is not None else device
-    return torch.rand(shape, generator=generator, device=gen_dev).to(device)
+    return batch_rand(shape, generator, gen_dev).to(device)
 
 
 def pair_swap(generator: Optional[torch.Generator], B: int, P: int, device) -> torch.Tensor:

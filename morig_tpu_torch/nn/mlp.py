@@ -34,6 +34,7 @@ from torch import nn
 
 from morig_tpu_torch.kernels.edge_fused import layer_norm
 from morig_tpu_torch.nn.norm import MaskedBatchNorm
+from morig_tpu_torch.parallel.mesh import DeviceMesh, tp_linear
 
 NORMS = ("layer", "batch", "none")
 _DEFAULT_NORM = "layer"
@@ -101,7 +102,11 @@ def matmul_dtype(x: torch.Tensor, train: bool = False) -> torch.dtype:
 
 class Dense(nn.Module):
     """flax nn.Dense: y = x @ W^T + b, computed in `dtype` (inputs, weight and
-    bias rounded to it, output in it); fp32 when dtype is None."""
+    bias rounded to it, output in it); fp32 when dtype is None.  `tp` is the
+    mesh over whose model group `parallel.sharding.shard_state` has sharded
+    its output rows (None: whole); the output is whole either way."""
+
+    tp: Optional[DeviceMesh] = None
 
     def __init__(self, fin: int, fout: int, bias: bool = True, zero_init: bool = False):
         super().__init__()
@@ -119,6 +124,8 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         dt = dtype or torch.float32
+        if self.tp is not None:
+            return tp_linear(x, self.weight, self.bias, dt, self.tp)
         y = torch.matmul(x.to(dt), self.weight.to(dt).t())
         return y + self.bias.to(dt) if self.bias is not None else y
 

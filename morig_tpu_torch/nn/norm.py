@@ -9,9 +9,10 @@ batch, with the unbiased variance.  The parameter and buffer names are
 torch's (and the reference's): `weight`, `bias`, `running_mean`,
 `running_var`.
 
-Not ported: the JAX module's `axis_name`, which sums the statistics across
-a named mesh axis for data-parallel training; it belongs to the JAX
-package's `parallel/sharding.py`, which has no counterpart in the port.
+On a mesh (parallel/mesh.py, the JAX module's `axis_name`) the masked
+count, the sum and the centred square sum are summed over the data group,
+the last two differentiably (`data_sum`), so the statistics and the
+running statistics are those of the global batch on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from morig_tpu_torch.parallel import batch_sum, data_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -58,10 +61,10 @@ class MaskedBatchNorm(nn.Module):
                 m = mask.float()
                 while m.dim() < x.dim():
                     m = m[..., None]
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).reshape(-1, C).sum(0) / cnt
+            cnt = torch.clamp(batch_sum(m.sum()), min=1.0)
+            mean = data_sum((xf * m).reshape(-1, C).sum(0)) / cnt
             centered = (xf - mean) * m
-            var = (centered * centered).reshape(-1, C).sum(0) / cnt
+            var = data_sum((centered * centered).reshape(-1, C).sum(0)) / cnt
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 mom = self.momentum

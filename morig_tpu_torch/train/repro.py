@@ -23,18 +23,20 @@ import torch
 
 
 def run_steps(stage, batch, steps: int = 1, seed: int = 0, device="cuda",
-              make_state=None) -> list[tuple[str, torch.Tensor]]:
+              make_state=None, mesh=None) -> list[tuple[str, torch.Tensor]]:
     """`stage.init_state(seed, device=device)` (or `make_state()`) and
-    `steps` train steps on `batch`, step s drawing from a generator seeded
-    with s.  Returns named copies, in order: each step's metrics, then
-    every parameter's gradient as the step used it (after the clip), then
-    the parameters after the last step and the buffers (running
+    `steps` train steps on `batch` (on `mesh` where given: the rank's
+    shard of both), step s drawing from a generator seeded with s.
+    Returns named copies, in order: each step's metrics, then every
+    parameter's gradient as the step used it (after the clip), then the
+    parameters after the last step and the buffers (running
     statistics)."""
     state = make_state() if make_state is not None else stage.init_state(seed, device=device)
     dev = state.device
     named = []
     for s in range(steps):
-        metrics = stage.train_step(state, batch, torch.Generator(device=dev).manual_seed(s))
+        metrics = stage.train_step(state, batch, torch.Generator(device=dev).manual_seed(s),
+                                   mesh=mesh)
         named += [(f"step {s} {k}", torch.tensor(v, dtype=torch.float64))
                   for k, v in metrics.items()]
         named += [(f"step {s} grad {n}", p.grad.detach().clone())

@@ -17,6 +17,14 @@ JAX steps' `mutable=["batch_stats"]`); `eval_step` and `infer` normalize
 with the running statistics.  A frozen DeformNet extractor runs on batch
 statistics too, but its running statistics are put back after the
 forward: they stay those of the loaded CorrNet.
+
+Every `train_step` and `eval_step` takes an optional `mesh`
+(parallel/sharding.py `make_device_mesh`): the rank then steps on its rows
+of the global batch (`shard_batch`) with a state placed by `shard_state`,
+and the step is the one-device step on the global batch, under
+parallel/mesh.py's convention: the losses are this rank's share, the
+gradients and the reported losses are summed over the data group.
+Without a mesh a step is the one-device step, bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from morig_tpu_torch.nn.corrnet import CorrNet
 from morig_tpu_torch.nn.deformnet import DeformNet
 from morig_tpu_torch.nn.mlp import init_parameters
 from morig_tpu_torch.nn.rignet import JointNetMotion, MaskNetMotion, SkinMotion
+from morig_tpu_torch.parallel import active, batch_mean, batch_sum
+from morig_tpu_torch.parallel.mesh import all_reduce_
 from morig_tpu_torch.train import trainer
 
 
@@ -45,12 +55,23 @@ def _floats(metrics: dict) -> dict[str, float]:
     return dict(zip(metrics, values))
 
 
-def _step(state: trainer.TrainState, total: torch.Tensor, metrics: dict) -> dict[str, float]:
+def _summed(metrics: dict, mesh) -> dict:
+    """The metrics summed over the mesh's data group (unchanged without
+    one): each rank's losses are its share of the global ones."""
+    if mesh is None or mesh.data == 1:
+        return metrics
+    values = torch.stack([v.detach().float() for v in metrics.values()])
+    return dict(zip(metrics, all_reduce_(values, mesh.data_group, mesh.data).unbind()))
+
+
+def _step(state: trainer.TrainState, total: torch.Tensor, metrics: dict,
+          mesh=None) -> dict[str, float]:
     """backward(), the clip and one optimizer step; the metrics as floats
     with the gradient norm before the clip (`grad_norm`)."""
     state.tx.zero_grad()
     total.backward()
-    metrics["grad_norm"] = state.apply_gradients()
+    metrics = _summed(metrics, mesh)
+    metrics["grad_norm"] = state.apply_gradients(mesh)
     return _floats(metrics)
 
 
@@ -95,19 +116,24 @@ class CorrPoseStage:
         return total, dict(corr_loss=loss_match, vis_loss=loss_mask, total_loss=total)
 
     def train_step(self, state: trainer.TrainState, batch: PoseSample,
-                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
         """One optimizer step on `batch`; FPS starts are drawn from
         `generator` (index 0 when None).  Returns the losses and the global
         gradient norm before the clip (`grad_norm`)."""
-        outputs = state.model(batch.mesh, batch.points, train=True,
-                              train_vismask=self.train_vismask, generator=generator)
-        return _step(state, *self._losses(outputs, batch, self.train_vismask))
+        with active(mesh):
+            outputs = state.model(batch.mesh, batch.points, train=True,
+                                  train_vismask=self.train_vismask, generator=generator)
+            losses = self._losses(outputs, batch, self.train_vismask)
+        return _step(state, *losses, mesh)
 
     @torch.no_grad()
-    def eval_step(self, state: trainer.TrainState, batch: PoseSample) -> dict[str, float]:
-        outputs = state.model(batch.mesh, batch.points, train=False,
-                              train_vismask=self.train_vismask)
-        return _floats(self._losses(outputs, batch, self.train_vismask)[1])
+    def eval_step(self, state: trainer.TrainState, batch: PoseSample,
+                  mesh=None) -> dict[str, float]:
+        with active(mesh):
+            outputs = state.model(batch.mesh, batch.points, train=False,
+                                  train_vismask=self.train_vismask)
+            metrics = self._losses(outputs, batch, self.train_vismask)[1]
+        return _floats(_summed(metrics, mesh))
 
     @torch.no_grad()
     def infer(self, state: trainer.TrainState, batch: PoseSample, train_vismask: bool = True):
@@ -174,29 +200,34 @@ class DeformPoseStage:
             per = -(batch.vismask * torch.log(vis_c)
                     + (1 - batch.vismask) * torch.log(1 - vis_c))
             m = vert_mask.to(per.dtype)
-            loss_vis = (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+            loss_vis = (per * m).sum() / torch.clamp(batch_sum(m.sum()), min=1.0)
             total = loss_flow + loss_match + 5.0 * loss_vis
             metrics.update(corr_loss=loss_match, vis_loss=loss_vis)
         metrics["total_loss"] = total
         return total, metrics
 
     def train_step(self, state: trainer.TrainState, batch: PoseSample,
-                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
         """One optimizer step on `batch`; the extractor's FPS starts are drawn
         from `generator` (index 0 when None).  With the extractor frozen its
         running statistics ("batch" norm mode) are restored after the
         forward, as the JAX stage's `_keep_frozen_stats` does."""
         frozen = [] if self.train_extractor else list(state.model.corr_extractor.buffers())
         saved = [b.clone() for b in frozen]
-        outputs = state.model(batch.mesh, batch.points, train=True, generator=generator)
-        with torch.no_grad():
-            for b, old in zip(frozen, saved):
-                b.copy_(old)
-        return _step(state, *self._losses(outputs, batch))
+        with active(mesh):
+            outputs = state.model(batch.mesh, batch.points, train=True, generator=generator)
+            with torch.no_grad():
+                for b, old in zip(frozen, saved):
+                    b.copy_(old)
+            losses = self._losses(outputs, batch)
+        return _step(state, *losses, mesh)
 
     @torch.no_grad()
-    def eval_step(self, state: trainer.TrainState, batch: PoseSample) -> dict[str, float]:
-        return _floats(self._losses(state.model(batch.mesh, batch.points), batch)[1])
+    def eval_step(self, state: trainer.TrainState, batch: PoseSample,
+                  mesh=None) -> dict[str, float]:
+        with active(mesh):
+            metrics = self._losses(state.model(batch.mesh, batch.points), batch)[1]
+        return _floats(_summed(metrics, mesh))
 
     @torch.no_grad()
     def infer(self, state: trainer.TrainState, batch: PoseSample):
@@ -240,23 +271,27 @@ class _MotionStage:
                                       num_sample=self.num_embed_sample) for f in feats)
 
     def train_step(self, state: trainer.TrainState, batch: RigSample,
-                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
         """One optimizer step on `batch`: the input flow and the embedding
         loss's samples are drawn from `generator` (a fresh one seeded 0 on
         the batch's device when None)."""
         generator = _default_generator(generator, batch.gt_flow.device)
-        flow = self.input_flow(batch, generator)
-        outputs = self._forward(state.model, batch, flow, True)
-        return _step(state, *self._losses(generator, outputs, batch))
+        with active(mesh):
+            flow = self.input_flow(batch, generator)
+            outputs = self._forward(state.model, batch, flow, True)
+            losses = self._losses(generator, outputs, batch)
+        return _step(state, *losses, mesh)
 
     @torch.no_grad()
     def eval_step(self, state: trainer.TrainState, batch: RigSample,
-                  generator: Optional[torch.Generator] = None) -> dict[str, float]:
+                  generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
         """The losses on pred_flow, inference numerics; the embedding loss's
         samples from `generator` (a fresh one seeded 0 when None)."""
         generator = _default_generator(generator, batch.gt_flow.device)
-        outputs = self._forward(state.model, batch, batch.pred_flow, False)
-        return _floats(self._losses(generator, outputs, batch)[1])
+        with active(mesh):
+            outputs = self._forward(state.model, batch, batch.pred_flow, False)
+            metrics = self._losses(generator, outputs, batch)[1]
+        return _floats(_summed(metrics, mesh))
 
 
 class RigStage(_MotionStage):
@@ -322,7 +357,7 @@ class RigStage(_MotionStage):
         d2 = torch.linalg.vector_norm(y_pred - j2, dim=-1)
         ok = (batch.mesh.vert_mask & (spacing < big / 2)).float()
         h = torch.relu(self.sep_alpha * spacing - (d2 - d1))
-        return ((h * ok).sum(-1) / torch.clamp(ok.sum(-1), min=1.0)).mean()
+        return batch_mean((h * ok).sum(-1) / torch.clamp(ok.sum(-1), min=1.0))
 
     def _losses(self, generator, outputs, batch: RigSample):
         motion_all, motion_aggr, pred = outputs
@@ -338,7 +373,7 @@ class RigStage(_MotionStage):
         if self.recall_weight != 1.0:
             m_prec, m_cov = chamfer_directional(y_pred, batch.joints, vm, batch.joints_mask)
             w = self.recall_weight
-            loss_chamfer = ((m_prec + w * m_cov) / (1.0 + w)).mean()
+            loss_chamfer = batch_mean((m_prec + w * m_cov) / (1.0 + w))
         else:
             loss_chamfer = batched_chamfer_with_average(y_pred, batch.joints, vm,
                                                         batch.joints_mask)
@@ -395,7 +430,7 @@ class SkinStage(_MotionStage):
         vert_ok = ((skin_gt.sum(-1) - 1.0).abs() < 1e-6) & batch.mesh.vert_mask
         w = slots * vert_ok[..., None].to(logits.dtype)
         per = cross_entropy_with_probs(logits, skin_gt)
-        loss_skin = (per * w).sum() / torch.clamp(w.sum(), min=1.0)
+        loss_skin = (per * w).sum() / torch.clamp(batch_sum(w.sum()), min=1.0)
         total = loss_skin + 0.01 * loss_embed
         return total, dict(loss_skin=loss_skin, loss_motion=0.01 * loss_embed, total_loss=total)
 
@@ -430,16 +465,20 @@ class _SkelStage:
         return trainer.TrainState(model, self.make_tx(model.parameters()))
 
     def train_step(self, state: trainer.TrainState, batch: SkelSample,
-                   generator: Optional[torch.Generator] = None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
         """One optimizer step on `batch`, its random draws from `generator`
         (a fresh one seeded 0 on the batch's device when None)."""
         generator = _default_generator(generator, batch.joints.device)
-        logits = self._forward(state.model, batch, True, generator)
-        return _step(state, *self._losses(logits, batch))
+        with active(mesh):
+            losses = self._losses(self._forward(state.model, batch, True, generator), batch)
+        return _step(state, *losses, mesh)
 
     @torch.no_grad()
-    def eval_step(self, state: trainer.TrainState, batch: SkelSample) -> dict[str, float]:
-        return _floats(self._losses(self._forward(state.model, batch, False, None), batch)[1])
+    def eval_step(self, state: trainer.TrainState, batch: SkelSample,
+                  mesh=None) -> dict[str, float]:
+        with active(mesh):
+            metrics = self._losses(self._forward(state.model, batch, False, None), batch)[1]
+        return _floats(_summed(metrics, mesh))
 
     @torch.no_grad()
     def infer(self, state: trainer.TrainState, batch: SkelSample) -> torch.Tensor:
@@ -476,6 +515,6 @@ class RootStage(_SkelStage):
     def _losses(self, logits, batch: SkelSample):
         z = torch.where(batch.joints_mask, logits[..., 0], torch.full_like(logits[..., 0], -1e30))
         picked = torch.gather(z, 1, batch.root_idx[:, None])[:, 0]
-        loss = (torch.logsumexp(z, -1) - picked).mean()
-        acc = (z.argmax(-1) == batch.root_idx).float().mean()
+        loss = batch_mean(torch.logsumexp(z, -1) - picked)
+        acc = batch_mean((z.argmax(-1) == batch.root_idx).float())
         return loss, dict(total_loss=loss, root_acc=acc)

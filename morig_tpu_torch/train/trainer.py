@@ -6,6 +6,11 @@ pieces: global-norm clipping at 10, then Adam with L2-coupled weight decay
 (torch's `Adam(weight_decay=...)` adds wd * param to the gradient, as
 optax's `add_decayed_weights` before `adam` does; not AdamW), under a
 piecewise-constant multi-step learning rate counted in optimizer steps.
+
+On a mesh (parallel/) the gradients are summed over the data group before
+the clip, and the clip's global norm counts each parameter once: the
+replicated ones on each rank, the slices of the tensor-parallel ones
+(`tp_sharded`) summed over the model group.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import time
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass
@@ -30,13 +36,24 @@ class MultiStepAdam:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> torch.Tensor:
+    def step(self, mesh=None) -> torch.Tensor:
         """Clip the gradients by their global norm, take one Adam step and
         one schedule step.  Returns the global norm before the clip (a
-        device scalar; reading it is left to the caller)."""
-        grads = [p.grad for g in self.optimizer.param_groups for p in g["params"]
-                 if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        device scalar; reading it is left to the caller).  On a `mesh` the
+        norm of the sharded slices is summed over its model group."""
+        params = [p for g in self.optimizer.param_groups for p in g["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+        if mesh is None or mesh.model == 1:
+            norm = torch.linalg.vector_norm(norms)
+        else:
+            sharded = torch.tensor([getattr(p, "tp_sharded", False) for p in params],
+                                   device=norms.device)
+            sq = norms.square()
+            shard_sq = torch.where(sharded, sq, torch.zeros_like(sq)).sum()
+            dist.all_reduce(shard_sq, group=mesh.model_group)
+            norm = torch.sqrt(torch.where(sharded, torch.zeros_like(sq), sq).sum() + shard_sq)
         # optax clip_by_global_norm: g / norm * max_norm where norm >= max_norm
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
         torch._foreach_mul_(grads, scale)
@@ -69,12 +86,25 @@ class TrainState:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def apply_gradients(self) -> torch.Tensor:
-        """One optimizer step on the gradients the model holds; returns the
-        global gradient norm before the clip."""
-        norm = self.tx.step()
+    def apply_gradients(self, mesh=None) -> torch.Tensor:
+        """One optimizer step on the gradients the model holds, on a `mesh`
+        first summed over its data group; returns the global gradient norm
+        before the clip."""
+        if mesh is not None and mesh.data > 1:
+            sum_gradients(self.model, mesh.data_group)
+        norm = self.tx.step(mesh)
         self.step += 1
         return norm
+
+
+def sum_gradients(model: torch.nn.Module, group) -> None:
+    """Every gradient the model holds summed over `group`, in one
+    all-reduce of their concatenation."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for g, s in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(s.view_as(g))
 
 
 class Meter:
