@@ -207,6 +207,29 @@ Phases, each printing its own lines:
                at world size 1; `dryrun_multichip(4)`.  Prints each step
                median beside the one-device median, each rank's peak
                memory, the backend and the ranks per card.
+ 20. scanned — epoch-scanned training (last, after phase 19): for
+               CorrPoseStage on phase 6's dataset (batch 4, the visibility
+               branch from epoch 3: 7 epochs in chunks [0, 2), [2, 3) cut
+               short at the branch, [3, 5), [5, 7)), the same through K5
+               (the dataset's edge_tile=128, as phase 17), RigStage
+               jointnet on `creature_rig_dataset(num_models=4, seed=0)` and
+               BoneStage on phase 12's batch (`const_scan_batcher`), each
+               from the same seeded weights, generator and schedule draws
+               through `run_epochs` and `run_epochs_scanned` (train/
+               scanned.py: each step a CUDA-graph replay, train/graphs.py),
+               both writing checkpoints: the final weights and buffers, the
+               best epoch and the logged metrics equal bit for bit; one
+               host fetch per chunk (the replays run under sync debug mode
+               "error"); the scanned run's launches (warm-ups counted by
+               the wrappers, replays by `graphs.replayed_launches`) equal
+               the loop's plus one eager warm-up of each program per
+               capture, every kernel the loop launched also replayed, and
+               the train graph's launches per replay the stage's per-step
+               counts.  Prints each runner's seconds, epoch seconds and
+               steps/s over the chunks that captured nothing, the card's
+               name and power limit; with --profile an eager train step's
+               device ops, busy ms and idle share beside a replayed one's
+               (`scanned.step_program`).
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -241,8 +264,9 @@ timed step of each of phases 9-12 and 17 (its K5 steps) and phase 9's step
 with the extractor trained, phase 12's counted `eval_step`s, phase 13's
 calls, phase 14's timed calls and steps, phase 18's first timed call,
 phase 15's commands, the first timed single-mesh call, the two timed
-tracking runs and rank 0's first step of each phase-19 run; `ms` and
-`device_ms`
+tracking runs, rank 0's first step of each phase-19 run and every run of
+phase 20, a graph replay counted as the launches its capture recorded;
+`ms` and `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
 `library_device_ms` the library call's, `composite_ms` and
 `composite_device_ms` K2's and K4's composite's), the card's name and power limit,
@@ -305,9 +329,13 @@ from morig_tpu_torch.parallel.sharding import (make_device_mesh, shard_batch, sh
                                                spawn)
 from morig_tpu_torch.pipelines.rig_predict import RigPredictor, StageTimer, capsule_predictor
 from morig_tpu_torch.pipelines.tracking import BatchedTracker, Tracker, make_scanned_tracker
+from morig_tpu_torch.train.graphs import replayed_launches, reset_replayed
 from morig_tpu_torch.train.repro import first_difference, run_steps
+from morig_tpu_torch.train.scanned import (_chunk_ranges, const_scan_batcher, pose_scan_batcher,
+                                           rig_scan_batcher, run_epochs_scanned, step_program)
 from morig_tpu_torch.train.stages import (BoneStage, CorrPoseStage, DeformPoseStage, RigStage,
                                           RootStage, SkinStage)
+from morig_tpu_torch.train.trainer import MetricLogger, run_epochs
 
 B_MESH, T, P, V_PAD, DEGREE = 4, 5, 1024, 1536, 12
 EDGE_TILE, VOX_DIMS = 128, 88
@@ -1203,15 +1231,20 @@ def phase_a_inputs(entries):
 EXPECTED_TRAIN = {"K1": 8, "K2": 1, "K3": 2, "K4": 0, "K5": 0, "K6": 8, "KS": 4}
 
 
-def train_batch(edge_tile=None):
-    """bench_train's corr stage input: 4 capsules (n_lat=37, n_lon=36, V=1298
-    padded to the 2048 bucket, degree-12 tables, P=1024 points, 4 frames),
-    frame pair (0, 2), on the card; with `edge_tile`, the dataset's option
-    (phase 17).  Returns (batch, the entries' mesh tables)."""
+def train_dataset(edge_tile=None) -> PoseDataset:
+    """bench_train's corr stage data: 4 capsules (n_lat=37, n_lon=36, V=1298
+    padded to the 2048 bucket, degree-12 tables, P=1024 points, 4 frames);
+    with `edge_tile`, the dataset's option (phase 17)."""
     ds = capsule_pose_dataset(num_models=TRAIN_B, num_frames=4, num_points=P, n_lat=37,
                               n_lon=36)
-    ds = PoseDataset(ds.models, tpl_max_degree=DEGREE, geo_max_degree=DEGREE,
-                     edge_tile=edge_tile)
+    return PoseDataset(ds.models, tpl_max_degree=DEGREE, geo_max_degree=DEGREE,
+                       edge_tile=edge_tile)
+
+
+def train_batch(edge_tile=None):
+    """`train_dataset`'s four capsules at frame pair (0, 2), on the card.
+    Returns (batch, the entries' mesh tables)."""
+    ds = train_dataset(edge_tile)
     return ds.batch(list(range(TRAIN_B)), 0, 2), ds._mesh_cache
 
 
@@ -1570,14 +1603,14 @@ def train_deform(batch, corr_state, dev, profile_phase: bool) -> dict:
     return {k: launches[k] + counts[k] for k in launches}
 
 
-def rig_batch():
+def rig_batch(ds=None):
     """The rig and skin stages' input: `creature_rig_dataset(num_models=4,
     seed=0)` at its defaults (`cli.py train joints|mask|skin --data
-    creature`): about 1900 vertices padded to the 2048 bucket, degree-16
-    tables, T=5 keyframes, up to 48 joints; all four in one batch (the
-    CLI's default batch is 2)."""
+    creature`; `ds` when given): about 1900 vertices padded to the 2048
+    bucket, degree-16 tables, T=5 keyframes, up to 48 joints; all four in
+    one batch (the CLI's default batch is 2)."""
     t0 = time.perf_counter()
-    ds = creature_rig_dataset(num_models=TRAIN_B, seed=0)
+    ds = ds if ds is not None else creature_rig_dataset(num_models=TRAIN_B, seed=0)
     batch = ds.batch(list(range(TRAIN_B)))
     print(f"rig data: {time.perf_counter() - t0:.2f} s for {TRAIN_B} creatures, V "
           f"{[len(m.verts) for m in ds.models]} padded to {ds.pad_verts}, joints "
@@ -2757,6 +2790,231 @@ def parallel_phase(dev, pose, rig, skel) -> list[dict]:
     return counted
 
 
+# ---------------------------------------------------------------------------
+# phase 20: epoch-scanned training (train/scanned.py) against the loop
+# ---------------------------------------------------------------------------
+
+class RecordingLogger(MetricLogger):
+    """A MetricLogger that keeps its records (and writes and prints
+    nothing)."""
+
+    def __init__(self):
+        super().__init__(None)
+        self.records = []
+
+    def log(self, epoch, split, metrics, time_s=None, **extra_fields):
+        self.records.append((epoch, split, time.time() if time_s is None else time_s,
+                             dict(metrics)))
+
+
+@dataclasses.dataclass
+class ScanCase:
+    """A phase-20 case: `make()` a fresh stage; `loop(rng, train)` the
+    loop's epoch batches; `batcher` the same data on the card; epochs and
+    chunk epochs; the launches of the train step (its graph's per replay)."""
+
+    name: str
+    make: object
+    loop: object
+    batcher: object
+    epochs: int
+    chunk: int
+    expected: dict
+
+    def ranges(self) -> list:
+        boundary = getattr(self.make(), "vis_branch_start_epoch", None)
+        return _chunk_ranges(0, self.epochs, self.chunk, boundary)
+
+
+def scan_cases(rig_ds, skel) -> list:
+    """Phase 20's cases on phases 6, 10, 12 and 17's data, batch 4 (one
+    train and one val step per epoch): CorrPoseStage with the visibility
+    branch from epoch 3, 7 epochs in chunks of 2 ([0, 2), [2, 3) cut short
+    at the branch, [3, 5), [5, 7)); the same through K5 (the dataset's
+    edge_tile=EDGE_TILE, the branch on from the start, 4 epochs); RigStage
+    jointnet on `creature_rig_dataset(num_models=4, seed=0)`, 4 epochs;
+    BoneStage on the skeleton batch (`const_scan_batcher`), 6 epochs in
+    chunks of 3."""
+    cases = []
+    for label, tile, start, epochs, expected in (("corr", None, 3, 7, EXPECTED_TRAIN),
+                                                 ("corr k5", EDGE_TILE, 0, 4, EXPECTED_TRAIN_K5)):
+        ds = train_dataset(tile)
+
+        def make(start=start):
+            stage = CorrPoseStage()
+            stage.vis_branch_start_epoch = start
+            return stage
+
+        cases.append(ScanCase(
+            label, make,
+            lambda rng, train, ds=ds: ds.epoch_batches(rng, TRAIN_B, "modelsresource", False,
+                                                       train),
+            pose_scan_batcher(ds, TRAIN_B, "modelsresource", False), epochs, 2, expected))
+    cases.append(ScanCase("rig jointnet", lambda: RigStage(arch="jointnet"),
+                          lambda rng, train: rig_ds.epoch_batches(rng, TRAIN_B, train),
+                          rig_scan_batcher(rig_ds, TRAIN_B), 4, 2, EXPECTED_MOTION))
+
+    def skel_batches(rng, train):
+        yield skel
+
+    cases.append(ScanCase("bone", BoneStage, skel_batches, const_scan_batcher(skel), 6, 3,
+                          EXPECTED_SKEL))
+    return cases
+
+
+def run_scan_case(case: ScanCase, dev, ckpt_root: str) -> dict:
+    """`run_epochs` and `run_epochs_scanned` from the same seeded weights,
+    generator (seed 1) and schedule draws (default_rng(0)), each writing
+    its checkpoints.  Returns {runner: (weights and buffers, best epoch, log
+    records, launches, seconds, epoch seconds, the scanned run's stats)};
+    the counts are zeroed just before each run and read just after it."""
+    out = {}
+    for runner in ("loop", "scan"):
+        stage = case.make()
+        state = full_width_state(f"scanned {case.name}", stage)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rng_np = np.random.default_rng(0)
+        logger = RecordingLogger()
+        ckdir = os.path.join(ckpt_root, f"{case.name} {runner}")
+        stats: dict = {}
+        torch.cuda.synchronize()
+        zero_stage_counts()
+        reset_replayed()
+        t0 = time.time()
+        if runner == "loop":
+            state, best = run_epochs(stage, state, lambda e: case.loop(rng_np, True),
+                                     lambda: case.loop(rng_np, False), None, case.epochs,
+                                     checkpoint_dir=ckdir, logger=logger, generator=gen)
+        else:
+            state, best = run_epochs_scanned(stage, state, case.batcher, epochs=case.epochs,
+                                             checkpoint_dir=ckdir, logger=logger,
+                                             generator=gen, rng_np=rng_np,
+                                             chunk_epochs=case.chunk, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        real, replayed = read_stage_counts(), replayed_launches()
+        counts = {k: real[k] + replayed.get(k, 0) for k in real}
+        if runner == "scan":
+            stats["replayed"] = replayed
+            epoch_s = [s / (b - a) for s, (a, b) in zip(stats["chunk_s"], case.ranges())]
+        else:
+            ends = [t for _, split, t, _ in logger.records if split == "val"]
+            epoch_s = [float(x) for x in np.diff([t0] + ends)]
+        files = sorted(os.listdir(ckdir))
+        if files != ["checkpoint.pt", "checkpoint.pt.json", "model_best.pt",
+                     "model_best.pt.json"]:
+            raise AssertionError(f"scanned {case.name} {runner}: checkpoints {files}")
+        weights = [t.detach().clone() for t in (*state.model.parameters(), *state.model.buffers())]
+        out[runner] = (weights, best, logger.records, counts, wall, epoch_s, stats)
+        del state, stage
+    return out
+
+
+def check_scan_case(case: ScanCase, runs: dict, card: str) -> None:
+    """Phase 20's holds on one case: final weights and buffers, best epoch
+    and logged metrics equal bit for bit; one host fetch per chunk; the
+    scanned run's launches equal the loop's plus its warm-ups' (each capture
+    first runs each program once eagerly, with the launches its graph
+    records per replay); every kernel the loop launched also launched in a
+    replay; the train graph launching `case.expected` per replay."""
+    lw, lbest, lrec, lcounts, lwall, lepoch, _ = runs["loop"]
+    sw, sbest, srec, scounts, swall, sepoch, st = runs["scan"]
+    same_w = all(torch.equal(a, b) for a, b in zip(lw, sw))
+    same_logs = [(e, s, m) for e, s, _, m in lrec] == [(e, s, m) for e, s, _, m in srec]
+    worst = max((abs(a[k] - b[k]) / max(abs(a[k]), 1e-30)
+                 for (*_, a), (*_, b) in zip(lrec, srec) for k in a), default=0.0)
+    warm = {k: sum(per[prog].get(k, 0) for per in st["per_replay"] for prog in per)
+            for k in lcounts}
+    expected_scan = {k: lcounts[k] + warm[k] for k in lcounts}
+    ranges, K = case.ranges(), case.batcher.steps_per_epoch
+    steady = [i for i, c in enumerate(st["captured"]) if not c]
+    steps = sum((ranges[i][1] - ranges[i][0]) * K for i in steady)
+    scan_s = sum(st["chunk_s"][i] for i in steady)
+    loop_s = sum(sum(lepoch[ranges[i][0]:ranges[i][1]]) for i in steady)
+    train_graph = st["per_replay"][-1]["train"]
+    print(f"scanned {case.name}: loop {lwall:.3f} s, epoch seconds "
+          f"{[round(x, 4) for x in lepoch]}; scanned {swall:.3f} s ({st['captures']} captures, in "
+          f"chunks {[i for i, c in enumerate(st['captured']) if c]} of {ranges}), chunk seconds "
+          f"{[round(x, 4) for x in st['chunk_s']]}, epoch_wall_s {[round(x, 4) for x in sepoch]}; "
+          f"steps/s over the chunks without a capture ({steps} steps and as many val steps): "
+          f"loop {steps / loop_s:.3f}, scanned {steps / scan_s:.3f} (x{loop_s / scan_s:.2f}); "
+          f"{card}")
+    print(f"scanned {case.name}: bit for bit: weights and buffers {same_w}, best epoch {lbest} "
+          f"/ {sbest}, logged metrics {same_logs} (largest relative difference {worst:.3g}); "
+          f"host fetches per chunk {st['fetches'] / st['chunks']:.0f} ({st['fetches']} in "
+          f"{st['chunks']} chunks, the replays under sync debug mode 'error'); launches per "
+          f"replay: train {train_graph}, val {st['per_replay'][-1]['val']}; replayed "
+          f"{st['replayed']}; loop {lcounts}; scanned, warm-ups and replays, {scounts}")
+    if not (same_w and lbest == sbest and same_logs):
+        raise AssertionError(f"scanned {case.name}: the scanned run differs from the loop")
+    if st["fetches"] != st["chunks"]:
+        raise AssertionError(f"scanned {case.name}: {st['fetches']} host fetches in "
+                             f"{st['chunks']} chunks")
+    if not same_counts(scounts, expected_scan):
+        raise AssertionError(f"scanned {case.name}: launches {scounts} != the loop's plus the "
+                             f"warm-ups' {expected_scan}")
+    if not same_counts(train_graph, case.expected):
+        raise AssertionError(f"scanned {case.name}: the train graph launches {train_graph}, "
+                             f"expected {case.expected}")
+    silent = [k for k, n in lcounts.items() if n and not st["replayed"].get(k)]
+    if silent:
+        raise AssertionError(f"scanned {case.name}: {silent} launched in the loop, never in a "
+                             f"replay")
+
+
+def step_profile(fn) -> tuple[float, int, float]:
+    """(CUDA-event median ms, device ops, busy ms) of one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = median_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    return wall, len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def profile_scan_case(case: ScanCase, dev) -> None:
+    """(--profile) One eager train step (the loop's first batch) against one
+    replay of the captured step (`step_program`, the batcher's first row),
+    each from fresh seeded weights: device ops, busy ms and idle share."""
+    out = []
+    for form in ("eager", "replayed"):
+        stage = case.make()
+        stage.on_epoch(case.epochs)
+        state = full_width_state(f"scanned {case.name}", stage)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        if form == "eager":
+            batch = next(case.loop(np.random.default_rng(0), True))
+            fn = lambda: stage.train_step(state, batch, gen)            # noqa: E731
+        else:
+            fn = step_program(stage, state, case.batcher, gen)
+        wall, ops, busy = step_profile(fn)
+        idle = f"{1 - busy / wall:.3f}" if ops else "not measured (no device events)"
+        out.append(f"{form} {wall:.2f} ms, {ops} device ops, busy {busy:.2f} ms, idle {idle}")
+        del state, stage
+    print(f"profile scanned {case.name} train step: " + "; ".join(out))
+
+
+def scanned_phase(dev, rig_ds, skel, profile_phase: bool) -> list[dict]:
+    """Phase 20: each case of `scan_cases` through `run_epochs` and
+    `run_epochs_scanned` (`run_scan_case`, `check_scan_case`); with
+    --profile, a replayed step against an eager one.  Returns each run's
+    launches (the scanned runs' replayed launches included)."""
+    t0 = time.perf_counter()
+    card = gpu_name_power()
+    counted = []
+    with tempfile.TemporaryDirectory() as root:
+        for case in scan_cases(rig_ds, skel):
+            runs = run_scan_case(case, dev, root)
+            check_scan_case(case, runs, card)
+            counted += [runs["loop"][3], runs["scan"][3]]
+            if profile_phase:
+                profile_scan_case(case, dev)
+    print(f"scanned: phase 20 took {time.perf_counter() - t0:.1f} s")
+    return counted
+
+
 SOURCES = {
     "K1": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu", "morig_tpu/kernels/edge_fused.py:102"),
     "K2": ("cuda", "morig_tpu_torch/csrc/knn_topk.cu", "morig_tpu/kernels/knn_fused.py:109"),
@@ -2818,7 +3076,8 @@ def main(profile_phase: bool = False):
     trained, corr_state = train(batch, dev, profile_phase)
     motion = [train_deform(batch, corr_state, dev, profile_phase)]
     del corr_state
-    rig = rig_batch()
+    rig_ds = creature_rig_dataset(num_models=TRAIN_B, seed=0)
+    rig = rig_batch(rig_ds)
     motion += [train_motion("rig jointnet", RigStage(arch="jointnet"), rig, dev, profile_phase),
                train_motion("rig masknet", RigStage(arch="masknet"), rig, dev, profile_phase),
                train_motion("skin", SkinStage(), rig, dev, profile_phase)]
@@ -2839,9 +3098,10 @@ def main(profile_phase: bool = False):
                           "K4": 0, "K5": 0, "K6": 0})
     tracked = tracking(pred, profile_phase)
     parallel = parallel_phase(dev, batch, rig, skel)
+    scanned = scanned_phase(dev, rig_ds, skel, profile_phase)
 
     counted = [path1, path2, trained, *motion, demo_counts, batch_counts, k5_counts, f32_counts,
-               cli_counts, single, tracked, *parallel]
+               cli_counts, single, tracked, *parallel, *scanned]
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
         n = sum(c.get(name, 0) for c in counted)

@@ -31,9 +31,8 @@ Flags of the JAX CLI that are not defined here (argparse rejects them):
 --platform (use --device), --edge-bwd and --knn-impl (the port has one
 implementation of each: its CUDA kernels, their plain versions on the
 CPU), --edge-impl outside `train` and its values auto and xla,
---scan-epochs (train/scanned.py fuses epochs to cut dispatch round trips
-to a TPU; not ported), and the `bench` subcommand (it runs the
-repository's JAX bench.py).  Networks are initialized from
+--scan-epochs outside `train`, and the `bench` subcommand (it runs the repository's JAX bench.py).  Networks are
+initialized from
 the port's own seeded generator (--seed), not from JAX's: the same seed
 gives other initial weights than the JAX CLI."""
 
@@ -132,28 +131,58 @@ def load_weights(state, path: str):
     return ckpt.load_checkpoint(state, path)[0]
 
 
-def _train_loop(stage, args, batch_fn, default_epochs: int, state=None):
+def _scan_batcher_for(dataset, sample, args, device):
+    """A ScanBatcher for --scan-epochs from the dataset type, on `device`;
+    None when the dataset can't be scanned (multi-bucket pose sets)."""
+    from morig_tpu_torch.data.pose import PoseDataset
+    from morig_tpu_torch.data.rig import RigDataset
+    from morig_tpu_torch.train.scanned import (const_scan_batcher, pose_scan_batcher,
+                                               rig_scan_batcher)
+
+    if isinstance(dataset, PoseDataset):
+        if len(set(dataset.bucket_of)) != 1:
+            print("[train] --scan-epochs needs a single vertex bucket; "
+                  "falling back to the per-batch loop")
+            return None
+        return pose_scan_batcher(dataset, args.batch_size, args.kind, args.sequential,
+                                 device=device)
+    if isinstance(dataset, RigDataset):
+        return rig_scan_batcher(dataset, args.batch_size, device=device)
+    return const_scan_batcher(sample)
+
+
+def _train_loop(stage, args, batch_fn, default_epochs: int, state=None, dataset=None):
     dev = _device(args)
     rng_np = np.random.default_rng(args.seed)
     # the JAX CLI draws one training epoch here (its init sample); drawing it
     # too keeps every later schedule equal to the JAX CLI's
-    next(batch_fn(rng_np))
+    sample = next(batch_fn(rng_np))
     if state is None:
         state = stage.init_state(args.seed, dev)
     start_epoch = 0
     if args.resume:
         state, meta = ckpt.load_checkpoint(state, args.resume)
         start_epoch = int(meta.get("epoch", 0))
+    epochs = args.epochs or default_epochs
     logger = MetricLogger(args.logdir)
-    state, best = run_epochs(
-        stage, state,
-        train_batches=lambda e: batch_fn(rng_np),
-        val_batches=lambda: batch_fn(rng_np, train=False),
-        test_batches=None,
-        epochs=args.epochs or default_epochs, checkpoint_dir=args.checkpoint, logger=logger,
-        generator=torch.Generator(device=dev).manual_seed(args.seed + 1),
-        start_epoch=start_epoch,
-    )
+    generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    batcher = _scan_batcher_for(dataset, sample, args, dev) if args.scan_epochs else None
+    if batcher is not None:
+        from morig_tpu_torch.train.scanned import run_epochs_scanned
+
+        state, best = run_epochs_scanned(
+            stage, state, batcher, epochs=epochs, checkpoint_dir=args.checkpoint,
+            logger=logger, start_epoch=start_epoch, generator=generator, rng_np=rng_np,
+            chunk_epochs=args.scan_epochs)
+    else:
+        state, best = run_epochs(
+            stage, state,
+            train_batches=lambda e: batch_fn(rng_np),
+            val_batches=lambda: batch_fn(rng_np, train=False),
+            test_batches=None,
+            epochs=epochs, checkpoint_dir=args.checkpoint, logger=logger,
+            generator=generator, start_epoch=start_epoch,
+        )
     logger.close()
     print(f"best epoch: {best}; checkpoints in {args.checkpoint}")
     return state
@@ -180,7 +209,7 @@ def cmd_train(args):
             stage = S.CorrPoseStage()
             if args.train_vismask:
                 stage.train_vismask = True
-            _train_loop(stage, args, batches, 300)
+            _train_loop(stage, args, batches, 300, dataset=ds)
             return
         stage = S.DeformPoseStage(train_extractor=args.train_extractor)
         state = None
@@ -188,7 +217,7 @@ def cmd_train(args):
             state = stage.init_state(args.seed, dev)
             corr_state = load_weights(S.CorrPoseStage().init_state(0, dev), args.init_extractor)
             state = stage.init_extractor_from(state, corr_state)
-        _train_loop(stage, args, batches, 150, state=state)
+        _train_loop(stage, args, batches, 150, state=state, dataset=ds)
     elif name in ("joints", "mask", "skin"):
         ds = _rig_dataset(args)
         ds.edge_tile = tile
@@ -199,7 +228,7 @@ def cmd_train(args):
         def batches(rng, train=True):
             return ds.epoch_batches(rng, args.batch_size, train, device=dev)
 
-        _train_loop(stage, args, batches, 120)
+        _train_loop(stage, args, batches, 120, dataset=ds)
     else:                                                   # bone, root
         from morig_tpu_torch.data.skeleton_data import build_skel_sample, capsule_skel_dataset
 
@@ -357,6 +386,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--init-extractor", default="",
                    help="corr checkpoint (.pt, or a JAX CLI .msgpack) to initialize "
                         "the deform extractor")
+    t.add_argument("--scan-epochs", type=int, default=0,
+                   help="run N epochs per chunk from device-resident data with one "
+                        "host sync per chunk (train/scanned.py; on the card each step "
+                        "is a CUDA-graph replay); 0 = the per-batch loop")
     t.add_argument("--edge-impl", default="fused", choices=["fused", "windowed"],
                    help="the edge layers' forward in training: 'fused', the "
                         "full-table kernel K1; 'windowed', the windowed kernel K5 at "

@@ -34,7 +34,7 @@ from torch import nn
 
 from morig_tpu_torch.nn.mlp import Dense
 from morig_tpu_torch.parallel.mesh import DeviceMesh, gather_model
-from morig_tpu_torch.train.trainer import MultiStepAdam, TrainState
+from morig_tpu_torch.train.trainer import MultiStepAdam, TrainState, adam
 
 BACKENDS = ("nccl", "gloo")
 TIMEOUT_S = 600.0
@@ -242,7 +242,7 @@ def _fresh_tx(tx: MultiStepAdam) -> MultiStepAdam:
     parameters (as they are now)."""
     opt = tx.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
-    new = type(opt)(params, **opt.defaults)
+    new = adam(params, float(tx.scheduler.base_lrs[0]), opt.defaults["weight_decay"])
     sched = torch.optim.lr_scheduler.MultiStepLR(
         new, milestones=sorted(tx.scheduler.milestones.elements()), gamma=tx.scheduler.gamma)
     return MultiStepAdam(new, sched, tx.clip_norm)

@@ -29,20 +29,23 @@ import torch
 from morig_tpu_torch.train.trainer import TrainState
 
 
-def _state_dict(state: TrainState) -> dict:
+def _state_dict(state: TrainState, model_state: Optional[dict] = None) -> dict:
     return {"step": state.step,
-            "model": state.model.state_dict(),
+            "model": state.model.state_dict() if model_state is None else model_state,
             "optimizer": state.tx.optimizer.state_dict(),
             "scheduler": state.tx.scheduler.state_dict()}
 
 
 def save_checkpoint(state: TrainState, checkpoint_dir: str, is_best: bool = False,
-                    extra: Optional[dict] = None) -> str:
-    """Write `checkpoint_dir/checkpoint.pt` (and `.json` metadata from
-    `extra`); with is_best, copy both to `model_best.pt`.  Returns the path."""
+                    extra: Optional[dict] = None, filename: str = "checkpoint.pt",
+                    model_state: Optional[dict] = None) -> str:
+    """Write `checkpoint_dir/filename` (and `.json` metadata from `extra`);
+    with is_best, copy both to `model_best.pt`.  `model_state`: the model's
+    state dict to write in place of the model's own (the scanned runner's
+    best-on-val weights beside the state's optimizer).  Returns the path."""
     os.makedirs(checkpoint_dir, exist_ok=True)
-    path = os.path.join(checkpoint_dir, "checkpoint.pt")
-    torch.save(_state_dict(state), path + ".tmp")
+    path = os.path.join(checkpoint_dir, filename)
+    torch.save(_state_dict(state, model_state), path + ".tmp")
     os.replace(path + ".tmp", path)
     if extra is not None:
         with open(path + ".json.tmp", "w") as f:
@@ -66,6 +69,7 @@ def load_checkpoint(state: TrainState, path: str) -> tuple[TrainState, dict]:
     state.model.load_state_dict(saved["model"])
     state.tx.optimizer.load_state_dict(saved["optimizer"])
     state.tx.scheduler.load_state_dict(saved["scheduler"])
+    state.tx.conform()
     state.step = int(saved["step"])
     meta = {}
     if os.path.exists(path + ".json"):

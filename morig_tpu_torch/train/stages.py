@@ -9,7 +9,9 @@ layer through K1 forward and K6 backward, the kNN calls through K2 with its
 autograd backward, plain indexed gathers in PointNet++), one `backward()`,
 a global-norm clip at 10 over the trained parameters and one optimizer
 step.  It returns its losses and the gradient norm as floats, read with
-one transfer.
+one transfer, or with `on_device=True` as device scalars, read by nothing
+(`eval_step` too): the form the scanned runner captures in a CUDA graph
+(train/scanned.py, train/graphs.py).
 
 In "batch" norm mode (`nn.mlp.set_default_norm`) the train step's forward
 normalizes with batch statistics and updates the running statistics (the
@@ -64,15 +66,24 @@ def _summed(metrics: dict, mesh) -> dict:
     return dict(zip(metrics, all_reduce_(values, mesh.data_group, mesh.data).unbind()))
 
 
+def _out(metrics: dict, on_device: bool) -> dict:
+    """The step's metrics: floats read with one transfer, or with
+    `on_device` the device scalars themselves (fp32, no host sync: the
+    scanned runner's form, train/scanned.py)."""
+    if on_device:
+        return {k: v.detach().float() for k, v in metrics.items()}
+    return _floats(metrics)
+
+
 def _step(state: trainer.TrainState, total: torch.Tensor, metrics: dict,
-          mesh=None) -> dict[str, float]:
-    """backward(), the clip and one optimizer step; the metrics as floats
+          mesh=None, on_device: bool = False) -> dict:
+    """backward(), the clip and one optimizer step; the metrics (`_out`)
     with the gradient norm before the clip (`grad_norm`)."""
     state.tx.zero_grad()
     total.backward()
     metrics = _summed(metrics, mesh)
     metrics["grad_norm"] = state.apply_gradients(mesh)
-    return _floats(metrics)
+    return _out(metrics, on_device)
 
 
 class CorrPoseStage:
@@ -116,7 +127,8 @@ class CorrPoseStage:
         return total, dict(corr_loss=loss_match, vis_loss=loss_mask, total_loss=total)
 
     def train_step(self, state: trainer.TrainState, batch: PoseSample,
-                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None,
+                   on_device: bool = False) -> dict:
         """One optimizer step on `batch`; FPS starts are drawn from
         `generator` (index 0 when None).  Returns the losses and the global
         gradient norm before the clip (`grad_norm`)."""
@@ -124,16 +136,16 @@ class CorrPoseStage:
             outputs = state.model(batch.mesh, batch.points, train=True,
                                   train_vismask=self.train_vismask, generator=generator)
             losses = self._losses(outputs, batch, self.train_vismask)
-        return _step(state, *losses, mesh)
+        return _step(state, *losses, mesh, on_device)
 
     @torch.no_grad()
     def eval_step(self, state: trainer.TrainState, batch: PoseSample,
-                  mesh=None) -> dict[str, float]:
+                  mesh=None, on_device: bool = False) -> dict:
         with active(mesh):
             outputs = state.model(batch.mesh, batch.points, train=False,
                                   train_vismask=self.train_vismask)
             metrics = self._losses(outputs, batch, self.train_vismask)[1]
-        return _floats(_summed(metrics, mesh))
+        return _out(_summed(metrics, mesh), on_device)
 
     @torch.no_grad()
     def infer(self, state: trainer.TrainState, batch: PoseSample, train_vismask: bool = True):
@@ -207,7 +219,8 @@ class DeformPoseStage:
         return total, metrics
 
     def train_step(self, state: trainer.TrainState, batch: PoseSample,
-                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None,
+                   on_device: bool = False) -> dict:
         """One optimizer step on `batch`; the extractor's FPS starts are drawn
         from `generator` (index 0 when None).  With the extractor frozen its
         running statistics ("batch" norm mode) are restored after the
@@ -220,14 +233,14 @@ class DeformPoseStage:
                 for b, old in zip(frozen, saved):
                     b.copy_(old)
             losses = self._losses(outputs, batch)
-        return _step(state, *losses, mesh)
+        return _step(state, *losses, mesh, on_device)
 
     @torch.no_grad()
     def eval_step(self, state: trainer.TrainState, batch: PoseSample,
-                  mesh=None) -> dict[str, float]:
+                  mesh=None, on_device: bool = False) -> dict:
         with active(mesh):
             metrics = self._losses(state.model(batch.mesh, batch.points), batch)[1]
-        return _floats(_summed(metrics, mesh))
+        return _out(_summed(metrics, mesh), on_device)
 
     @torch.no_grad()
     def infer(self, state: trainer.TrainState, batch: PoseSample):
@@ -271,7 +284,8 @@ class _MotionStage:
                                       num_sample=self.num_embed_sample) for f in feats)
 
     def train_step(self, state: trainer.TrainState, batch: RigSample,
-                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None,
+                   on_device: bool = False) -> dict:
         """One optimizer step on `batch`: the input flow and the embedding
         loss's samples are drawn from `generator` (a fresh one seeded 0 on
         the batch's device when None)."""
@@ -280,18 +294,19 @@ class _MotionStage:
             flow = self.input_flow(batch, generator)
             outputs = self._forward(state.model, batch, flow, True)
             losses = self._losses(generator, outputs, batch)
-        return _step(state, *losses, mesh)
+        return _step(state, *losses, mesh, on_device)
 
     @torch.no_grad()
     def eval_step(self, state: trainer.TrainState, batch: RigSample,
-                  generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
+                  generator: Optional[torch.Generator] = None, mesh=None,
+                  on_device: bool = False) -> dict:
         """The losses on pred_flow, inference numerics; the embedding loss's
         samples from `generator` (a fresh one seeded 0 when None)."""
         generator = _default_generator(generator, batch.gt_flow.device)
         with active(mesh):
             outputs = self._forward(state.model, batch, batch.pred_flow, False)
             metrics = self._losses(generator, outputs, batch)[1]
-        return _floats(_summed(metrics, mesh))
+        return _out(_summed(metrics, mesh), on_device)
 
 
 class RigStage(_MotionStage):
@@ -465,20 +480,21 @@ class _SkelStage:
         return trainer.TrainState(model, self.make_tx(model.parameters()))
 
     def train_step(self, state: trainer.TrainState, batch: SkelSample,
-                   generator: Optional[torch.Generator] = None, mesh=None) -> dict[str, float]:
+                   generator: Optional[torch.Generator] = None, mesh=None,
+                   on_device: bool = False) -> dict:
         """One optimizer step on `batch`, its random draws from `generator`
         (a fresh one seeded 0 on the batch's device when None)."""
         generator = _default_generator(generator, batch.joints.device)
         with active(mesh):
             losses = self._losses(self._forward(state.model, batch, True, generator), batch)
-        return _step(state, *losses, mesh)
+        return _step(state, *losses, mesh, on_device)
 
     @torch.no_grad()
     def eval_step(self, state: trainer.TrainState, batch: SkelSample,
-                  mesh=None) -> dict[str, float]:
+                  mesh=None, on_device: bool = False) -> dict:
         with active(mesh):
             metrics = self._losses(self._forward(state.model, batch, False, None), batch)[1]
-        return _floats(_summed(metrics, mesh))
+        return _out(_summed(metrics, mesh), on_device)
 
     @torch.no_grad()
     def infer(self, state: trainer.TrainState, batch: SkelSample) -> torch.Tensor:

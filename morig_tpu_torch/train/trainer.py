@@ -32,6 +32,10 @@ class MultiStepAdam:
     optimizer: torch.optim.Adam
     scheduler: torch.optim.lr_scheduler.MultiStepLR
     clip_norm: float = 10.0
+    # set while a step is captured in a CUDA graph: a schedule step there
+    # would bake the learning rate into the graph, so the replays' caller
+    # steps the schedule on the host after each replay instead
+    defer_schedule: bool = False
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -58,8 +62,42 @@ class MultiStepAdam:
         scale = torch.where(norm < self.clip_norm, torch.ones_like(norm), self.clip_norm / norm)
         torch._foreach_mul_(grads, scale)
         self.optimizer.step()
-        self.scheduler.step()
+        if not self.defer_schedule:
+            self.scheduler.step()
         return norm
+
+    def conform(self) -> None:
+        """Put each parameter group in the form its device takes (after a
+        state dict from the other form, or from the other device, was
+        loaded): on the card capturable, with the learning rate a device
+        tensor and the step counts on the device; on the CPU the plain
+        form."""
+        for group in self.optimizer.param_groups:
+            dev = group["params"][0].device
+            card = dev.type == "cuda"
+            lr = group["lr"]
+            if card and not (torch.is_tensor(lr) and lr.device == dev):
+                group["lr"] = torch.tensor(float(lr), device=dev)
+            elif not card and torch.is_tensor(lr):
+                group["lr"] = float(lr)
+            group["capturable"] = card
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                if torch.is_tensor(st.get("step")):
+                    st["step"] = st["step"].to(dev if card else "cpu", torch.float32)
+
+
+def adam(params, lr: float, weight_decay: float) -> torch.optim.Adam:
+    """torch's Adam with L2 decay in the form the parameters' device takes:
+    on the card capturable, the learning rate a device tensor (a graph
+    replay reads it where the schedule wrote it); on the CPU the plain
+    form."""
+    params = list(params)
+    dev = params[0].device
+    if dev.type == "cuda":
+        return torch.optim.Adam(params, lr=torch.tensor(lr, device=dev),
+                                weight_decay=weight_decay, capturable=True)
+    return torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
 
 
 def multistep_adam(params, lr: float, milestones: Sequence[int], gamma: float,
@@ -67,8 +105,9 @@ def multistep_adam(params, lr: float, milestones: Sequence[int], gamma: float,
                    clip_norm: float = 10.0) -> MultiStepAdam:
     """Adam with L2 decay, the learning rate multiplied by gamma at each
     milestone epoch (milestones x steps_per_epoch optimizer steps), and the
-    gradients clipped to a global norm of clip_norm before each step."""
-    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay)
+    gradients clipped to a global norm of clip_norm before each step (`adam`'s
+    form for the parameters' device)."""
+    opt = adam(params, lr, weight_decay)
     sched = torch.optim.lr_scheduler.MultiStepLR(
         opt, milestones=[int(m) * steps_per_epoch for m in milestones], gamma=gamma)
     return MultiStepAdam(opt, sched, clip_norm)
@@ -134,8 +173,14 @@ class MetricLogger:
         else:
             self.f = None
 
-    def log(self, epoch: int, split: str, metrics: dict):
-        record = {"epoch": epoch, "split": split, "time": time.time(), **metrics}
+    def log(self, epoch: int, split: str, metrics: dict, time_s: Optional[float] = None,
+            **extra_fields):
+        """One record: epoch, split, time (`time_s`, now when None), the
+        extra fields (e.g. the scanned runner's `epoch_wall_s`), then the
+        metrics."""
+        record = {"epoch": epoch, "split": split,
+                  "time": time.time() if time_s is None else time_s,
+                  **extra_fields, **metrics}
         line = " ".join(f"{split}_{k}: {v:.6f}." for k, v in metrics.items())
         print(f"Epoch{epoch}. {line}")
         if self.f:
@@ -158,19 +203,25 @@ def run_epochs(
     logger: Optional[MetricLogger] = None,
     generator: Optional[torch.Generator] = None,
     start_epoch: int = 0,
+    init_lowest: float = math.inf,
+    init_best_epoch: int = -1,
 ):
-    """The shared epoch loop over epochs start_epoch..epochs-1 (a resumed run
-    passes its checkpoint's epoch): train / val / test, then a checkpoint
-    each epoch and a `model_best` copy whenever the validation total loss
-    improves.  `generator` draws the training randomness (a seeded one on
-    the model's device when None).  Returns (state, best_epoch)."""
+    """The shared epoch loop over epochs start_epoch..epochs-1: train / val /
+    test, then a checkpoint each epoch and a `model_best` copy whenever the
+    validation total loss improves.  `generator` draws the training
+    randomness (a seeded one on the model's device when None).  A resumed
+    run passes its checkpoint's epoch as `start_epoch` and the best-on-val
+    it had reached as `init_lowest` / `init_best_epoch` (the `lowest_loss`
+    and, less one, the `epoch` of model_best's metadata), so the resumed
+    epochs neither overwrite a better model_best nor report best_epoch -1
+    when none of them improves.  Returns (state, best_epoch)."""
     from morig_tpu_torch.train import checkpoint as ckpt
 
     logger = logger or MetricLogger(None)
     if generator is None:
         generator = torch.Generator(device=state.device).manual_seed(0)
-    lowest = math.inf
-    best_epoch = -1
+    lowest = init_lowest
+    best_epoch = init_best_epoch
     for epoch in range(start_epoch, epochs):
         stage.on_epoch(epoch)
         meters: dict[str, Meter] = {}

@@ -20,6 +20,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import io
+import json
 import os
 import re
 import subprocess
@@ -60,7 +61,8 @@ def _help(main, argv) -> str:
 
 NEW_MODULES = ("cli", "data.loaders", "data.mesh_io", "data.preprocess", "eval.metrics",
                "eval.folder_eval", "eval.visualize", "geometry.segmentation",
-               "geometry.registration", "geometry.kmeans", "losses.extras")
+               "geometry.registration", "geometry.kmeans", "losses.extras", "train.scanned",
+               "train.graphs", "utils.profiling")
 
 
 def test_cli_imports_without_jax():
@@ -89,8 +91,9 @@ def test_cli_flags_are_the_jax_clis(cmd):
     ports = _port_flags()
     assert set(ports) == {"train", "eval", "predict-rig", "track"}
     ref = set(re.findall(r"(--[a-z][a-z-]+)", _help(jcli.main, [cmd]))) - {"--help"}
-    # `train --edge-impl fused|windowed` picks the training forward (K1 or K5)
-    carried = {"--edge-impl"} if cmd == "train" else set()
+    # `train --edge-impl fused|windowed` picks the training forward (K1 or K5);
+    # `train --scan-epochs N` runs train/scanned.py
+    carried = {"--edge-impl", "--scan-epochs"} if cmd == "train" else set()
     assert ports[cmd] == (ref - NOT_CARRIED_OVER) | {"--device"} | carried
 
 
@@ -100,8 +103,10 @@ def test_cli_flags_are_the_jax_clis(cmd):
                                   ["--knn-impl", "fused"], ["--platform", "cpu"],
                                   ["--scan-epochs", "2"]])
 def test_cli_rejects_jax_only_flags(argv):
+    # --scan-epochs is a flag of `train` alone in the port
+    cmd = ["eval", "corr"] if argv[0] == "--scan-epochs" else ["train", "corr_pose"]
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
-        tcli.main(["train", "corr_pose", *FIXTURE, "--device", "cpu", *argv])
+        tcli.main([*cmd, *FIXTURE, "--device", "cpu", *argv])
     with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
         tcli.main(["bench", "--smoke"])
 
@@ -325,3 +330,46 @@ def test_cli_track_and_eval_tracking(tmp_path):
     text = _run(tcli.main, ["eval", "tracking", "--device", "cpu", "--res", out, "--gt", str(gt)])
     assert _numbers(text, "mean full flow error") == pytest.approx(
         [float(z["full_flow_error"])], abs=1e-5)
+
+
+def test_cli_train_scan_epochs(tmp_path):
+    """`train corr_pose --scan-epochs 2` on the CPU (3 epochs: chunks of 2
+    and 1) writes checkpoint.pt, model_best.pt and a metrics.jsonl whose
+    every line has `epoch_wall_s`, and trains the weights `--scan-epochs 0`
+    (the loop) trains, bit for bit."""
+    weights = {}
+    for scan in ("2", "0"):
+        ck, logs = tmp_path / f"ck{scan}", tmp_path / f"logs{scan}"
+        out = _run(tcli.main, ["train", "corr_pose", *FIXTURE, "--num-models", "2",
+                               "--batch-size", "2", "--epochs", "3", "--device", "cpu",
+                               "--scan-epochs", scan, "--checkpoint", str(ck),
+                               "--logdir", str(logs)])
+        assert "best epoch:" in out
+        assert {"checkpoint.pt", "model_best.pt"} <= set(os.listdir(ck))
+        with open(logs / "metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        assert [(r["epoch"], r["split"]) for r in records] == \
+            [(e, s) for e in (1, 2, 3) for s in ("train", "val")]
+        assert all(("epoch_wall_s" in r) == (scan == "2") for r in records)
+        weights[scan] = torch.load(ck / "checkpoint.pt", weights_only=True)["model"]
+    assert all(torch.equal(weights["2"][k], weights["0"][k]) for k in weights["0"])
+
+
+def test_cli_scan_epochs_multi_bucket_pose_set(monkeypatch, tmp_path):
+    """A pose set over two vertex buckets cannot be scanned: the JAX CLI's
+    message, then the per-batch loop (no `epoch_wall_s` in the log)."""
+    from morig_tpu_torch.data.pose import PoseDataset, capsule_pose_dataset
+
+    small = capsule_pose_dataset(num_models=1, num_frames=6, num_points=64, n_lat=7, n_lon=6)
+    large = capsule_pose_dataset(num_models=1, num_frames=6, num_points=64, n_lat=17, n_lon=16)
+    ds = PoseDataset(small.models + large.models)
+    assert len(set(ds.bucket_of)) == 2
+    monkeypatch.setattr(tcli, "_pose_dataset", lambda args, shape=False: ds)
+    logs = tmp_path / "logs"
+    out = _run(tcli.main, ["train", "corr_pose", *FIXTURE, "--epochs", "1", "--device", "cpu",
+                           "--scan-epochs", "2", "--checkpoint", str(tmp_path / "ck"),
+                           "--logdir", str(logs)])
+    assert ("[train] --scan-epochs needs a single vertex bucket; falling back to the "
+            "per-batch loop") in out
+    with open(logs / "metrics.jsonl") as f:
+        assert not any("epoch_wall_s" in json.loads(line) for line in f)

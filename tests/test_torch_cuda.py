@@ -33,7 +33,9 @@ received (the motion training stages' widths); a BoneStage and a RootStage
 step on the card against the same step on the CPU; in the "batch" norm
 mode, MaskedBatchNorm and a GCU on the card against the CPU, a
 predict_rig_batch call that launches no edge kernel, and a DeformPoseStage
-step whose frozen extractor keeps its running statistics bit for bit.  Shapes and types
+step whose frozen extractor keeps its running statistics bit for bit;
+epoch-scanned training (train/scanned.py), its CUDA-graph replays against
+the loop bit for bit, and a capture that fails raising.  Shapes and types
 a kernel does not take raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -1280,3 +1282,110 @@ def test_training_steps_repeat_bit_for_bit(cuda):
     finally:
         mlp.set_default_norm(prev)
     assert not differing, differing
+
+
+def _scan_runs(dev, make, loop, batcher, epochs, chunk):
+    """run_epochs and run_epochs_scanned on the card from the same weights,
+    generator and schedule draws: {runner: (weights and buffers, best epoch,
+    logged (epoch, split, metrics), the scanned run's stats)}."""
+    import numpy as np
+
+    from morig_tpu_torch.train import scanned, trainer
+
+    class Records(trainer.MetricLogger):
+        def __init__(self):
+            super().__init__(None)
+            self.records = []
+
+        def log(self, epoch, split, metrics, time_s=None, **extra):
+            self.records.append((epoch, split, metrics))
+
+    out = {}
+    for runner in ("loop", "scan"):
+        stage = make()
+        state = stage.init_state(0, device=dev)
+        logger, stats = Records(), {}
+        gen, rng_np = torch.Generator(device=dev).manual_seed(3), np.random.default_rng(7)
+        if runner == "loop":
+            state, best = trainer.run_epochs(stage, state, lambda e: loop(rng_np, True),
+                                             lambda: loop(rng_np, False), None, epochs,
+                                             logger=logger, generator=gen)
+        else:
+            state, best = scanned.run_epochs_scanned(stage, state, batcher, epochs=epochs,
+                                                     logger=logger, generator=gen,
+                                                     rng_np=rng_np, chunk_epochs=chunk,
+                                                     stats=stats)
+        out[runner] = ([t.detach().clone() for t in (*state.model.parameters(),
+                                                      *state.model.buffers())],
+                       best, logger.records, stats)
+    return out
+
+
+def test_scanned_run_on_card_equals_the_loop(cuda):
+    """BoneStage and RigStage jointnet on capsule data, on the card:
+    run_epochs_scanned (each step a CUDA-graph replay, one host fetch per
+    chunk) against run_epochs: the final weights and buffers, the best
+    epoch and the logged metrics equal bit for bit (one step and one val
+    batch per epoch, so the means are the values)."""
+    from morig_tpu_torch.data.rig import capsule_rig_dataset
+    from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
+    from morig_tpu_torch.train import scanned
+    from morig_tpu_torch.train.stages import BoneStage, RigStage
+
+    skel = capsule_skel_dataset(2, max_joints=8, num_points=64, n_lat=9, n_lon=8, device=cuda)
+    rig = capsule_rig_dataset(num_models=2, num_points=64, n_lat=9, n_lon=8)
+
+    def skel_loop(rng, train):
+        yield skel
+
+    cases = [(BoneStage, skel_loop, scanned.const_scan_batcher(skel), 4, 3),
+             (lambda: RigStage(arch="jointnet", num_embed_sample=32),
+              lambda rng, train: rig.epoch_batches(rng, 2, train, device=cuda),
+              scanned.rig_scan_batcher(rig, 2, device=cuda), 3, 2)]
+    for make, loop, batcher, epochs, chunk in cases:
+        runs = _scan_runs(cuda, make, loop, batcher, epochs, chunk)
+        (lw, lb, lr, _), (sw, sb, sr, st) = runs["loop"], runs["scan"]
+        assert st["captures"] == 1 and st["fetches"] == st["chunks"] == 2
+        assert lb == sb and lr == sr
+        assert all(torch.equal(a, b) for a, b in zip(lw, sw))
+
+
+def test_failed_capture_raises(cuda):
+    """A train step that reads a value on the host (`.item()`) cannot be
+    captured: run_epochs_scanned on a CUDA state raises, naming the train
+    program, and runs no eager loop in its place.  In a process of its own,
+    since a failed capture may leave the card's context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import torch
+from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
+from morig_tpu_torch.train import scanned
+from morig_tpu_torch.train.stages import BoneStage
+
+class Syncing(BoneStage):
+    def train_step(self, state, batch, generator=None, mesh=None, on_device=False):
+        m = super().train_step(state, batch, generator, mesh, on_device)
+        m["host"] = torch.tensor(float(m["total_loss"].item()), device=batch.joints.device)
+        return m
+
+dev = torch.device("cuda", 0)
+skel = capsule_skel_dataset(2, max_joints=8, num_points=64, n_lat=9, n_lon=8, device=dev)
+stage = Syncing()
+state = stage.init_state(0, device=dev)
+stats = {}
+try:
+    scanned.run_epochs_scanned(stage, state, scanned.const_scan_batcher(skel), epochs=2,
+                               chunk_epochs=2, stats=stats)
+except RuntimeError as err:
+    assert "CUDA graph capture of the train program failed" in str(err), err
+    assert stats["chunks"] == 0 and stats["steps"] == 0, stats
+    print("raised")
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=root, env=env)
+    assert res.returncode == 0 and res.stdout.strip().endswith("raised"), res.stdout + res.stderr
