@@ -230,6 +230,26 @@ Phases, each printing its own lines:
                name and power limit; with --profile an eager train step's
                device ops, busy ms and idle share beside a replayed one's
                (`scanned.step_program`).
+ 21. campaign — the convergence campaign at its smoke size (last, after
+               phase 20): `tools/torch_campaign.py --smoke` in a temporary
+               directory (2 training, 1 validation and 1 held-out creature
+               of ~700 vertices, P=256, batch 2; the eight stages corr,
+               deform, deform_seq, joints, mask, skin, bone and root 3
+               epochs each through `run_epochs_scanned`, each step a
+               CUDA-graph replay; the flow dumps; the held-out
+               `predict_rig_batch` with voxels and surface geodesics, the
+               skin L1 and the tracking of creature 200 by both DeformNets
+               over 10 frames), then `tools/torch_eval_campaign_tracking.py
+               --frames 5 --timing-iters 1` on it, both in this process
+               with the counts zeroed before and read after each: the
+               campaign must launch K1, K2, K3, K6 and KS, the tracking K1,
+               K2 and K3, neither K4, K5 or `plain_edge`; every recorded
+               K1/K2/K3/KS call (first of each shape) and every training
+               K1/K6 call is held against its plain version as in phases
+               7 and 15; the summary must be finite with IoU, precision and
+               recall in [0, 1] and skin L1 >= 0, the tracks finite and each
+               stage's files written.  Prints each stage's seconds, epochs
+               and peak memory, the held-out timings and tracked frames/s.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -264,8 +284,9 @@ timed step of each of phases 9-12 and 17 (its K5 steps) and phase 9's step
 with the extractor trained, phase 12's counted `eval_step`s, phase 13's
 calls, phase 14's timed calls and steps, phase 18's first timed call,
 phase 15's commands, the first timed single-mesh call, the two timed
-tracking runs, rank 0's first step of each phase-19 run and every run of
-phase 20, a graph replay counted as the launches its capture recorded;
+tracking runs, rank 0's first step of each phase-19 run, every run of
+phase 20 and phase 21's two runs, a graph replay counted as the launches
+its capture recorded;
 `ms` and `device_ms`
 the device time, `call_ms` the call time, `library_ms` and
 `library_device_ms` the library call's, `composite_ms` and
@@ -3015,6 +3036,119 @@ def scanned_phase(dev, rig_ds, skel, profile_phase: bool) -> list[dict]:
     return counted
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the convergence campaign (tools/torch_campaign.py) at its smoke size
+# ---------------------------------------------------------------------------
+
+# every kernel a campaign runs must launch (K1 and K6 in every stage, K2 in
+# the corr and deform stages, K3 and KS in the losses' gathers); it passes
+# no edge_tile, so K5 stays 0, and no path calls K4
+CAMPAIGN_KERNELS = ("K1", "K2", "K3", "K6", "KS")
+CAMPAIGN_STAGES = ("corr", "deform", "deform_seq", "joints", "mask", "skin", "bone", "root")
+
+
+def load_tool(name: str):
+    """tools/<name>.py of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def counted_run(fn):
+    """fn() with the kernel counts zeroed just before it and read just after
+    it, the graph replays' launches added: (its result, the counts)."""
+    torch.cuda.synchronize()
+    zero_stage_counts()
+    reset_replayed()
+    out = fn()
+    torch.cuda.synchronize()
+    real, replayed = read_stage_counts(), replayed_launches()
+    return out, {k: real[k] + replayed.get(k, 0) for k in real}
+
+
+def check_campaign_counts(name: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    extra = [k for k in ("K4", "K5", "plain_edge") if launches.get(k, 0)]
+    print(f"campaign {name} kernel launches: {launches}")
+    if missing or extra:
+        raise AssertionError(f"campaign {name}: kernels not launched {missing}, "
+                             f"launched off the path {extra}")
+
+
+def check_track_file(path: str) -> None:
+    with np.load(path) as z:
+        if not all(np.isfinite(z[k]).all() for k in ("pred_vtx_traj", "pred_vismask",
+                                                      "pred_quats")):
+            raise AssertionError(f"campaign: {path} holds a non-finite track")
+
+
+def campaign_phase(dev) -> list[dict]:
+    """Phase 21: `tools/torch_campaign.py --smoke` in a temporary directory
+    (the eight stages 3 epochs each through the scanned runner, every step a
+    CUDA-graph replay, then the held-out rig, skin and tracking evaluation),
+    then `tools/torch_eval_campaign_tracking.py --frames 5 --timing-iters 1`
+    on it, each run in this process with the counts zeroed before and read
+    after it.  Every K1, K2, K3 and KS call of the campaign (the training
+    steps' eager warm-ups, the flow dumps, the held-out `predict_rig_batch`,
+    the skin evaluation, the tracking) and every training K1/K6 call, first of
+    each shape, is recorded and held against its plain version.  The
+    summary must be finite with IoU, precision and recall in [0, 1] and skin
+    L1 >= 0, the tracks finite, each stage's files written.  Prints each
+    stage's seconds, epochs and peak memory.  Returns both runs' launches."""
+    t0 = time.perf_counter()
+    campaign, track_eval = load_tool("torch_campaign"), load_tool("torch_eval_campaign_tracking")
+    calls, tcalls = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        with recording_kernel_calls(calls), recording_training_calls(tcalls):
+            summary, launches = counted_run(lambda: campaign.main(
+                ["--dir", root, "--smoke", "--device", str(dev)]))
+        check_campaign_counts("smoke", launches, CAMPAIGN_KERNELS)
+        check_recorded("campaign", calls)
+        check_recorded_training("campaign", tcalls)
+        mean = summary["mean"]
+        if not all(np.isfinite(v) for v in mean.values()):
+            raise AssertionError(f"campaign: non-finite summary {mean}")
+        for k in ("joint_IoU", "joint_precision", "joint_recall"):
+            if not all(0.0 <= m[k] <= 1.0 for m in summary["per_model"]):
+                raise AssertionError(f"campaign: {k} outside [0, 1]: {summary['per_model']}")
+        if mean["skin_l1"] < 0:
+            raise AssertionError(f"campaign: skin L1 {mean['skin_l1']} < 0")
+        for stage in CAMPAIGN_STAGES:
+            files = sorted(os.listdir(os.path.join(root, stage)))
+            if not {"done.json", "metrics.jsonl", "model_best.pt", "checkpoint.pt"} <= set(files):
+                raise AssertionError(f"campaign {stage}: files {files}")
+        check_track_file(os.path.join(root, "results", "creature200_tracking.npz"))
+        with open(os.path.join(root, "results", "campaign_timings.json")) as f:
+            timings = json.load(f)
+        print("campaign stages (seconds, epochs, peak GiB): " + "; ".join(
+            f"{n} {t['seconds']:.2f} s, {t['epochs_run']}, {t['peak_gib']}"
+            for n, t in timings["stages"].items()))
+        h = timings["heldout"]
+        print(f"campaign held-out: predict_rig_batch {h['predict_rig_batch_s']['default']:.2f} s, "
+              f"tracking seq {h['tracking']['seq']['frames_per_s']:.3f} frames/s, "
+              f"total {timings['total_s']:.1f} s; mean {json.dumps(mean)}; "
+              f"{summary['device']['name']}, {summary['device']['power_limit']}")
+
+        tracked, track_launches = counted_run(lambda: track_eval.main(
+            ["--dir", root, "--frames", "5", "--timing-iters", "1", "--device", str(dev)]))
+        check_campaign_counts("tracking eval", track_launches, ("K1", "K2", "K3"))
+        if not all(np.isfinite([m["full_flow_error"], m["vis_flow_error"]]).all()
+                   for m in tracked["per_model"]):
+            raise AssertionError(f"campaign tracking eval: non-finite errors {tracked}")
+        for m in tracked["per_model"]:
+            check_track_file(os.path.join(root, "results", f"creature{m['seed']}_tracking.npz"))
+        b = tracked["batched"]
+        print(f"campaign tracking eval: {b['num_meshes']} x {b['frames_per_mesh']} frames, "
+              f"{b['aggregate_frames_per_sec']:.3f} tracked frames/s (first call "
+              f"{b['first_call_seconds']:.2f} s); mean {json.dumps(tracked['mean'])}")
+    print(f"campaign: phase 21 took {time.perf_counter() - t0:.1f} s")
+    return [launches, track_launches]
+
+
 SOURCES = {
     "K1": ("cuda", "morig_tpu_torch/csrc/edge_mlp.cu", "morig_tpu/kernels/edge_fused.py:102"),
     "K2": ("cuda", "morig_tpu_torch/csrc/knn_topk.cu", "morig_tpu/kernels/knn_fused.py:109"),
@@ -3099,12 +3233,13 @@ def main(profile_phase: bool = False):
     tracked = tracking(pred, profile_phase)
     parallel = parallel_phase(dev, batch, rig, skel)
     scanned = scanned_phase(dev, rig_ds, skel, profile_phase)
+    campaign = campaign_phase(dev)
 
-    counted = [path1, path2, trained, *motion, demo_counts, batch_counts, k5_counts, f32_counts,
-               cli_counts, single, tracked, *parallel, *scanned]
+    runs = [path1, path2, trained, *motion, demo_counts, batch_counts, k5_counts, f32_counts,
+            cli_counts, single, tracked, *parallel, *scanned, *campaign]
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
-        n = sum(c.get(name, 0) for c in counted)
+        n = sum(c.get(name, 0) for c in runs)
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
     print(json.dumps({"kernels": kernels}))

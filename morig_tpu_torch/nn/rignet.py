@@ -159,11 +159,14 @@ class MaskNetMotion(nn.Module):
 def slice_skin_descriptor(samples: torch.Tensor, nearest_bone: int,
                           use_Dg: bool, use_Lf: bool) -> torch.Tensor:
     """Per-bone columns of the packed (..., K*8) descriptor: 6 endpoint
-    coordinates, then 1/distance if use_Dg, then isleaf if use_Lf."""
+    coordinates, then 1/distance if use_Dg, then isleaf if use_Lf.  Sliced,
+    not indexed by a list of columns: a list index is a host-to-device copy,
+    which a CUDA-graph capture of the training step refuses."""
     K = nearest_bone
     x = samples[..., :K * 8].reshape(samples.shape[:-1] + (K, 8))
-    cols = [0, 1, 2, 3, 4, 5] + ([6] if use_Dg else []) + ([7] if use_Lf else [])
-    return x[..., cols].reshape(samples.shape[:-1] + (K * len(cols),))
+    parts = [x[..., :6]] + ([x[..., 6:7]] if use_Dg else []) + ([x[..., 7:8]] if use_Lf else [])
+    out = torch.cat(parts, -1)
+    return out.reshape(samples.shape[:-1] + (K * out.shape[-1],))
 
 
 class SkinNetInner(nn.Module):

@@ -6,11 +6,16 @@ Two layers:
   * trace() — context manager around torch.profiler for a Chrome trace of
     the host and the device (viewable in Perfetto or chrome://tracing), and
     annotate() — a named range inside it.
+Also `device_info`, the device's name and power limit that every measured
+number carries, and the peak device memory of a phase (`reset_peak`,
+`peak_gib`).
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -75,3 +80,45 @@ def annotate(name: str) -> Iterator[None]:
 
     with torch.profiler.record_function(name):
         yield
+
+
+def device_info(dev) -> dict:
+    """{"name", "power_limit"} of a device: for a card its name and the power
+    limit nvidia-smi reports (None where it cannot be read), for the CPU
+    "cpu" and None."""
+    import torch
+
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    power = None
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
+                              f"--id={index}"], capture_output=True, text=True, check=True,
+                             timeout=60)
+        power = out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return {"name": torch.cuda.get_device_name(index), "power_limit": power}
+
+
+def reset_peak(dev) -> None:
+    """Free what the caching allocator holds unused (e.g. the pools of CUDA
+    graphs that are gone) and restart the card's peak-memory count."""
+    import torch
+
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gib(dev) -> Optional[float]:
+    """The card's peak allocated memory since `reset_peak`, GiB (None on the
+    CPU)."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30

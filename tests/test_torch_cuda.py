@@ -1322,26 +1322,35 @@ def _scan_runs(dev, make, loop, batcher, epochs, chunk):
 
 
 def test_scanned_run_on_card_equals_the_loop(cuda):
-    """BoneStage and RigStage jointnet on capsule data, on the card:
-    run_epochs_scanned (each step a CUDA-graph replay, one host fetch per
-    chunk) against run_epochs: the final weights and buffers, the best
-    epoch and the logged metrics equal bit for bit (one step and one val
-    batch per epoch, so the means are the values)."""
+    """BoneStage, RigStage jointnet, SkinStage and DeformPoseStage (the
+    extractor frozen) on capsule data, on the card: run_epochs_scanned (each
+    step a CUDA-graph replay, one host fetch per chunk) against run_epochs:
+    the final weights and buffers, the best epoch and the logged metrics
+    equal bit for bit (one step and one val batch per epoch, so the means
+    are the values)."""
+    from morig_tpu_torch.data.pose import capsule_pose_dataset
     from morig_tpu_torch.data.rig import capsule_rig_dataset
     from morig_tpu_torch.data.skeleton_data import capsule_skel_dataset
     from morig_tpu_torch.train import scanned
-    from morig_tpu_torch.train.stages import BoneStage, RigStage
+    from morig_tpu_torch.train.stages import BoneStage, DeformPoseStage, RigStage, SkinStage
 
     skel = capsule_skel_dataset(2, max_joints=8, num_points=64, n_lat=9, n_lon=8, device=cuda)
     rig = capsule_rig_dataset(num_models=2, num_points=64, n_lat=9, n_lon=8)
+    pose = capsule_pose_dataset(num_models=2, num_frames=4, num_points=64, n_lat=9, n_lon=8)
 
     def skel_loop(rng, train):
         yield skel
 
+    rig_loop = lambda rng, train: rig.epoch_batches(rng, 2, train, device=cuda)
     cases = [(BoneStage, skel_loop, scanned.const_scan_batcher(skel), 4, 3),
-             (lambda: RigStage(arch="jointnet", num_embed_sample=32),
-              lambda rng, train: rig.epoch_batches(rng, 2, train, device=cuda),
-              scanned.rig_scan_batcher(rig, 2, device=cuda), 3, 2)]
+             (lambda: RigStage(arch="jointnet", num_embed_sample=32), rig_loop,
+              scanned.rig_scan_batcher(rig, 2, device=cuda), 3, 2),
+             (lambda: SkinStage(num_embed_sample=32), rig_loop,
+              scanned.rig_scan_batcher(rig, 2, device=cuda), 3, 2),
+             (DeformPoseStage,
+              lambda rng, train: pose.epoch_batches(rng, 2, "modelsresource", False, train,
+                                                    device=cuda),
+              scanned.pose_scan_batcher(pose, 2, "modelsresource", False, device=cuda), 3, 2)]
     for make, loop, batcher, epochs, chunk in cases:
         runs = _scan_runs(cuda, make, loop, batcher, epochs, chunk)
         (lw, lb, lr, _), (sw, sb, sr, st) = runs["loop"], runs["scan"]
