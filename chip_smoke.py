@@ -250,6 +250,24 @@ Phases, each printing its own lines:
                recall in [0, 1] and skin L1 >= 0, the tracks finite and each
                stage's files written.  Prints each stage's seconds, epochs
                and peak memory, the held-out timings and tracked frames/s.
+ 22. sweep   — the last JAX tools' counterparts (last, inside phase 21's
+               temporary directory): (a) `tools/torch_sweep_joint_params.py`
+               on the card on campaign_v3/joint_sweep_inputs.npz (read in
+               place, the result written to a temporary directory) with the
+               default grid: the best thresholds and every held-out
+               creature's joint count equal to campaign_v3/
+               joint_sweep_result.json's, IoU, precision, recall and
+               chamfer within SWEEP_TOL; (b) its --dump on phase 21's
+               campaign directory (that run's validation and held-out
+               creatures and sizes): the K1 launches of two JointNet and
+               two MaskNet forwards and nothing else, every K1 call (first
+               of each shape) held against its plain version, the arrays
+               finite and some shifted points inside each volume; (c)
+               `examples/torch_capsule_end_to_end.py --steps EXAMPLE_STEPS`:
+               finite metrics, a rig file, its `predict_rig` call counted as
+               phase 13's (K1 one per edge layer, K2 3, K3 12, nothing
+               else), its K1/K2/K3/KS calls and training K1/K6 calls held
+               against their plain versions.  Prints each part's seconds.
   7. single mesh — `RigPredictor.predict_rig` (the single-mesh API) with
                path 1's predictor on the first capsule request (V=1298
                padded to 1536, P=1024, T=5): a warm-up call whose K1, K2
@@ -300,6 +318,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import importlib.util
 import io
 import json
 import math
@@ -1004,12 +1023,16 @@ def check_k3(dev):
 # phase 4: the two paths
 # ---------------------------------------------------------------------------
 
-def expected_edge_launches(pred: RigPredictor) -> int:
-    """One edge-kernel launch per EdgeMLP call (K1 on path 1, K5 on path 2):
+def edge_launches(*nets) -> int:
+    """One edge-kernel launch per EdgeMLP call of the networks' forwards:
     the motion trunks run once per keyframe."""
     return sum(T if "motionNet" in name else 1
-               for net in (pred.deform, pred.joint, pred.mask, pred.root, pred.bone, pred.skin)
-               for name, m in net.named_modules() if isinstance(m, EdgeMLP))
+               for net in nets for name, m in net.named_modules() if isinstance(m, EdgeMLP))
+
+
+def expected_edge_launches(pred: RigPredictor) -> int:
+    """One edge-kernel launch per EdgeMLP call (K1 on path 1, K5 on path 2)."""
+    return edge_launches(pred.deform, pred.joint, pred.mask, pred.root, pred.bone, pred.skin)
 
 
 # K2: vismask + voting + completion in the one (B*T) DeformNet forward.
@@ -3086,7 +3109,7 @@ def check_track_file(path: str) -> None:
             raise AssertionError(f"campaign: {path} holds a non-finite track")
 
 
-def campaign_phase(dev) -> list[dict]:
+def campaign_phase(dev, after=None) -> tuple[list[dict], list]:
     """Phase 21: `tools/torch_campaign.py --smoke` in a temporary directory
     (the eight stages 3 epochs each through the scanned runner, every step a
     CUDA-graph replay, then the held-out rig, skin and tracking evaluation),
@@ -3098,7 +3121,9 @@ def campaign_phase(dev) -> list[dict]:
     each shape, is recorded and held against its plain version.  The
     summary must be finite with IoU, precision and recall in [0, 1] and skin
     L1 >= 0, the tracks finite, each stage's files written.  Prints each
-    stage's seconds, epochs and peak memory.  Returns both runs' launches."""
+    stage's seconds, epochs and peak memory.  Then `after(directory)` while
+    the directory is there.  Returns (both runs' launches, what `after`
+    returned)."""
     t0 = time.perf_counter()
     campaign, track_eval = load_tool("torch_campaign"), load_tool("torch_eval_campaign_tracking")
     calls, tcalls = {}, {}
@@ -3145,8 +3170,141 @@ def campaign_phase(dev) -> list[dict]:
         print(f"campaign tracking eval: {b['num_meshes']} x {b['frames_per_mesh']} frames, "
               f"{b['aggregate_frames_per_sec']:.3f} tracked frames/s (first call "
               f"{b['first_call_seconds']:.2f} s); mean {json.dumps(tracked['mean'])}")
-    print(f"campaign: phase 21 took {time.perf_counter() - t0:.1f} s")
-    return [launches, track_launches]
+        print(f"campaign: phase 21 took {time.perf_counter() - t0:.1f} s")
+        later = after(root) if after is not None else []
+    return [launches, track_launches], later
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the joint-threshold sweep, its dump and the golden-path example
+# ---------------------------------------------------------------------------
+
+V3_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "campaign_v3")
+SWEEP_TOL = 1e-4          # the sweep's metrics against the JAX sweep's v3 result
+SWEEP_METRICS = ("joint_IoU", "joint_precision", "joint_recall", "chamfer_j2j")
+EXAMPLE_STEPS = 12
+EXPECTED_EXAMPLE_RIG = {"K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES}
+
+
+def sweep_v3(dev) -> dict:
+    """Phase 22 (a): the sweep on the committed v3 inputs against the v3
+    result.  Returns its launches."""
+    sweep = load_tool("torch_sweep_joint_params")
+    with open(os.path.join(V3_DIR, "joint_sweep_result.json")) as f:
+        ref = json.load(f)
+    with tempfile.TemporaryDirectory() as d:
+        os.symlink(os.path.join(V3_DIR, "joint_sweep_inputs.npz"),
+                   os.path.join(d, "joint_sweep_inputs.npz"))
+        out, launches = counted_run(lambda: sweep.main(["--dir", d, "--device", str(dev)]))
+    got = out["result"]
+    if got["best"] != dict(ref["best"], bandwidth_sample_rows=0):
+        raise AssertionError(f"sweep: best {got['best']} != v3's {ref['best']}")
+    worst = 0.0
+    for g, r in zip(got["heldout"], ref["heldout"], strict=True):
+        if (g["seed"], g["n_pred"], g["n_gt"]) != (r["seed"], r["n_pred"], r["n_gt"]):
+            raise AssertionError(f"sweep: held-out {g} against v3's {r}")
+        worst = max([worst] + [abs(g[k] - r[k]) for k in SWEEP_METRICS])
+    if worst > SWEEP_TOL:
+        raise AssertionError(f"sweep: held-out metrics off v3's by {worst} > {SWEEP_TOL}")
+    print(f"sweep: v3 inputs on {got['device']['name']} ({got['device']['power_limit']}): best "
+          f"{got['best']}, held-out joints {[g['n_pred'] for g in got['heldout']]} as v3's, "
+          f"metrics within {worst:.3g} of v3's (tolerance {SWEEP_TOL}); mean IoU "
+          f"{got['heldout_agg']['mean_iou']:.6f}; launches {launches}")
+    return launches
+
+
+def sweep_dump(dev, root: str) -> dict:
+    """Phase 22 (b): the dump on phase 21's campaign directory `root`, at that
+    run's creatures and sizes.  Returns its launches."""
+    sweep, campaign = load_tool("torch_sweep_joint_params"), load_tool("torch_campaign")
+    z = campaign.sizes(campaign.build_parser().parse_args(["--smoke"]))
+    sweep.VAL_SEEDS, sweep.TEST_SEEDS = z["val"], z["test"]
+    calls: dict = {}
+    with recording_kernel_calls(calls):
+        out, launches = counted_run(lambda: sweep.main(
+            ["--dir", root, "--dump", "--device", str(dev), "--points", str(z["n_pts"]),
+             "--target-verts", str(z["tv"])]))
+    nets = [RigStage(arch=a).init_state(0, device=dev).model for a in ("jointnet", "masknet")]
+    check_counts("sweep dump", launches, {"K1": 2 * edge_launches(*nets)})  # val and test
+    check_recorded("sweep dump", calls)
+    for k, v in out.items():
+        if not (v.dtype == bool or np.isfinite(v).all()):
+            raise AssertionError(f"sweep dump: {k} is not finite")
+        if k.endswith("_inside") and not v.any():
+            raise AssertionError(f"sweep dump: no shifted point of {k[:-7]} inside its volume")
+    print(f"sweep dump: {', '.join(f'{k} {v.shape}' for k, v in out.items())}; inside "
+          + ", ".join(f"{k[:-7]} {int(v.sum())}/{len(v)}" for k, v in out.items()
+                      if k.endswith("_inside")) + f"; launches {launches}")
+    return launches
+
+
+@contextlib.contextmanager
+def counting_predict_rig(seen: list):
+    """Each `RigPredictor.predict_rig` call appends (predictor, rig, mesh
+    entry, its kernel launches) to `seen`: the difference of the counts
+    around the call, which go on counting for the run around it."""
+    original = RigPredictor.predict_rig
+
+    def call(self, mesh_entry, *args, **kw):
+        torch.cuda.synchronize()
+        before = read_stage_counts()
+        rig = original(self, mesh_entry, *args, **kw)
+        torch.cuda.synchronize()
+        after = read_stage_counts()
+        seen.append((self, rig, mesh_entry, {k: after[k] - before[k] for k in after}))
+        return rig
+
+    RigPredictor.predict_rig = call
+    try:
+        yield seen
+    finally:
+        RigPredictor.predict_rig = original
+
+
+def golden_path(dev) -> dict:
+    """Phase 22 (c): the example at EXAMPLE_STEPS steps.  Returns its
+    launches."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        "torch_capsule_end_to_end.py")
+    spec = importlib.util.spec_from_file_location("torch_capsule_end_to_end", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    calls, tcalls, seen = {}, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        with recording_kernel_calls(calls), recording_training_calls(tcalls), \
+                counting_predict_rig(seen):
+            out, launches = counted_run(lambda: example.main(
+                ["--steps", str(EXAMPLE_STEPS), "--device", str(dev), "--out", d]))
+        rig_file = os.path.getsize(out["rig_path"]) > 0
+    check_recorded("example", calls)
+    check_recorded_training("example", tcalls)
+    if len(seen) != 1:
+        raise AssertionError(f"example: {len(seen)} predict_rig calls")
+    pred, rig, entry, rig_launches = seen[0]
+    check_rig("example predict_rig", rig, int(np.asarray(entry["vert_mask"]).sum()), rig_launches,
+              dict(EXPECTED_EXAMPLE_RIG, K1=expected_edge_launches(pred)))
+    values = list(out["joints"].values()) + list(out["tracking"].values())
+    if not (rig_file and np.isfinite(values).all()):
+        raise AssertionError(f"example: rig file written {rig_file}, metrics {out}")
+    print(f"example: {out['num_joints']} joints (GT {out['num_gt_joints']}), "
+          f"{json.dumps(out['joints'])}, tracking {json.dumps(out['tracking'])}, "
+          f"{out['frames_per_s']:.3f} tracked frames/s; predict_rig launches {rig_launches}; "
+          f"launches {launches}; sections (s): "
+          + ", ".join(f"{k} {v['total_s']:.2f}" for k, v in out["timings"].items()))
+    return launches
+
+
+def sweep_phase(dev, root: str) -> list[dict]:
+    """Phase 22: (a), (b) on phase 21's directory `root`, then (c), each
+    timed.  Returns their launches."""
+    t_all, runs = time.perf_counter(), []
+    for name, fn in (("v3 sweep", lambda: sweep_v3(dev)), ("dump", lambda: sweep_dump(dev, root)),
+                     ("example", lambda: golden_path(dev))):
+        t0 = time.perf_counter()
+        runs.append(fn())
+        print(f"sweep phase: {name} {time.perf_counter() - t0:.1f} s")
+    print(f"sweep: phase 22 took {time.perf_counter() - t_all:.1f} s")
+    return runs
 
 
 SOURCES = {
@@ -3233,10 +3391,10 @@ def main(profile_phase: bool = False):
     tracked = tracking(pred, profile_phase)
     parallel = parallel_phase(dev, batch, rig, skel)
     scanned = scanned_phase(dev, rig_ds, skel, profile_phase)
-    campaign = campaign_phase(dev)
+    campaign, swept = campaign_phase(dev, after=lambda root: sweep_phase(dev, root))
 
     runs = [path1, path2, trained, *motion, demo_counts, batch_counts, k5_counts, f32_counts,
-            cli_counts, single, tracked, *parallel, *scanned, *campaign]
+            cli_counts, single, tracked, *parallel, *scanned, *campaign, *swept]
     kernels = []
     for name, (route, src, rep) in SOURCES.items():
         n = sum(c.get(name, 0) for c in runs)

@@ -310,3 +310,47 @@ def jax_multi_pos_draws(key, gt_skin, vert_mask, num_sample: int, num_pos: int =
     keys = jax.random.split(key, vert_mask.shape[0])
     out = jax.vmap(per_sample)(keys, jnp.asarray(gt_skin), jnp.asarray(vert_mask))
     return tuple(np.asarray(x).astype(np.int64) for x in out)
+
+
+# JointNet's random output layer is scaled by this: unscaled, it moves the
+# vertices by tanh of O(1) values, out of the creature, and no shifted point
+# is inside its volume (chip_smoke.py's SHIFT_SCALE does the same).
+SHIFT_SCALE = 0.1
+
+
+def carried_rig_checkpoints(root: str, batch, seed: int = 91) -> None:
+    """A campaign directory's joints and mask checkpoints with the weights
+    carried across: the JAX package's jointnet and masknet RigStage states
+    (params from `flax_params`, seeds `seed` and `seed + 1`, shaped on the
+    JAX RigSample `batch`, JointNet's output layer scaled by SHIFT_SCALE)
+    saved by its `save_checkpoint` as
+    <root>/{joints,mask}/model_best.msgpack, read back by the port's
+    `load_flax_checkpoint` into its RigStage states and saved by its
+    `save_checkpoint` as model_best.pt beside them."""
+    import os
+
+    import jax.numpy as jnp
+
+    from morig_tpu.train import checkpoint as jckpt
+    from morig_tpu.train import stages as jstages
+    from morig_tpu.train import trainer as jtrainer
+    from morig_tpu_torch import weights as W
+    from morig_tpu_torch.train import checkpoint as tckpt
+    from morig_tpu_torch.train import stages as tstages
+
+    for i, (name, arch) in enumerate((("joints", "jointnet"), ("mask", "masknet"))):
+        d = os.path.join(root, name)
+        jstage = jstages.RigStage(arch=arch)
+        params = flax_params(jstage.model, seed + i, batch.gt_flow, batch.mesh, True)
+        if arch == "jointnet":
+            out_layer = params["jointnet"]["mlp_transform"]["out"]
+            for k in out_layer:
+                out_layer[k] = out_layer[k] * np.float32(SHIFT_SCALE)
+        tx = jstage.make_tx()               # the state `init_state` builds, without its init
+        state = jtrainer.TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats={},
+                                    opt_state=tx.init(params), tx=tx, apply_fn=None)
+        jckpt.save_checkpoint(state, d, filename="model_best.msgpack")
+        tstate = tstages.RigStage(arch=arch).init_state(0, device="cpu")
+        read = tckpt.load_flax_checkpoint(os.path.join(d, "model_best.msgpack"))["params"]
+        tstate.model.load_state_dict(W.flax_to_state_dict(read), strict=True)
+        tckpt.save_checkpoint(tstate, d, filename="model_best.pt")
