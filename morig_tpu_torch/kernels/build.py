@@ -28,6 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every exported launcher; each returns cudaGetLastError().
 _SIGNATURES = {
     # a, b, nbr, mask, w2, b2, g1, be1, g2, be2, out, B, V, D, H1, H2, stream
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "gather_rows_forward": [_P] * 3 + [_I] * 5 + [_P],
     # rows, bf16, edge_db, order, offsets, out, R, C, stream
     "row_scatter": [_P, _I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    # a, its batch, row and column strides, b and its three, bias, c, batch, M, N, K, stream
+    "gemm_f32": [_P] + [_L] * 3 + [_P] + [_L] * 3 + [_P] * 2 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from morig_tpu_torch.kernels.gemm import dot_last
 from morig_tpu_torch.kernels.neighbors import pairwise_sqdist
 from morig_tpu_torch.parallel import batch_mean, batch_sum
 
@@ -65,7 +66,7 @@ def _masked_mean(d: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is None:
         return d.mean(-1)
     m = mask.to(d.dtype)
-    return (d * m).sum(-1) / torch.clamp(m.sum(-1), min=1.0)
+    return dot_last(d, m) / torch.clamp(m.sum(-1), min=1.0)
 
 
 def chamfer_directional(p1: torch.Tensor, p2: torch.Tensor,

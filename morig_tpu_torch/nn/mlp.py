@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from morig_tpu_torch.kernels.edge_fused import layer_norm
+from morig_tpu_torch.kernels.gemm import linear
 from morig_tpu_torch.nn.norm import MaskedBatchNorm
 from morig_tpu_torch.parallel.mesh import DeviceMesh, tp_linear
 
@@ -102,7 +103,8 @@ def matmul_dtype(x: torch.Tensor, train: bool = False) -> torch.dtype:
 
 class Dense(nn.Module):
     """flax nn.Dense: y = x @ W^T + b, computed in `dtype` (inputs, weight and
-    bias rounded to it, output in it); fp32 when dtype is None.  `tp` is the
+    bias rounded to it, output in it); fp32 when dtype is None, on the card
+    through the row-invariant product KG (`kernels.gemm.linear`).  `tp` is the
     mesh over whose model group `parallel.sharding.shard_state` has sharded
     its output rows (None: whole); the output is whole either way."""
 
@@ -126,8 +128,7 @@ class Dense(nn.Module):
         dt = dtype or torch.float32
         if self.tp is not None:
             return tp_linear(x, self.weight, self.bias, dt, self.tp)
-        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        return y + self.bias.to(dt) if self.bias is not None else y
+        return linear(x, self.weight, self.bias, dt)
 
 
 class LayerNorm(nn.Module):

@@ -42,6 +42,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from morig_tpu_torch.kernels.gemm import linear
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceMesh:
@@ -180,9 +182,8 @@ class _FromModel(torch.autograd.Function):
 def tp_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
               dtype: torch.dtype, mesh: DeviceMesh) -> torch.Tensor:
     """nn.mlp.Dense's x @ W^T + b in `dtype` with W's output rows (and b)
-    sharded over mesh's model group: the full output on every rank."""
-    x = _ToModel.apply(x, mesh)
-    y = torch.matmul(x.to(dtype), weight.to(dtype).t())
-    if bias is not None:
-        y = y + bias.to(dtype)
+    sharded over mesh's model group: the full output on every rank.  In
+    fp32 on the card the local product is KG (`kernels.gemm.linear`), whose
+    columns equal the whole layer's bit for bit."""
+    y = linear(_ToModel.apply(x, mesh), weight, bias, dtype)
     return _FromModel.apply(y, mesh)

@@ -978,6 +978,187 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the row-invariant fp32 product KG
+# ---------------------------------------------------------------------------
+
+# KG sums each element's K products in fp32 in one fixed order: against the
+# float64 product it is held to the worst case of recursive summation,
+# K * 2^-24 times sum_k |a_k b_k| per element (so is torch.matmul, the plain
+# version, in its own order).
+KG_ULP = 2.0 ** -24
+# phase 19's Dense layers that the split comparison named on cuBLAS,
+# (rows of the whole batch, in, out): CorrNet's mesh encoder's
+# vtx_gcu_4.mlp.dense_0 (B=4, V=2048), the motion trunk's gcu_2.mlp.dense_0
+# (B=4, V=2048), BoneNet's joint_encoder.sa3.nn.dense_4 and RootNet's
+# fp3.nn.dense_0 (12 samples' 10 rows); and the temporal attention's
+# per-(sample, vertex, head) products (T+1 = 6 keyframe rows, 16 wide)
+KG_DENSE_SHAPES = [(8192, 512, 512), (8192, 288, 256), (120, 256, 128), (120, 768, 256)]
+
+
+def _kg_close(got, a, b, bias=None):
+    ref = torch.matmul(a.double(), b.double())
+    bound = torch.matmul(a.double().abs(), b.double().abs())
+    if bias is not None:
+        ref = ref + bias.double()
+        bound = bound + bias.double().abs()
+    K = a.shape[-1]
+    return bool(((got.double() - ref).abs() <= (K + 1) * KG_ULP * bound).all())
+
+
+@pytest.mark.parametrize("batch, M, N, K", [
+    (None, 1, 1, 1), (None, 33, 65, 7), (None, 130, 257, 19), (None, 256, 128, 0),
+    (3, 129, 31, 8), (3, 31, 129, 9), (5, 6, 6, 16), (None, 4, 1024, 1088),
+    (2, 200, 300, 1000)])
+@pytest.mark.parametrize("layout", ["rows", "transposed b", "shared b", "bias"])
+def test_gemm_matches_float64(cuda, batch, M, N, K, layout):
+    """KG against the float64 product at ragged M, N and K (partial
+    128 x 128 tiles, a partial last 8-deep K step, K = 0), both routes
+    (at least 32 rows and columns: the tile; else one thread per element),
+    a batch, b given as a transposed view (a Dense weight), one b shared by
+    the batch, a bias; within the recursive-summation bound, as the plain
+    version (torch.matmul) is."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    lead = () if batch is None else (batch,)
+    a = torch.randn(lead + (M, K), device=cuda, generator=g)
+    if layout == "transposed b":
+        b = torch.randn(lead + (N, K), device=cuda, generator=g).transpose(-1, -2)
+    elif layout == "shared b":
+        b = torch.randn(K, N, device=cuda, generator=g)
+    else:
+        b = torch.randn(lead + (K, N), device=cuda, generator=g)
+    bias = torch.randn(N, device=cuda, generator=g) if layout == "bias" else None
+    before = kg.gemm.launches
+    got = kg.gemm(a, b, bias)
+    plain = kg.gemm_plain(a, b, bias)
+    torch.cuda.synchronize()
+    assert kg.gemm.launches == before + 1
+    assert got.shape == plain.shape and got.is_contiguous()
+    assert _kg_close(got, a, b, bias) and _kg_close(plain, a, b, bias)
+
+
+@pytest.mark.parametrize("M, K, N", KG_DENSE_SHAPES)
+def test_gemm_rows_and_columns_do_not_depend_on_the_call(cuda, M, K, N):
+    """Dense's product through KG (`kernels.gemm.linear`) at phase 19's
+    shapes: each half of the rows (a data = 2 rank's), and each half of the
+    output columns (a model = 2 rank's split layer), equal the whole call's
+    bit for bit, in the forward and in the input gradient (dx = dy @ W);
+    cuBLAS's product did not (the split comparison named these layers)."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=cuda, generator=g)
+    w = torch.randn(N, K, device=cuda, generator=g) / math.sqrt(K)
+    bias = torch.randn(N, device=cuda, generator=g)
+    dy = torch.randn(M, N, device=cuda, generator=g)
+
+    def run(x, w, bias, dy):
+        x = x.clone().requires_grad_()
+        y = kg.linear(x, w, bias)
+        (dx,) = torch.autograd.grad(y, x, dy)
+        return y, dx
+
+    y, dx = run(x, w, bias, dy)
+    h = M // 2
+    for rows in (slice(0, h), slice(h, M)):
+        y_r, dx_r = run(x[rows], w, bias, dy[rows])
+        assert torch.equal(y_r, y[rows]) and torch.equal(dx_r, dx[rows])
+    for cols in (slice(0, N // 2), slice(N // 2, N)):
+        assert torch.equal(kg.linear(x, w[cols], bias[cols]), y[:, cols])
+    assert _kg_close(y, x, w.t(), bias)
+
+
+def test_gemm_routes_agree_bit_for_bit(cuda):
+    """KG's three routes (the 128 x 128 tile where a batch of tiles fills
+    the card, the 32 x 64 tile where one matrix does not, one thread per
+    element for at most 64 elements) give the same bits for the same
+    element, so a rank whose rows take another route than the whole batch's
+    still computes them alike."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    a = torch.randn(sms, 64, 200, device=cuda, generator=g)
+    b = torch.randn(200, 128, device=cuda, generator=g)
+    bias = torch.randn(128, device=cuda, generator=g)
+    big, mid = kg.gemm(a, b, bias), kg.gemm(a[0], b, bias)
+    assert torch.equal(big[0], mid)
+    for r in (0, 17, 63):
+        assert torch.equal(kg.gemm(a[0, r:r + 1], b[:, :64], bias[:64]), mid[r:r + 1, :64])
+
+
+def test_batched_gemm_rows_do_not_depend_on_the_batch(cuda):
+    """The temporal attention's products through KG (`kernels.gemm.bmm`,
+    (B*V*H, T+1, D) by (B*V*H, D, T+1) and back) on half of the batch equal
+    the whole batch's bit for bit, and so do both gradients."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n = 4 * 2048 * 4
+    q = torch.randn(n, 6, 16, device=cuda, generator=g)
+    k = torch.randn(n, 16, 6, device=cuda, generator=g)
+    dc = torch.randn(n, 6, 6, device=cuda, generator=g)
+
+    def run(q, k, dc):
+        q, k = q.clone().requires_grad_(), k.clone().requires_grad_()
+        c = kg.bmm(q, k)
+        return (c, *torch.autograd.grad(c, (q, k), dc))
+
+    whole = run(q, k, dc)
+    for part in (slice(0, n // 2), slice(n // 2, n)):
+        for got, ref in zip(run(q[part], k[part], dc[part]), whole):
+            assert torch.equal(got, ref[part])
+
+
+@pytest.mark.parametrize("N", [2048, 48])
+def test_masked_mean_rows_do_not_depend_on_the_batch(cuda, N):
+    """The jointnet loss's per-sample masked mean (`losses.basic._masked_mean`
+    over a creature's 2048 shifted vertices and its 48 joint slots, B = 4,
+    the split comparison's second source on the card) through KG
+    (`kernels.gemm.dot_last`): each half of the batch equals the whole
+    batch's rows bit for bit, and so does its gradient."""
+    from morig_tpu_torch.losses import basic
+
+    g = torch.Generator(device=cuda).manual_seed(N)
+    d = torch.rand(4, N, device=cuda, generator=g)
+    mask = torch.rand(4, N, device=cuda, generator=g) < 0.8
+    dy = torch.randn(4, device=cuda, generator=g)
+
+    def run(d, mask, dy):
+        d = d.clone().requires_grad_()
+        y = basic._masked_mean(d, mask)
+        return y, torch.autograd.grad(y, d, dy)[0]
+
+    whole = run(d, mask, dy)
+    for part in (slice(0, 2), slice(2, 4)):
+        for got, ref in zip(run(d[part], mask[part], dy[part]), whole):
+            assert torch.equal(got, ref[part])
+    ref64 = (d.double() * mask).sum(-1) / mask.sum(-1).clamp(min=1)
+    assert torch.allclose(whole[0].double(), ref64, rtol=(N + 2) * 2.0 ** -24, atol=0)
+
+
+def test_gemm_refuses_what_it_does_not_take(cuda):
+    """KG takes fp32 (batch,) M x K and K x N operands on one device; other
+    types and shapes raise on a CUDA tensor and launch nothing."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    a, b = torch.randn(8, 4, device=cuda), torch.randn(4, 3, device=cuda)
+    before = kg.gemm.launches
+    with pytest.raises(TypeError, match="fp32"):
+        kg.gemm(a.double(), b.double())
+    with pytest.raises(TypeError, match="fp32"):
+        kg.gemm(a.to(torch.bfloat16), b)
+    with pytest.raises(ValueError):
+        kg.gemm(a, b.t())
+    with pytest.raises(ValueError, match="batches"):
+        kg.gemm(a.expand(2, 8, 4), torch.randn(3, 4, 3, device=cuda))
+    with pytest.raises(ValueError):
+        kg.gemm(a, b, torch.zeros(4, device=cuda))
+    assert kg.gemm.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the "batch" norm mode on the card
 # ---------------------------------------------------------------------------
 
