@@ -25,10 +25,13 @@ Phases, each printing its own lines:
                training tables against `index_add_` and against itself
                run again, bit for bit; and KG, the row-invariant fp32
                product, the port's own kernel behind every fp32 Dense and
-               the masked means, at the training step's Dense shapes
-               against the float64 product within the summation bound and
-               each half of its rows against the whole call bit for bit,
-               torch.matmul its plain version and library call),
+               the masked means, at the training step's Dense shapes (and,
+               printed apart from their sums, the two n-fast input
+               gradients) against the float64 product within the summation
+               bound, each half of its rows and of its columns and every
+               route and tile its planner can be forced to against the
+               whole call bit for bit, torch.matmul its plain version and
+               library call, each shape's time beside the library's),
                with errors, tolerances, the least time the card could take
                (`bound_ms`) and two times per kernel: its device ms (the
                summed durations of its own launches under torch.profiler
@@ -1036,59 +1039,102 @@ def check_k3(dev):
 # KG at the training step's shapes, (batch, M, K, N, bias): the Dense layers
 # the split comparison named while they ran on cuBLAS (CorrNet's mesh encoder's
 # vtx_gcu_4.mlp.dense_0 and the motion trunk's gcu_2.mlp.dense_0 over B=4 x
-# V=2048 rows, BoneNet's joint_encoder.sa3.nn.dense_4 and RootNet's
-# fp3.nn.dense_0 over 12 x 10 rows: KG's 128 x 128 and 32 x 64 tiles), a
-# global MLP over the batch's rows (4 x 1088 -> 1024: 32 x 64 tiles of 4
-# live rows) and the jointnet loss's masked mean (`dot_last`, 4 rows of 1024
-# products: one thread per element)
+# V=2048 rows: KG's 128 x 128 tile; BoneNet's joint_encoder.sa3.nn.dense_4
+# and RootNet's fp3.nn.dense_0 over 12 x 10 rows: split over K), a global MLP
+# over the batch's rows (4 x 1088 -> 1024: split over K in the 8 x 128 tile)
+# and the jointnet loss's masked mean (`dot_last`, 4 rows of 1024 products:
+# split over K)
 KG_SHAPES = ((None, 8192, 512, 512, True), (None, 8192, 288, 256, True),
              (None, 120, 256, 128, True), (None, 120, 768, 256, True),
              (None, 4, 1088, 1024, True), (4, 1, 1024, 1, False))
+# the input gradients of the two 8192-row layers, dy @ W with W n-fast, (M, K,
+# N): timed and checked beside KG_SHAPES, outside their sums
+KG_N_FAST_SHAPES = ((8192, 512, 512), (8192, 256, 288))
 KG_ULP = 2.0 ** -24
 
 
+def kg_inputs(dev, batch, M, K, N, with_bias, n_fast, g):
+    """a (batch, M, K); b a Dense weight's W^T view (k-fast) or, n_fast, dy @
+    W's W (n-fast), scaled by 1/sqrt(K); the bias or None."""
+    lead = () if batch is None else (batch,)
+    a = torch.randn(lead + (M, K), device=dev, generator=g)
+    if n_fast:
+        b = torch.randn(lead + (K, N), device=dev, generator=g) / math.sqrt(K)
+    else:
+        b = (torch.randn(lead + (N, K), device=dev, generator=g) / math.sqrt(K)).transpose(-1, -2)
+    bias = torch.randn(N, device=dev, generator=g) if with_bias else None
+    return a, b, bias
+
+
+def kg_holds(a, b, bias, got) -> dict:
+    """KG's holds on one product: within the worst case of recursive
+    summation of the float64 product; each half of the rows and each half of
+    the columns (b's and the bias's) equal to the whole call's bit for bit;
+    every route and tile `plan` can be forced to equal the planned call bit
+    for bit (one thread per element only where a matrix has at most 2^16
+    elements)."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    K, M, N = a.shape[-1], a.shape[-2], b.shape[-1]
+    r64 = torch.matmul(a.double(), b.double())
+    lim = torch.matmul(a.double().abs(), b.double().abs())
+    if bias is not None:
+        r64, lim = r64 + bias.double(), lim + bias.double().abs()
+    close = bool(((got.double() - r64).abs() <= (K + 1) * KG_ULP * lim).all())
+    h, w = M // 2, N // 2
+    rows = h == 0 or all(torch.equal(gemm(a[..., part, :], b, bias), got[..., part, :])
+                         for part in (slice(0, h), slice(h, M)))
+    cols = w == 0 or all(torch.equal(gemm(a, b[..., part], None if bias is None else bias[part]),
+                                     got[..., part]) for part in (slice(0, w), slice(w, N)))
+    forced = [(route, tile) for route in kg.ROUTES
+              for tile in ([None] if route == "tiny" else range(len(kg.TILES)))
+              if route != "tiny" or M * N <= 1 << 16]
+    routes = all(torch.equal(gemm(a, b, bias, route=r, tile=t), got) for r, t in forced)
+    return {"bound": close, "rows": rows, "cols": cols, "routes": routes}
+
+
 def check_kg(dev):
-    """KG at KG_SHAPES against the float64 product, within the worst case
-    of recursive summation ((K + 1) 2^-24 sum_k |a_k b_k| per element, as
-    its plain version, torch.matmul, is held); each half of the rows equal
-    to the whole call's bit for bit.  max_abs_err is against the plain
+    """KG at KG_SHAPES (and KG_N_FAST_SHAPES, apart) against the float64
+    product and itself (`kg_holds`).  max_abs_err is against the plain
     version; the library call is the plain version itself (one
     torch.matmul, cuBLAS), timed on the same inputs.  Bound: the products
     at the fp32 rate without tensor cores, or the bytes."""
+    from morig_tpu_torch.kernels import gemm as kg
+
     g = torch.Generator(device=dev).manual_seed(21)
     res = Timings()
-    for batch, M, K, N, with_bias in KG_SHAPES:
-        lead = () if batch is None else (batch,)
-        a = torch.randn(lead + (M, K), device=dev, generator=g)
-        w = torch.randn(lead + (N, K), device=dev, generator=g) / math.sqrt(K)
-        b = w.transpose(-1, -2)                                 # a Dense weight's view
-        bias = torch.randn(N, device=dev, generator=g) if with_bias else None
+    cases = [(shape, False) for shape in KG_SHAPES] + [
+        ((None, M, K, N, False), True) for M, K, N in KG_N_FAST_SHAPES]
+    for (batch, M, K, N, with_bias), n_fast in cases:
+        a, b, bias = kg_inputs(dev, batch, M, K, N, with_bias, n_fast, g)
         got, ref = gemm(a, b, bias), gemm_plain(a, b, bias)
-        r64 = torch.matmul(a.double(), b.double())
-        lim = torch.matmul(a.double().abs(), b.double().abs())
-        if bias is not None:
-            r64, lim = r64 + bias.double(), lim + bias.double().abs()
-        close = bool(((got.double() - r64).abs() <= (K + 1) * KG_ULP * lim).all())
-        h = M // 2
-        rows = h == 0 or all(torch.equal(gemm(a[..., part, :], b, bias), got[..., part, :])
-                             for part in (slice(0, h), slice(h, M)))
+        holds = kg_holds(a, b, bias, got)
         e = (got - ref).abs().max().item()
         t_k = kernel_ms(lambda: gemm(a, b, bias), DEVICE_NAMES["KG"])
         t_l = kernel_ms(lambda: gemm_plain(a, b, bias))
         t_p = call_ms(lambda: gemm_plain(a, b, bias))
         n = batch or 1
-        bd = res.add(e, t_k, t_p, nbytes(a, w, got) + (4 * N if with_bias else 0),
-                     2.0 * n * M * N * K, t_l, peak=FP32_FLOPS)
-        print(f"KG gemm {lead + (M, K)} x {lead + (K, N)}{' + bias' if with_bias else ''}: "
-              f"max_abs_err {e:.3g} against torch.matmul; within the summation bound of the "
-              f"float64 product {close}; halves of the rows bit for bit {rows}; device kernel "
-              f"{t_k[0]:.4f} ms library (torch.matmul) {t_l[0]:.4f} ms; call kernel "
-              f"{t_k[1]:.4f} ms library {t_l[1]:.4f} ms; plain {t_p:.4f} ms; bound {bd:.4f} ms")
-        if not (close and rows):
-            raise AssertionError(f"KG disagrees at {(batch, M, K, N)}: bound {close}, rows {rows}")
+        n_bytes = nbytes(a, b, got) + (4 * N if with_bias else 0)
+        if n_fast:
+            bd = bound(n_bytes, 2.0 * M * N * K, FP32_FLOPS)[0]
+        else:
+            bd = res.add(e, t_k, t_p, n_bytes, 2.0 * n * M * N * K, t_l, peak=FP32_FLOPS)
+        lead = () if batch is None else (batch,)
+        p = kg.plan(n, M, N, K, kg.sm_count(dev))
+        print(f"KG gemm {lead + (M, K)} x {lead + (K, N)}{' + bias' if with_bias else ''}"
+              f"{' (b n-fast, outside the sums)' if n_fast else ''}: route {p.route} tile "
+              f"{kg.TILES[p.tile] if p.tile >= 0 else None} splits {p.splits}; max_abs_err "
+              f"{e:.3g} against torch.matmul; within the summation bound of the float64 product "
+              f"{holds['bound']}; halves of the rows bit for bit {holds['rows']}; halves of the "
+              f"columns bit for bit {holds['cols']}; every forced route and tile bit for bit "
+              f"{holds['routes']}; device kernel {t_k[0]:.4f} ms library (torch.matmul) "
+              f"{t_l[0]:.4f} ms (x{t_k[0] / t_l[0]:.2f}); call kernel {t_k[1]:.4f} ms library "
+              f"{t_l[1]:.4f} ms; plain {t_p:.4f} ms; bound {bd:.4f} ms")
+        if not all(holds.values()):
+            raise AssertionError(f"KG disagrees at {(batch, M, K, N)}: {holds}")
     print(f"KG over the {len(KG_SHAPES)} shapes: device kernel {res.device_ms:.4f} ms library "
           f"{res.library_device_ms:.4f} ms; call kernel {res.call_ms:.4f} ms library "
-          f"{res.library_ms:.4f} ms")
+          f"{res.library_ms:.4f} ms; bound {res.bound_ms:.4f} ms")
     return res
 
 

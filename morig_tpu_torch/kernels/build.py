@@ -52,8 +52,10 @@ _SIGNATURES = {
     "gather_rows_forward": [_P] * 3 + [_I] * 5 + [_P],
     # rows, bf16, edge_db, order, offsets, out, R, C, stream
     "row_scatter": [_P, _I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P],
-    # a, its batch, row and column strides, b and its three, bias, c, batch, M, N, K, stream
-    "gemm_f32": [_P] + [_L] * 3 + [_P] + [_L] * 3 + [_P] * 2 + [_I] * 4 + [_P],
+    # a, its batch, row and column strides, b and its three, bias, c, workspace,
+    # batch, M, N, K, then the plan (kernels/gemm.py `plan`): route, tile,
+    # chunks per split, splits, grid x, y, z, fold blocks; stream
+    "gemm_f32": [_P] + [_L] * 3 + [_P] + [_L] * 3 + [_P] * 3 + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()

@@ -35,8 +35,12 @@ mode, MaskedBatchNorm and a GCU on the card against the CPU, a
 predict_rig_batch call that launches no edge kernel, and a DeformPoseStage
 step whose frozen extractor keeps its running statistics bit for bit;
 epoch-scanned training (train/scanned.py), its CUDA-graph replays against
-the loop bit for bit, and a capture that fails raising.  Shapes and types
-a kernel does not take raise on a CUDA tensor instead of falling back.
+the loop bit for bit, and a capture that fails raising; the row-invariant
+product KG against the float64 product, every route and tile its planner
+can be forced to against the planned call bit for bit (K at the chunk's
+edges), halves of its rows and columns against the whole call, and a
+split-route call replayed from a CUDA graph.  Shapes and types a kernel
+does not take raise on a CUDA tensor instead of falling back.
 """
 import math
 
@@ -1136,6 +1140,90 @@ def test_masked_mean_rows_do_not_depend_on_the_batch(cuda, N):
             assert torch.equal(got, ref[part])
     ref64 = (d.double() * mask).sum(-1) / mask.sum(-1).clamp(min=1)
     assert torch.allclose(whole[0].double(), ref64, rtol=(N + 2) * 2.0 ** -24, atol=0)
+
+
+# K at the chunk's edges (1, KC - 1, KC, KC + 1, 2 KC + 3) and a global MLP's
+# 1088; b as a Dense weight's W^T view (k-fast) and as dy @ W's W (n-fast)
+KG_CHUNK_KS = (1, 63, 64, 65, 131, 1088)
+
+
+def _kg_b(dev, K, N, layout, g):
+    if layout == "weight view":
+        return torch.randn(N, K, device=dev, generator=g).t()
+    return torch.randn(K, N, device=dev, generator=g)
+
+
+@pytest.mark.parametrize("K", KG_CHUNK_KS)
+@pytest.mark.parametrize("layout", ["weight view", "n-fast"])
+def test_gemm_forced_routes_agree_bit_for_bit(cuda, K, layout):
+    """Every route and tile `kernels.gemm.plan` can be forced to (one
+    thread per element; each tile walking all of K; each tile split one
+    chunk a block, its partials folded by the second kernel) gives the
+    planned call's bits at K on both sides of the chunk edges, ragged M and
+    N included; and the planned call is within the summation bound."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    assert kg.KC == 64
+    g = torch.Generator(device=cuda).manual_seed(K)
+    a = torch.randn(70, K, device=cuda, generator=g)
+    b = _kg_b(cuda, K, 136, layout, g)
+    bias = torch.randn(136, device=cuda, generator=g)
+    ref = kg.gemm(a, b, bias)
+    for route in kg.ROUTES:
+        for tile in ([None] if route == "tiny" else range(len(kg.TILES))):
+            assert torch.equal(kg.gemm(a, b, bias, route=route, tile=tile), ref), (route, tile)
+    assert _kg_close(ref, a, b, bias)
+
+
+@pytest.mark.parametrize("M, K, N", KG_DENSE_SHAPES + [(4, 1088, 1024)])
+@pytest.mark.parametrize("layout", ["weight view", "n-fast"])
+def test_gemm_column_halves_equal_the_whole_call(cuda, M, K, N, layout):
+    """A model = 2 rank's half of the output columns (b's half, the bias's
+    half) equals those columns of the whole call bit for bit, whichever
+    routes the two calls take, at phase 3's Dense shapes."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randn(M, K, device=cuda, generator=g)
+    b = _kg_b(cuda, K, N, layout, g)
+    bias = torch.randn(N, device=cuda, generator=g)
+    whole = kg.gemm(a, b, bias)
+    for cols in (slice(0, N // 2), slice(N // 2, N)):
+        assert torch.equal(kg.gemm(a, b[:, cols], bias[cols]), whole[:, cols])
+
+
+def test_gemm_split_route_replays_in_a_cuda_graph(cuda):
+    """A split-route call (a global MLP's 4 x 1088 -> 1024: its workspace
+    taken inside the capture) captured in a CUDA graph and replayed twice,
+    on the captured inputs and on new ones copied into them, equals the
+    eager call bit for bit; the capture counts one launch."""
+    from morig_tpu_torch.kernels import gemm as kg
+
+    g = torch.Generator(device=cuda).manual_seed(1088)
+    a = torch.randn(4, 1088, device=cuda, generator=g)
+    b = _kg_b(cuda, 1088, 1024, "weight view", g)
+    bias = torch.randn(1024, device=cuda, generator=g)
+    assert kg.plan(1, 4, 1024, 1088, kg.sm_count(cuda)).route == "split"
+    eager = kg.gemm(a, b, bias)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kg.gemm(a, b, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kg.gemm.launches
+    with torch.cuda.graph(graph):
+        out = kg.gemm(a, b, bias)
+    assert kg.gemm.launches == before + 1
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    a.copy_(torch.randn(4, 1088, device=cuda, generator=g))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, kg.gemm(a, b, bias))
 
 
 def test_gemm_refuses_what_it_does_not_take(cuda):
