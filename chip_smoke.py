@@ -23,7 +23,9 @@ Phases, each printing its own lines:
                port's own kernel behind K6's db_table and the backward of
                the training gathers, at K2's backward shapes and K6's
                training tables against `index_add_` and against itself
-               run again, bit for bit; and KG, the row-invariant fp32
+               run again, bit for bit, each with its launch plan, its
+               reverse table's build and, at K6's tables, the same sum
+               under K6's kernel name; and KG, the row-invariant fp32
                product, the port's own kernel behind every fp32 Dense and
                the masked means, at the training step's Dense shapes (and,
                printed apart from their sums, the two n-fast input
@@ -366,11 +368,11 @@ from morig_tpu_torch.kernels.edge_fused import (
     edge_mlp_windowed_plain, fused_edge_mlp, fused_edge_mlp_bwd, fused_edge_mlp_dw2,
     fused_edge_mlp_windowed)
 from morig_tpu_torch.kernels import gather_fused, knn_fused
-from morig_tpu_torch.kernels.gemm import gemm, gemm_plain
+from morig_tpu_torch.kernels.gemm import gemm, gemm_plain, sm_count
 from morig_tpu_torch.kernels import neighbors as nbk
-from morig_tpu_torch.kernels.gather_fused import (gather_plain, gather_rows, reverse_table,
-                                                  row_scatter_launch, scatter_rows,
-                                                  scatter_rows_plain)
+from morig_tpu_torch.kernels.gather_fused import (gather_plain, gather_rows, plan_scatter,
+                                                  reverse_table, row_scatter_launch,
+                                                  scatter_rows, scatter_rows_plain)
 from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_topk
 from morig_tpu_torch.nn import corrnet, deformnet, gcu, pointnet
 from morig_tpu_torch.nn.corrnet import l2_normalize
@@ -840,9 +842,13 @@ def check_scatter(dev, mesh):
     within KS_TOL, and against itself run again bit for bit.  The device ms
     is the kernel's; the reverse table's build (a stable sort) is timed
     apart: a MeshBatch builds one per table, `scatter_rows` one per call.
-    The bound counts the bytes the kernel's function must move: the rows it
-    sums (every row at K2's shapes, the valid edges' at K6's), the reverse
-    table's order entries of those rows and its offsets, and the output."""
+    Each shape prints its launch (`plan_scatter`: route, lanes per target
+    row, rows per warp, block), and K6's shapes also the device ms of the
+    same sum launched under K6's name (`edge_db_sum_kernel`, the db_table
+    sum inside each K6 call).  The bound counts the bytes the kernel's
+    function must move: the rows it sums (every row at K2's shapes, the
+    valid edges' at K6's), the reverse table's order entries of those rows
+    and its offsets, and the output."""
     g = torch.Generator(device=dev).manual_seed(8)
     res = Timings()
     cases = []
@@ -855,14 +861,20 @@ def check_scatter(dev, mesh):
         cases.append((f"K6 db_table H={H}", mesh.tpl_nbr, rows, V, mesh.tpl_mask))
     for name, idx, rows, n, mask in cases:
         C = rows.shape[-1]
+        flat = rows.reshape(-1, C)
+        db_sum = ""
         if mask is None:
             fn = lambda: scatter_rows(idx, rows, n)              # noqa: E731
             src = rows
         else:
             order, offsets = mesh.tpl_rev
-            flat = rows.reshape(-1, C)
             fn = lambda: row_scatter_launch(flat, order, offsets, Bn * n)   # noqa: E731
             src = rows * mask[..., None]
+            t_db = kernel_ms(lambda: row_scatter_launch(flat, order, offsets, Bn * n,
+                                                        edge_db=True), "edge_db_sum_kernel")
+            db_sum = f"; under K6's name (edge_db_sum_kernel) device {t_db[0]:.4f} ms"
+        p = plan_scatter(idx.shape[0] * n, C, rows.element_size(), flat.data_ptr() % 16 == 0,
+                         sm_count(dev))
         got, again = fn().reshape(idx.shape[0], n, C), fn().reshape(idx.shape[0], n, C)
         ref = scatter_rows_plain(idx, src, n)
         torch.cuda.synchronize()
@@ -881,10 +893,12 @@ def check_scatter(dev, mesh):
         b = res.add(e, t_k, t_p, n_bytes, 0.0, t_l)
         print(f"KS ordered scatter {name}: idx {tuple(idx.shape)} rows {tuple(rows.shape)} "
               f"{rows.dtype} into {n}: max_abs_err {e:.3g} against index_add_ (tol {KS_TOL}), "
-              f"a second call equal bit for bit; device kernel {t_k[0]:.4f} ms library "
+              f"a second call equal bit for bit; {p.route} route, {p.group} lanes a target "
+              f"row, {p.rows_per_warp} rows a warp, {p.passes} pass(es), {p.threads} x "
+              f"{p.grid} threads; device kernel {t_k[0]:.4f} ms library "
               f"(index_add) {t_l[0]:.4f} ms; call kernel {t_k[1]:.4f} ms library "
               f"{t_l[1]:.4f} ms; plain {t_p:.4f} ms; bound {b:.4f} ms; reverse table build "
-              f"device {t_r[0]:.4f} ms call {t_r[1]:.4f} ms")
+              f"device {t_r[0]:.4f} ms call {t_r[1]:.4f} ms{db_sum}")
     print(f"KS over its {len(cases)} shapes: device kernel {res.device_ms:.4f} ms library "
           f"{res.library_device_ms:.4f} ms; call kernel {res.call_ms:.4f} ms library "
           f"{res.library_ms:.4f} ms")
@@ -1566,7 +1580,7 @@ def check_recorded(phase: str, calls: dict) -> None:
             _, e, bad, _, exact = knn_agree(*args, kw["gather_values"])
             ok = e <= K2_TOL and int(bad.sum()) == 0 and exact
         elif kernel == "KS":
-            e, ok = scatter_agree(scatter_rows(*args), scatter_rows(*args),
+            e, ok = scatter_agree(scatter_rows(*args, **kw), scatter_rows(*args, **kw),
                                   scatter_rows_plain(*args))
         else:
             e = 0.0 if torch.equal(gather_rows(*args), gather_plain(*args)) else math.inf

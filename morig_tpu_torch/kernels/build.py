@@ -50,8 +50,10 @@ _SIGNATURES = {
     "knn_topk": [_P] * 5 + [_I] * 5 + [_P],
     # values, idx, out, B, N, M, C, vec, stream
     "gather_rows_forward": [_P] * 3 + [_I] * 5 + [_P],
-    # rows, bf16, edge_db, order, offsets, out, R, C, stream
-    "row_scatter": [_P, _I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P],
+    # rows, bf16, edge_db, order, offsets, out, R, C, then the plan
+    # (kernels/gather_fused.py `plan_scatter`): vec, group, passes, threads,
+    # grid; stream
+    "row_scatter": [_P, _I, _I, _P, _P, _P, _L, _I] + [_I] * 5 + [_P],
     # a, its batch, row and column strides, b and its three, bias, c, workspace,
     # batch, M, N, K, then the plan (kernels/gemm.py `plan`): route, tile,
     # chunks per split, splits, grid x, y, z, fold blocks; stream

@@ -13,15 +13,16 @@ the top-k in registers, one instantiation for each k), and on a CPU tensor
 both run `knn_plain`.  With `gather_values`, gradients flow as in the JAX package's
 custom VJP (`_fused_g_bwd`): into the query and the selected candidate rows
 through the score, and into the selected value rows through the gathered
-values; the selection itself carries none.  The backward is plain PyTorch,
-as the JAX VJP is plain XLA.
+values; the selection itself carries none.  The JAX VJP is plain XLA; here
+its two scatter-adds are the ordered row scatter (`scatter_rows`, KS on the
+card) over one reverse table, the rest plain PyTorch.
 """
 from __future__ import annotations
 
 import torch
 
 from morig_tpu_torch.kernels import build as kb
-from morig_tpu_torch.kernels.gather_fused import scatter_rows
+from morig_tpu_torch.kernels.gather_fused import reverse_table, scatter_rows
 
 NEG = -1e30
 MAX_K = 8
@@ -111,7 +112,6 @@ class _KnnGather(torch.autograd.Function):
         idx, score, gathered = _knn_gather(query, cand, k, cand_mask, values)
         ctx.mark_non_differentiable(idx)
         ctx.save_for_backward(query, cand, idx)
-        ctx.n_values = values.shape[1]
         return idx, score, gathered
 
     @staticmethod
@@ -120,8 +120,10 @@ class _KnnGather(torch.autograd.Function):
         bsel = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
         d_score = d_score.to(query.dtype)
         dq = torch.einsum("bnk,bnkc->bnc", d_score, cand[bsel, idx])
-        dc = scatter_rows(idx, d_score[..., None] * query[:, :, None, :], cand.shape[1])
-        dvals = scatter_rows(idx, d_gathered, ctx.n_values)
+        P = cand.shape[1]                            # the values' rows too: (B, P, Cv)
+        rev = reverse_table(idx, P)                  # one table for both scatters
+        dc = scatter_rows(idx, d_score[..., None] * query[:, :, None, :], P, rev=rev)
+        dvals = scatter_rows(idx, d_gathered, P, rev=rev)
         return dq, dc.to(cand.dtype), None, dvals, None
 
 

@@ -1398,35 +1398,73 @@ def test_frozen_extractor_keeps_its_statistics_on_card(cuda, batch_mode):
 # trainable, and whole steps run twice
 # ---------------------------------------------------------------------------
 
+SCATTER_WIDTHS = (3, 16, 32, 64, 128, 256)
+SCATTER_CASES = (["knn_vismask", "knn_values", "k6_tables", "crowded", "unaligned_f32",
+                  "unaligned_bf16", "many_rows"]
+                 + [f"{t}_{C}" for t in ("f32", "bf16") for C in SCATTER_WIDTHS])
+
+
 def _scatter_case(dev, case):
-    """(idx, rows, n, mask): K2's backward shapes (the vismask 1-NN: 4 x 2048
-    vertex queries into 1024 points, 64 wide; the completion's k=3 gather of
-    3-wide values) and K6's training tables (B=4, V=2048, D=16, 1298 valid
-    rows, bf16 dx rows at H=256)."""
+    """(idx, rows, n, mask, route): K2's backward shapes (the vismask 1-NN:
+    4 x 2048 vertex queries into 1024 points, 64 wide; the completion's k=3
+    gather of 3-wide values), K6's training tables (B=4, V=2048, D=16, 1298
+    valid rows, bf16 dx rows at H=256), a 1-NN of 2 x 4096 queries into 4
+    candidates (some 2000 sources a target), rows whose base is one element
+    off 16 bytes, fp32 and bf16 rows of each of SCATTER_WIDTHS channels with
+    targets 96-127 of each batch row left without a source, and 40000
+    targets of 256 bf16 channels (a 1-NN of 8 x 5000 rows into 5000, more
+    warps than an H100 holds at once).  `route`: the one `plan_scatter` must
+    give."""
     g = torch.Generator(device=dev).manual_seed(len(case))
+    vector = "vector"
     if case == "knn_vismask":
         idx = torch.randint(0, 1024, (4, 2048, 1), device=dev, generator=g)
-        return idx, torch.randn(4, 2048, 1, 64, device=dev, generator=g), 1024, None
+        return idx, torch.randn(4, 2048, 1, 64, device=dev, generator=g), 1024, None, vector
     if case == "knn_values":
         idx = torch.randint(0, 300, (4, 1024, 3), device=dev, generator=g)
-        return idx, torch.randn(4, 1024, 3, 3, device=dev, generator=g), 300, None
+        return idx, torch.randn(4, 1024, 3, 3, device=dev, generator=g), 300, None, "scalar"
+    if case == "crowded":
+        idx = torch.randint(0, 4, (2, 4096, 1), device=dev, generator=g)
+        return idx, torch.randn(2, 4096, 1, 64, device=dev, generator=g), 4, None, vector
+    if case.startswith("unaligned"):
+        dtype = torch.float32 if case.endswith("f32") else torch.bfloat16
+        idx = torch.randint(0, 96, (3, 200, 2), device=dev, generator=g)
+        flat = torch.randn(3 * 200 * 2 * 64 + 1, device=dev, generator=g).to(dtype)
+        return idx, flat[1:].view(3, 200, 2, 64), 128, None, "scalar"
+    if case == "many_rows":
+        idx = torch.randint(0, 5000, (8, 5000, 1), device=dev, generator=g)
+        rows = torch.randn(8, 5000, 1, 256, device=dev, generator=g).to(torch.bfloat16)
+        return idx, rows, 5000, None, vector
+    if case != "k6_tables":
+        kind, C = case.split("_")
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        idx = torch.randint(0, 96, (3, 200, 2), device=dev, generator=g)
+        rows = torch.randn(3, 200, 2, int(C), device=dev, generator=g).to(dtype)
+        return idx, rows, 128, None, "scalar" if C == "3" else vector
     B, V, D = 4, 2048, 16
     v = torch.arange(V, device=dev)[None, :, None]
     idx = (v + torch.randint(-20, 21, (B, V, D), device=dev, generator=g)).clamp(0, 1297)
     mask = torch.rand(B, V, D, device=dev, generator=g) < 0.8
     mask[:, 1298:] = False
     rows = torch.randn(B, V, D, 256, device=dev, generator=g).to(torch.bfloat16)
-    return idx, rows, V, mask
+    return idx, rows, V, mask, vector
 
 
-@pytest.mark.parametrize("case", ["knn_vismask", "knn_values", "k6_tables"])
+@pytest.mark.parametrize("case", SCATTER_CASES)
 def test_row_scatter_is_ordered(cuda, case):
     """The ordered row scatter against `index_add_`: on the card (atomics in
     no fixed order) within fp32 summation order, 1e-5 of the largest sum;
     against the CPU's `index_add_` (sequential, the kernel's order) and
     against itself run twice, bit for bit.  K6's case goes through the
-    reverse table of a masked table and the kernel's bf16 rows."""
-    idx, rows, n, mask = _scatter_case(cuda, case)
+    reverse table of a masked table and the kernel's bf16 rows, under both
+    of the kernel's names (`edge_db`).  Each case takes the route its shape
+    and alignment give, so both routes and every group width run."""
+    idx, rows, n, mask, route = _scatter_case(cuda, case)
+    C = rows.shape[-1]
+    flat = rows.reshape(-1, C)
+    p = gf.plan_scatter(idx.shape[0] * n, C, rows.element_size(), flat.data_ptr() % 16 == 0,
+                        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert p.route == route
     before = gf.scatter_rows.launches
     if mask is None:
         got = [gf.scatter_rows(idx, rows, n) for _ in range(2)]
@@ -1435,15 +1473,39 @@ def test_row_scatter_is_ordered(cuda, case):
         order, offsets = gf.reverse_table(idx, n, mask)
         again = gf.reverse_table(idx, n, mask)                   # built again, the same
         assert torch.equal(again[0], order) and torch.equal(again[1], offsets)
-        flat = rows.reshape(-1, rows.shape[-1])
-        got = [gf.row_scatter_launch(flat, order, offsets, idx.shape[0] * n).reshape(
-            idx.shape[0], n, -1) for _ in range(2)]
+        got = [gf.row_scatter_launch(flat, order, offsets, idx.shape[0] * n,
+                                     edge_db=edge_db).reshape(idx.shape[0], n, -1)
+               for edge_db in (False, True)]
         rows = rows * mask[..., None]
     torch.cuda.synchronize()
     assert torch.equal(got[0], got[1])
     ref = gf.scatter_rows_plain(idx, rows, n)
     assert (got[0] - ref).abs().max() <= 1e-5 * max(ref.abs().max().item(), 1.0)
     assert torch.equal(got[0].cpu(), gf.scatter_rows_plain(idx.cpu(), rows.cpu(), n))
+
+
+@pytest.mark.parametrize("case", ["knn_vismask", "bf16_16", "knn_values"])
+def test_row_scatter_replays_from_a_cuda_graph(cuda, case):
+    """`scatter_rows` (the reverse table's build and the kernel) captured in
+    a CUDA graph and replayed on new rows of the same shape equals the eager
+    call on them bit for bit: the launch depends on the shapes alone."""
+    idx, rows, n, _, _ = _scatter_case(cuda, case)
+    static = rows.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gf.scatter_rows(idx, static, n)                          # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gf.scatter_rows(idx, static, n)
+    fresh = torch.randn(rows.shape, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(5)).to(rows.dtype)
+    static.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf.scatter_rows(idx, fresh, n))
+    assert torch.equal(out.cpu(), gf.scatter_rows_plain(idx.cpu(), fresh.cpu(), n))
 
 
 def _training_tables(dev, H, D, seed, local=False):

@@ -43,18 +43,25 @@ t = torch.as_tensor
 # the ordered row scatter's plain route
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
-def test_reverse_table_orders_as_index_add(masked):
+def test_reverse_table_orders_as_index_add(masked, wide):
     """The reverse table the card's ordered scatter walks: summing each target
     row's sources in the table's order (the kernel's loop, written out here)
     equals `index_add_` on the CPU (`scatter_rows_plain`) bit for bit, masked
-    entries left out; `scatter_rows` on the CPU is `index_add_`.  Indices
-    with heavy repeats (a 1-NN into few candidates)."""
+    entries left out; `scatter_rows` on the CPU is `index_add_`, and over the
+    table `row_scatter_plain`, the same bits.  Indices with heavy repeats (a
+    1-NN into few candidates).  The table sorted on 32-bit keys (`wide`
+    False, the default at these sizes) equals the one on 64-bit keys, both
+    int64."""
     rng = np.random.default_rng(int(masked))
     idx = t(rng.integers(0, 9, (2, 50, 3)))
     rows = t(rng.standard_normal((2, 50, 3, 4)).astype(np.float32))
     mask = t(rng.random((2, 50, 3)) < 0.6) if masked else None
-    order, offsets = tgf.reverse_table(idx, 9, mask)
+    order, offsets = tgf.reverse_table(idx, 9, mask, wide=wide)
+    assert order.dtype == offsets.dtype == torch.int64
+    for x, y in zip(tgf.reverse_table(idx, 9, mask, wide=not wide), (order, offsets)):
+        assert torch.equal(x, y)                                # the other key width
     assert int(offsets[-1]) == (int(mask.sum()) if masked else idx.numel())
     flat = rows.reshape(-1, 4)
     got = torch.zeros(18, 4)
@@ -65,6 +72,8 @@ def test_reverse_table_orders_as_index_add(masked):
     ref_rows = rows * mask[..., None] if masked else rows
     assert torch.equal(got.reshape(2, 9, 4), tgf.scatter_rows_plain(idx, ref_rows, 9))
     assert torch.equal(tgf.scatter_rows(idx, rows, 9), tgf.scatter_rows_plain(idx, rows, 9))
+    assert torch.equal(tgf.row_scatter_plain(flat, order, offsets, 18).reshape(2, 9, 4),
+                       got.reshape(2, 9, 4))
     for x, y in zip(tgf.reverse_table(idx, 9, mask), (order, offsets)):     # built again,
         assert torch.equal(x, y)                                            # the same table
 
