@@ -74,8 +74,10 @@ Phases, each printing its own lines:
                steps on the same batch, each checked (finite loss and
                gradient norm, parameters moved); the kernel counts are
                zeroed just before the first timed step and read just after
-               it (K1 = K6 = 8, K2 = 1, K3 = 2, KS = 4, K4 = K5 = 0); then
-               one `eval_step`.  Prints the step's median and quartiles,
+               it (K1 = K6 = 4, the 128- and 256-wide edge layers; narrow
+               4, the 16- and 32-wide ones on the fp32 tail, the JAX
+               package's training split; K2 = 1, K3 = 6, KS = 8, K4 = K5 =
+               0); then one `eval_step`.  Prints the step's median and quartiles,
                steps/s, peak device memory and the first and last total
                loss, which must be lower; with --profile also the step's
                device ops, busy time and idle share and K1's, K6's and
@@ -86,10 +88,10 @@ Phases, each printing its own lines:
                held against their plain versions at their shapes, the eval
                loss (`eval_step`), 6 timed steps, each checked, the eval
                loss again, which must be lower; the counts of the first
-               timed step must be K1 20, K2 3, K6 12, plain_edge 0, and the
-               extractor must equal the loaded CorrNet bit for bit; then one
-               step of a fresh stage with the extractor trained (K6 20, K3
-               2, KS 8, the extractor moved).  Prints the step's median and quartiles,
+               timed step must be K1 8, K2 3, K6 4, narrow 12, K3 12, KS
+               8, plain_edge 0, and the extractor must equal the loaded
+               CorrNet bit for bit; then one step of a fresh stage with the
+               extractor trained (K6 8, K3 14, KS 20, the extractor moved).  Prints the step's median and quartiles,
                steps/s, peak memory, the losses and the last grad norm;
                with --profile one step's device ops, busy ms, idle share
                and K1's and K6's ms;
@@ -98,17 +100,19 @@ Phases, each printing its own lines:
                its defaults (about 1900 vertices in the 2048 bucket,
                degree-16 tables, T=5, up to 48 joints), B=4: as phase 9,
                with the embedding draws of `eval_step` from a fixed
-               generator; counts K1 72, K6 72, K3 = KS = 18 (the
-               multi-positive infoNCE's gathers), K2 0, plain_edge 0;
- 11. skin    — `SkinStage` on the same batch, as phase 10.
+               generator; counts K1 24, K6 24, narrow 48, K3 = KS = 66 (the
+               narrow layers' gathers and the multi-positive infoNCE's 18),
+               K2 0, plain_edge 0;
+ 11. skin    — `SkinStage` on the same batch, as phase 10 (K1 = K6 = 26,
+               narrow 46, K3 = KS = 64).
  12. skel    — `BoneStage`, then `RootStage`, at full width from seeded
                weights on `creature_skel_dataset(num_models=4, seed=0)` at
                its defaults (`cli.py train bone|root --data creature`): 12
                rows (each creature's GT joints and two jittered copies), V
                in the 2048 bucket, degree-16 tables, J <= 32, P = 496.  One
                step first moves the zero-initialized head (until it does,
-               every gradient behind it is 0), then as phase 9: counts K1 6,
-               K6 6, K2 = K3 = 0, plain_edge 0 per step; then one
+               every gradient behind it is 0), then as phase 9: counts K1 2,
+               K6 2, narrow 4, K3 = KS = 4, K2 0, plain_edge 0 per step; then one
                `eval_step` counted apart: K1 6, K3 2 (BoneNet's joint-set
                SAs) or 4 (RootNet's SAs and fp2, fp1), its K1 and K3 calls
                recorded and held against their plain versions as in
@@ -164,15 +168,18 @@ Phases, each printing its own lines:
                `_gt_rig.txt` files, track --frames 2 and eval tracking.
                Each command's kernel counts are zeroed before it and read
                after it and must be its training steps' and evaluations'
-               launches (train corr_pose: K1 8 + 8, K6 8, K2 1 + 1, K3 2 +
-               6, KS 4; its windowed run the same with K5 in place of K1;
-               train deform_pose: K1 20 + 20, K6 12, K2 3 + 3, K3 6; eval
-               deform: K1 20, K2 3, K3 6; train joints: K1 2 x 72 + 2 x 72,
-               K6 2 x 72, K3 = KS = 2 x 18; predict-rig: 2
-               capsule_predictor steps of K1 = K6 = 72 + 72 + 6 + 6, K3 =
-               KS = 18 + 18, then 2 predict_rig calls of K1 one per edge
-               layer, K2 3, K3 12; track: 1 frame of K1 20, K2 3, K3 6; the
-               evals of folders none); its first K1, K2, K3 and KS calls
+               launches (a training step's as phases 6, 9, 10 and 12, an
+               evaluation's K1 on every edge layer: train corr_pose: K1 4 +
+               8, K6 4, narrow 4, K2 1 + 1, K3 6 + 6, KS 8; its windowed
+               run the same with K5 in place of K1; train deform_pose: K1
+               8 + 20, K6 4, narrow 12, K2 3 + 3, K3 12 + 6, KS 8; eval
+               deform: K1 20, K2 3, K3 6; train joints: K1 2 x 24 + 2 x 72,
+               K6 2 x 24, narrow 2 x 48, K3 = KS = 2 x 66; predict-rig: 2
+               capsule_predictor steps of K1 = K6 = 24 + 24 + 2 + 2,
+               narrow = 48 + 48 + 4 + 4, K3 = KS = 66 + 66 + 4 + 4, then 2
+               predict_rig calls of K1 one per edge layer, K2 3, K3 12;
+               track: 1 frame of K1 20, K2 3, K3 6; the evals of folders
+               none); its first K1, K2, K3 and KS calls
                and its training K1/K5/K6 calls of each shape are held
                against their plain versions (`check_recorded`,
                `check_recorded_training`); its outputs must be finite and
@@ -253,11 +260,12 @@ Phases, each printing its own lines:
                CUDA-graph replay; the flow dumps; the held-out
                `predict_rig_batch` with voxels and surface geodesics, the
                skin L1 and the tracking of creature 200 by both DeformNets
-               over 10 frames), then `tools/torch_eval_campaign_tracking.py
-               --frames 5 --timing-iters 1` on it, both in this process
-               with the counts zeroed before and read after each: the
-               campaign must launch K1, K2, K3, K6 and KS, the tracking K1,
-               K2 and K3, neither K4, K5 or `plain_edge`; every recorded
+               over 2 frames: the smoke size's, 10 in a full run), then
+               `tools/torch_eval_campaign_tracking.py --frames 5
+               --timing-iters 1` on it, both in this process with the
+               counts zeroed before and read after each: the campaign must
+               launch K1, K2, K3, K6 and KS and take the narrow route, the
+               tracking K1, K2 and K3, neither K4, K5 or `plain_edge`; every recorded
                K1/K2/K3/KS call (first of each shape) and every training
                K1/K6 call is held against its plain version as in phases
                7 and 15; the summary must be finite with IoU, precision and
@@ -376,7 +384,7 @@ from morig_tpu_torch.kernels.gather_fused import (gather_plain, gather_rows, pla
 from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_topk
 from morig_tpu_torch.nn import corrnet, deformnet, gcu, pointnet
 from morig_tpu_torch.nn.corrnet import l2_normalize
-from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl
+from morig_tpu_torch.nn.gcu import EdgeMLP, auto_select_edge_impl, jax_kernel_widths
 from morig_tpu_torch.nn.mlp import get_default_norm, set_default_norm, set_inference_dtype
 from morig_tpu_torch.parallel import steps
 from morig_tpu_torch.parallel.dryrun import dryrun_multichip
@@ -1405,11 +1413,17 @@ def phase_a_inputs(entries):
 # phase 6: training CorrNet (CorrPoseStage)
 # ---------------------------------------------------------------------------
 
-# K1 and K6: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo), forward
-# and backward; K2: the vismask 1-NN; K3: infoNCE's two anchor-row gathers
-# (PointNet++'s training gathers index plainly); KS: the backward of K2's
-# two gathers and of infoNCE's two.
-EXPECTED_TRAIN = {"K1": 8, "K2": 1, "K3": 2, "K4": 0, "K5": 0, "K6": 8, "KS": 4}
+# Training takes the JAX package's split (nn/gcu.py `EdgeMLP.train_route`):
+# an edge layer with H1 >= 128 (a multiple of 128) through K1 forward and K6
+# backward, a narrower one through the fp32 tail `narrow_edge` (counted as
+# `narrow`), whose neighbour gather is one K3 launch forward and one KS
+# launch backward (where its input takes a gradient).  Per CorrPoseStage
+# step: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo), the 128- and
+# 256-wide 4 through K1 and K6, the 16- and 32-wide 4 narrow; K2: the
+# vismask 1-NN; K3: infoNCE's two anchor-row gathers (PointNet++'s training
+# gathers index plainly) and the narrow layers' 4; KS: the backward of K2's
+# two gathers, of infoNCE's two and of the narrow layers' 4.
+EXPECTED_TRAIN = {"K1": 4, "K2": 1, "K3": 6, "K4": 0, "K5": 0, "K6": 4, "KS": 8, "narrow": 4}
 
 
 def train_dataset(edge_tile=None) -> PoseDataset:
@@ -1452,13 +1466,13 @@ def train(batch, dev, profile_phase: bool):
     walls, launches = [], None
     for _ in range(TRAIN_STEPS):
         before = param_snapshot(state.model)
-        zero_counts()
+        zero_stage_counts()
         t0 = time.perf_counter()
         m = stage.train_step(state, batch, gen)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         if launches is None:
-            launches = read_counts()
+            launches = read_stage_counts()
         moved = any(not torch.equal(a, p) for a, p in zip(before, state.model.parameters()))
         if not (math.isfinite(m["total_loss"]) and math.isfinite(m["grad_norm"]) and moved):
             raise AssertionError(f"train step: loss {m['total_loss']}, grad norm "
@@ -1598,32 +1612,44 @@ def check_recorded(phase: str, calls: dict) -> None:
 # phases 9-11: the motion training stages
 # ---------------------------------------------------------------------------
 
-# Per step.  DeformPoseStage: K1 on all 20 edge layers (the frozen CorrNet's
-# 8 run their forward too), K6 on GCNDeform's 12 (on all 20 with the
-# extractor trained), K2 on the vismask 1-NN, the voting and the
-# completion.  RigStage and SkinStage: 72 edge layers, the motion trunk's 12
-# for each of the 5 keyframes and the head's 12, each through K1 and K6; no
-# kNN; K3 and KS: the multi-positive infoNCE's gathers and their backward, 3
-# in each of its 6 calls (the 5 keyframes and their aggregate).  With the
-# extractor trained, the deform step's infoNCE gathers (K3 2) and the
-# backward of its three kNN calls' gathers and of those (KS 8).  No edge
-# layer of the three stages at full width takes the plain route
-# (`plain_edge`).
-EXPECTED_DEFORM = {"K1": 20, "K2": 3, "K3": 0, "K4": 0, "K5": 0, "K6": 12, "plain_edge": 0}
-EXPECTED_DEFORM_EXTRACTOR = dict(EXPECTED_DEFORM, K6=20, K3=2, KS=8)
+# Per step, each edge layer on its training route (phase 6).
+# DeformPoseStage: 20 edge layers, the frozen CorrNet's 8 (their forward
+# only: K1 4, narrow 4 with their K3) and GCNDeform's 12 (the 128- and
+# 256-wide 4 of GCUMotion's feature halves through K1 and K6, the 64-wide 2
+# and the six 16-wide position layers narrow, with K3 and KS); K2 on the
+# vismask 1-NN, the voting and the completion.  With the extractor
+# trained, its 4 through K6 and its narrow 4's KS too, plus the deform
+# step's infoNCE gathers (K3 2) and the backward of its three kNN calls'
+# gathers and of those (KS 8).  RigStage: 72 edge layer calls, the motion
+# trunk's 12 for each of the 5 keyframes and the head's 12, 24 through K1
+# and K6 (of each 12: the feature halves of gcu_2 and gcu_3), 48 narrow;
+# SkinStage: the same trunk, and SkinNet's 12, its six 128-wide feature
+# layers through K1 and K6, its six 64-wide position layers narrow; no
+# kNN; K3 and KS: the narrow layers' and the multi-positive infoNCE's
+# gathers and their backward, 3 in each of its 6 calls (the 5 keyframes
+# and their aggregate).  No edge layer of these stages at full width takes
+# the plain route (`plain_edge`).
+EXPECTED_DEFORM = {"K1": 8, "K2": 3, "K3": 12, "K4": 0, "K5": 0, "K6": 4, "KS": 8,
+                   "narrow": 12, "plain_edge": 0}
+EXPECTED_DEFORM_EXTRACTOR = dict(EXPECTED_DEFORM, K6=8, K3=14, KS=20)
 MOTION_NCE = 18
-EXPECTED_MOTION = {"K1": 72, "K2": 0, "K3": MOTION_NCE, "K4": 0, "K5": 0, "K6": 72,
-                   "KS": MOTION_NCE, "plain_edge": 0}
+RIG_NARROW, SKIN_NARROW = 48, 46
+EXPECTED_MOTION = {"K1": 24, "K2": 0, "K3": MOTION_NCE + RIG_NARROW, "K4": 0, "K5": 0, "K6": 24,
+                   "KS": MOTION_NCE + RIG_NARROW, "narrow": RIG_NARROW, "plain_edge": 0}
+EXPECTED_SKIN = dict(EXPECTED_MOTION, K1=26, K6=26, K3=MOTION_NCE + SKIN_NARROW,
+                     KS=MOTION_NCE + SKIN_NARROW, narrow=SKIN_NARROW)
 MOTION_STEPS = 6          # timed steps after the warm-up in phases 9-11
 
 
 def zero_stage_counts() -> None:
     zero_counts()
     gcu.plain_edge.launches = 0
+    gcu.narrow_edge.launches = 0
 
 
 def read_stage_counts() -> dict:
-    return dict(read_counts(), plain_edge=gcu.plain_edge.launches)
+    return dict(read_counts(), plain_edge=gcu.plain_edge.launches,
+                narrow=gcu.narrow_edge.launches)
 
 
 @contextlib.contextmanager
@@ -1802,11 +1828,18 @@ def rig_batch(ds=None):
 
 def full_width_state(name: str, stage):
     """`stage.init_state(0)` on the card, every edge layer on the kernel
-    route."""
+    route at inference, and in training on the kernel route where the JAX
+    package's width rule takes the layer (H1 >= 128), the narrow route
+    elsewhere."""
     state = stage.init_state(0)
     edges = [m for m in state.model.modules() if isinstance(m, EdgeMLP)]
     if not all(m.kernel_route for m in edges):
         raise AssertionError(f"{name}: an edge layer at full width is off the kernel route")
+    wrong = [tuple(m.dense_1_kernel.shape) for m in edges
+             if m.train_route != ("kernel" if jax_kernel_widths(*m.dense_1_kernel.shape)
+                                  else "narrow")]
+    if wrong:
+        raise AssertionError(f"{name}: edge layers {wrong} off JAX's training split")
     return state
 
 
@@ -1818,7 +1851,8 @@ def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
     """Phases 10-11: a RigStage or SkinStage at full width from seeded
     weights on the rig batch."""
     state = full_width_state(name, stage)
-    return run_stage(name, stage, state, batch, EXPECTED_MOTION, motion_eval(stage, batch, dev),
+    expected = EXPECTED_SKIN if isinstance(stage, SkinStage) else EXPECTED_MOTION
+    return run_stage(name, stage, state, batch, expected, motion_eval(stage, batch, dev),
                      dev, profile_phase)
 
 
@@ -1826,13 +1860,16 @@ def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
 # phase 12: the skeleton stages; phase 13: the capsule demo
 # ---------------------------------------------------------------------------
 
-# Per step: the shape encoder's 6 edge layers (3 GCUs x tpl/geo) through K1
-# and K6; the joint-set PointNet++ gathers by plain indexing in training.
-# One eval_step: K1 6 and K3 on every SA grouping and kNN interpolation
-# (BoneNet's joint-set sa1-2; RootNet's sa1-2 and fp2-1, fp3 broadcasting).
-EXPECTED_SKEL = {"K1": 6, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 6, "plain_edge": 0}
-EXPECTED_SKEL_EVAL = {"bone": dict(EXPECTED_SKEL, K3=2, K6=0),
-                      "root": dict(EXPECTED_SKEL, K3=4, K6=0)}
+# Per step: the shape encoder's 6 edge layers (3 GCUs x tpl/geo), the
+# 128-wide 2 through K1 and K6, the 32- and 64-wide 4 narrow (their K3 and
+# KS); the joint-set PointNet++ gathers by plain indexing in training.
+# One eval_step: K1 on all 6 and K3 on every SA grouping and kNN
+# interpolation (BoneNet's joint-set sa1-2; RootNet's sa1-2 and fp2-1, fp3
+# broadcasting).
+EXPECTED_SKEL = {"K1": 2, "K2": 0, "K3": 4, "K4": 0, "K5": 0, "K6": 2, "KS": 4, "narrow": 4,
+                 "plain_edge": 0}
+SKEL_EVAL = {"K1": 6, "K2": 0, "K4": 0, "K5": 0, "K6": 0, "plain_edge": 0}
+EXPECTED_SKEL_EVAL = {"bone": dict(SKEL_EVAL, K3=2), "root": dict(SKEL_EVAL, K3=4)}
 DEMO_STEPS, DEMO_CALLS = 12, 3
 
 
@@ -2409,7 +2446,7 @@ class Tee(io.StringIO):
 
 
 def stage_counts(**per) -> dict:
-    return dict(dict.fromkeys(list(COUNTERS) + ["plain_edge"], 0), **per)
+    return dict(dict.fromkeys(list(COUNTERS) + ["plain_edge", "narrow"], 0), **per)
 
 
 def run_cli(name: str, argv: list, expected: dict, dev) -> tuple[dict, str]:
@@ -2456,13 +2493,18 @@ def cli_phase(dev, edge: int) -> dict:
     -> eval tracking, each through `run_cli`, its outputs checked.  `edge`
     is K1's launches per predict_rig call.  Returns the launches summed
     over the commands."""
-    corr_step = stage_counts(K1=8, K2=1, K6=8, K3=2, KS=4)
+    # a training step's counts as phases 6, 9, 10 and 12; an eval step's K1
+    # on every edge layer (inference)
+    corr_step = stage_counts(**EXPECTED_TRAIN)
     corr_eval = stage_counts(K1=8, K2=1, K3=6)
     corr_windowed = {k: corr_step[k] + corr_eval[k] for k in corr_step}
     corr_windowed.update(K1=0, K5=corr_step["K1"] + corr_eval["K1"])
-    deform_step, deform_eval = stage_counts(K1=20, K2=3, K6=12), stage_counts(K1=20, K2=3, K3=6)
-    motion = EXPECTED_MOTION["K1"]
-    capsule_step = 2 * motion + 2 * EXPECTED_SKEL["K1"]     # joint, mask, bone, root
+    deform_step = stage_counts(**EXPECTED_DEFORM)
+    deform_eval = stage_counts(K1=20, K2=3, K3=6)
+    motion, motion_eval_k1 = EXPECTED_MOTION, 72
+    # joint, mask, bone, root
+    capsule_step = {k: 2 * motion.get(k, 0) + 2 * EXPECTED_SKEL.get(k, 0)
+                    for k in ("K1", "K3", "K6", "KS", "narrow")}
     predict_calls = 2                                        # capsule_predictor's two capsules
     tracked = CLI_TRACK_FRAMES - 1
 
@@ -2474,14 +2516,16 @@ def cli_phase(dev, edge: int) -> dict:
         "train corr_pose windowed": corr_windowed,
         "train deform_pose": total(deform_step, deform_eval),
         "eval deform": deform_eval,
-        "train joints": stage_counts(K1=2 * motion + 2 * motion, K6=2 * motion,
-                                     K3=2 * MOTION_NCE, KS=2 * MOTION_NCE),
-        "predict-rig": stage_counts(K1=CLI_PREDICT_STEPS * capsule_step + predict_calls * edge,
-                                    K6=CLI_PREDICT_STEPS * capsule_step,
-                                    K2=predict_calls * EXPECTED_KNN_LAUNCHES,
-                                    K3=(predict_calls * EXPECTED_GATHER_LAUNCHES
-                                        + CLI_PREDICT_STEPS * 2 * MOTION_NCE),
-                                    KS=CLI_PREDICT_STEPS * 2 * MOTION_NCE),
+        "train joints": stage_counts(K1=2 * motion["K1"] + 2 * motion_eval_k1,
+                                     K6=2 * motion["K6"], K3=2 * motion["K3"],
+                                     KS=2 * motion["KS"], narrow=2 * motion["narrow"]),
+        "predict-rig": stage_counts(
+            K1=CLI_PREDICT_STEPS * capsule_step["K1"] + predict_calls * edge,
+            K6=CLI_PREDICT_STEPS * capsule_step["K6"],
+            K2=predict_calls * EXPECTED_KNN_LAUNCHES,
+            K3=predict_calls * EXPECTED_GATHER_LAUNCHES + CLI_PREDICT_STEPS * capsule_step["K3"],
+            KS=CLI_PREDICT_STEPS * capsule_step["KS"],
+            narrow=CLI_PREDICT_STEPS * capsule_step["narrow"]),
         "eval rig": stage_counts(),
         "track": stage_counts(K1=tracked * 20, K2=tracked * EXPECTED_KNN_LAUNCHES, K3=tracked * 6),
         "eval tracking": stage_counts(),
@@ -2829,7 +2873,7 @@ def parallel_cases(pose, rig, skel) -> dict:
         (C("deform", DeformPoseStage, pb), EXPECTED_DEFORM),
         (C("rig jointnet", functools.partial(RigStage, arch="jointnet"), rb), EXPECTED_MOTION),
         (C("rig masknet", functools.partial(RigStage, arch="masknet"), rb), EXPECTED_MOTION),
-        (C("skin", SkinStage, rb), EXPECTED_MOTION),
+        (C("skin", SkinStage, rb), EXPECTED_SKIN),
         (C("bone", BoneStage, sb), EXPECTED_SKEL),
         (C("root", RootStage, sb), EXPECTED_SKEL),
         (C("corr batch mode", corr, pb, norm="batch"), EXPECTED_BATCH_CORR))}
@@ -3262,8 +3306,9 @@ def scanned_phase(dev, rig_ds, skel, profile_phase: bool) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 # every kernel a campaign runs must launch (K1 and K6 in every stage, K2 in
-# the corr and deform stages, K3 and KS in the losses' gathers); it passes
-# no edge_tile, so K5 stays 0, and no path calls K4
+# the corr and deform stages, K3 and KS in the losses' and the narrow edge
+# layers' gathers), and the narrow route; it passes no edge_tile, so K5
+# stays 0, and no path calls K4
 CAMPAIGN_KERNELS = ("K1", "K2", "K3", "K6", "KS")
 CAMPAIGN_STAGES = ("corr", "deform", "deform_seq", "joints", "mask", "skin", "bone", "root")
 
@@ -3329,7 +3374,7 @@ def campaign_phase(dev, after=None) -> tuple[list[dict], list]:
         with recording_kernel_calls(calls), recording_training_calls(tcalls):
             summary, launches = counted_run(lambda: campaign.main(
                 ["--dir", root, "--smoke", "--device", str(dev)]))
-        check_campaign_counts("smoke", launches, CAMPAIGN_KERNELS)
+        check_campaign_counts("smoke", launches, CAMPAIGN_KERNELS + ("narrow",))
         check_recorded("campaign", calls)
         check_recorded_training("campaign", tcalls)
         mean = summary["mean"]
@@ -3525,16 +3570,26 @@ SOURCES = {
 def main(profile_phase: bool = False):
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = gpu_name_power()
     print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"({card}); torch {torch.__version__} cuda {torch.version.cuda}")
+    seconds: dict = {}
+    mark = [time.perf_counter()]
+
+    def done(phase: str) -> None:
+        """The seconds since the last phase ended, under `phase`."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - mark[0], 1)
+        mark[0] = now
 
     t0 = time.perf_counter()
     lib = kb.build(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
     kb.library()
+    done("build")
 
     entries, frames = capsule_batch(B_MESH, T, P, V_PAD, DEGREE)
     mesh_bt = stack_meshes([e for e in entries for _ in range(T)])
@@ -3548,6 +3603,7 @@ def main(profile_phase: bool = False):
     print(f"profiler: {st['timings']} device timings, {st['retried']} taken again, "
           f"{st['fell_back']} from events behind a spin; least device-op start - launch "
           f"{st['least_skew_us']:.1f} us")
+    done("3 kernels")
 
     pred = RigPredictor.random(0)                   # on the card
     edge = expected_edge_launches(pred)
@@ -3566,6 +3622,7 @@ def main(profile_phase: bool = False):
         profile_programs("path 2", pred2, entries, frames, device_cache=cache, **phase_a)
         profile_geometry(dev, entries, pred.cfg.joints)
     del pred2, cache
+    done("4-5 paths")
     trained, corr_state = train(batch, dev, profile_phase)
     motion = [train_deform(batch, corr_state, dev, profile_phase)]
     del corr_state
@@ -3577,22 +3634,33 @@ def main(profile_phase: bool = False):
     skel = skel_batch()
     motion += [train_skel("bone", BoneStage(), skel, dev, profile_phase),
                train_skel("root", RootStage(), skel, dev, profile_phase)]
+    done("6-12 training")
     demo_counts, demo_pred, demo_joint_counts = demo(dev)
+    done("13 demo")
     repro_phase(dev, batch, rig, skel, demo_pred, demo_joint_counts)
     del demo_pred
+    done("16 repro")
     batch_counts = batch_norm_phase(entries, frames, batch, dev, profile_phase)
+    done("14 batch mode")
     k5_counts = k5_training(dev, profile_phase)
+    done("17 k5 training")
     f32_counts = f32_inference(pred, entries, frames,
                                {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES,
                                 "K3": EXPECTED_GATHER_LAUNCHES})
+    done("18 f32 inference")
     cli_counts = cli_phase(dev, edge)
+    done("15 cli")
     single = single_mesh(pred, entries[0], frames[0],
                          {"K1": edge, "K2": EXPECTED_KNN_LAUNCHES, "K3": EXPECTED_GATHER_LAUNCHES,
                           "K4": 0, "K5": 0, "K6": 0})
     tracked = tracking(pred, profile_phase)
+    done("7-8 single, tracking")
     parallel = parallel_phase(dev, batch, rig, skel)
+    done("19 parallel")
     scanned = scanned_phase(dev, rig_ds, skel, profile_phase)
+    done("20 scanned")
     campaign, swept = campaign_phase(dev, after=lambda root: sweep_phase(dev, root))
+    done("21-22 campaign, sweep")
 
     runs = [path1, path2, trained, *motion, demo_counts, batch_counts, k5_counts, f32_counts,
             cli_counts, single, tracked, *parallel, *scanned, *campaign, *swept]
@@ -3601,6 +3669,9 @@ def main(profile_phase: bool = False):
         n = sum(c.get(name, 0) for c in runs)
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
+    narrow = sum(c.get("narrow", 0) for c in runs)
+    print(f"seconds by phase: {seconds}; narrow edge-layer calls (training) {narrow}")
+    print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

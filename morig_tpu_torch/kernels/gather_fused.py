@@ -133,10 +133,15 @@ def row_scatter_plain(rows, order, offsets, n_out: int) -> torch.Tensor:
     """Plain PyTorch version of one launch of the ordered row scatter: rows
     (E, C), a reverse table -> (n_out, C) fp32, target row r the sum of
     rows[order[k]] for k in offsets[r] .. offsets[r + 1] - 1 (`index_add_`
-    in k order, sequential on the CPU)."""
-    target = torch.repeat_interleave(torch.arange(n_out, device=rows.device), offsets.diff())
+    in k order, sequential on the CPU).  Each entry's target row is found by
+    searching `offsets` for its position: `repeat_interleave` of the counts
+    gives the same rows, but from inputs a rank of a data-parallel step
+    shares with the whole batch it outputs the rows' place in the batch,
+    a call the split comparison (parallel/steps.py) would name."""
+    pos = torch.arange(int(offsets[-1]), device=rows.device)
+    target = torch.searchsorted(offsets, pos, right=True) - 1
     out = torch.zeros(n_out, rows.shape[1], dtype=torch.float32, device=rows.device)
-    return out.index_add_(0, target, rows[order[:target.numel()]].float())
+    return out.index_add_(0, target, rows[order[:pos.numel()]].float())
 
 
 def row_scatter_launch(rows, order, offsets, n_out: int, edge_db: bool = False) -> torch.Tensor:
@@ -231,22 +236,27 @@ gather_rows.launches = 0
 
 
 class _TrainableGather(torch.autograd.Function):
-    """K3 forward; backward the ordered row scatter into values' rows."""
+    """K3 forward; backward the ordered row scatter into values' rows, over
+    the reverse table (order, offsets) where one is given."""
 
     @staticmethod
-    def forward(ctx, values, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, values, idx, order, offsets):
+        ctx.save_for_backward(idx, order, offsets)
         ctx.n = values.shape[1]
         return gather_rows(values, idx)
 
     @staticmethod
     def backward(ctx, dout):
-        (idx,) = ctx.saved_tensors
-        return scatter_rows(idx, dout, ctx.n), None
+        idx, order, offsets = ctx.saved_tensors
+        rev = None if order is None else (order, offsets)
+        return scatter_rows(idx, dout, ctx.n, rev=rev), None, None, None
 
 
-def gather_rows_trainable(values, idx):
+def gather_rows_trainable(values, idx, rev=None):
     """`gather_rows` with a gradient that repeats bit for bit: forward K3
-    (fp32 values), backward `scatter_rows`.  On a CPU tensor the plain
-    versions of both."""
-    return _TrainableGather.apply(values, idx)
+    (fp32 values), backward `scatter_rows`, over `rev` where the caller
+    holds the indices' reverse table (`reverse_table(idx, n, mask)`: a
+    masked table leaves out the sources whose gradient the caller knows to
+    be zero).  On a CPU tensor the plain versions of both."""
+    order, offsets = (None, None) if rev is None else rev
+    return _TrainableGather.apply(values, idx, order, offsets)

@@ -126,9 +126,11 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int, eps: float = 1e-1
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
-    """Max over `dim` treating masked entries as -inf; 0 where all are masked."""
+    """Max over `dim` treating masked entries as -inf; 0 where all are masked.
+    Its gradient is split equally among tied maxima (`amax`), as jnp.max's
+    is; `max(dim).values` would send it to one of them."""
     while mask.dim() < x.dim():
         mask = mask[..., None]
     filled = torch.where(mask, x, torch.full_like(x, NEG))
-    out = filled.max(dim=dim).values
+    out = filled.amax(dim=dim)
     return torch.where(mask.any(dim=dim), out, torch.zeros_like(out))

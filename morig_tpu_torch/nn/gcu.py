@@ -4,24 +4,35 @@ morig_tpu/nn/gcu.py ("layer" norm mode).
 The first edge layer is decomposed per vertex: W [x_i ; x_j - x_i] + b =
 (W1 - W2) x_i + W2 x_j + b, so `lin_self` holds (W1 - W2) with the bias and
 `lin_nbr` holds W2.  At inference both run as bf16 matmuls (the JAX
-package's bf16 edge messages) and the per-edge tail runs in kernel K1, or in
-the windowed kernel K5 when the mesh batch carries an `edge_tile`
-(`auto_select_edge_impl`).  In training (`train=True`) both run in fp32 and
-the tail goes through `fused_edge_mlp_trainable`: K1 forward on bf16(a),
-bf16(b), or K5 where the batch carries an `edge_tile`, and K6 backward on
-the whole table either way (on tables local at the tile K5 computes K1's
-function bit for bit, which K6's max routing needs; K6 sums db_table over
-the reverse table the batch holds, `MeshBatch.tpl_rev`), at every width the
-kernels take: the JAX package's `set_edge_impl("fused")` and
-`set_edge_impl("windowed")` training.  The JAX package trains only
-128-multiple widths through its kernels (its TPU lane tiling) and narrower
-ones in XLA; here all widths the kernels take train through them.
+package's bf16 edge messages, at every width) and the per-edge tail runs in
+kernel K1, or in the windowed kernel K5 when the mesh batch carries an
+`edge_tile` (`auto_select_edge_impl`).
+
+In training (`train=True`) both run in fp32 and the route follows the JAX
+package's width rule (`jax_kernel_widths`, its `_fusable`): a layer with
+H1 >= 128 and H1, H2 multiples of 128 goes through
+`fused_edge_mlp_trainable`: K1 forward on bf16(a), bf16(b), or K5 where the
+batch carries an `edge_tile`, and K6 backward on the whole table either way
+(on tables local at the tile K5 computes K1's function bit for bit, which
+K6's max routing needs; K6 sums db_table over the reverse table the batch
+holds, `MeshBatch.tpl_rev`): the JAX package's `set_edge_impl("fused")` and
+`set_edge_impl("windowed")` training.  Every narrower layer trains on the
+JAX package's fp32 XLA tail, `narrow_edge`, with no bf16 rounding and no
+windowing: relu(a + gather(b)), LayerNorm, relu(h W2 + b2), LayerNorm,
+masked max, on the port's own kernels (K3 forward and the ordered scatter
+KS backward over the batch's reverse table for the gather, KG for the W2
+product as for every fp32 Dense), so a step still repeats bit for bit.  JAX's other gates are not
+carried: its VMEM budgets model the TPU's scoped memory, and its rule that
+V be a multiple of its 256-vertex tile holds for every bucket the port's
+datasets pad to (256, 512, 1024, 2048, 4096, 8192: data/pose.py,
+data/rig.py, data/creature.py; serving's 1536 too).
 
 A layer whose widths the kernels do not take (`kernel_widths` false: the
 narrow layers of a net built with a small `width_scale`) runs K1's plain
-version, `plain_edge`, in training and at inference, differentiated by
-autograd.  The choice is made on the widths alone, like the JAX package's
-`_fusable`, and each such call is counted in `plain_edge.launches`.
+version, `plain_edge`, at inference, and `narrow_edge` in training.  The
+choice is made on the widths alone, like the JAX package's `_fusable`, and
+each call of either is counted in `plain_edge.launches` /
+`narrow_edge.launches`.
 
 In "batch" and "none" norm mode (`nn.mlp.set_default_norm`) an EdgeMLP
 has no LayerNorm tail, so no edge kernel computes it: the JAX package's
@@ -42,8 +53,9 @@ from torch import nn
 from morig_tpu_torch.core.batch import MeshBatch
 from morig_tpu_torch.kernels.edge_fused import (
     WIDTHS, check_neighbor_locality, edge_mlp_plain, fused_edge_mlp, fused_edge_mlp_trainable,
-    fused_edge_mlp_windowed)
-from morig_tpu_torch.kernels.gather_fused import gather_plain
+    fused_edge_mlp_windowed, layer_norm)
+from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows_trainable
+from morig_tpu_torch.kernels.gemm import linear
 from morig_tpu_torch.kernels.neighbors import masked_max
 from morig_tpu_torch.nn.mlp import MLP, Dense, get_default_norm, lecun_normal_
 from morig_tpu_torch.nn.norm import MaskedBatchNorm
@@ -92,6 +104,35 @@ def plain_edge(a, b, nbr, mask, w2, b2, g1, be1, g2, be2):
 plain_edge.launches = 0
 
 
+def jax_kernel_widths(h1: int, h2: int) -> bool:
+    """True where the JAX package trains an edge layer h1 -> h2 through its
+    Pallas kernels (the width rule of its `_fusable`: H1 >= 128, H1 and H2
+    multiples of 128); narrower layers train on its fp32 XLA tail."""
+    return h1 >= 128 and h1 % 128 == 0 and h2 % 128 == 0
+
+
+def narrow_edge(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, rev=None):
+    """The training tail of an edge layer below the JAX package's kernel
+    widths, its fp32 XLA tail with no bf16 rounding: relu(a + b[nbr]),
+    LayerNorm, relu(h @ W2 + b2), LayerNorm, the masked max over the table
+    (its gradient split equally among tied maxima, as jnp.max's).  a, b
+    (B,V,H1) fp32; returns (B,V,H2) fp32.  The gather is K3 with the ordered
+    scatter KS as its backward, over `rev` (the table's reverse table, as a
+    MeshBatch holds it; a table built in the backward when None), and the
+    W2 product is `kernels.gemm.linear`, every fp32 Dense's: KG forward and
+    for dh, torch's sum over the rows for the weight's gradient.  No
+    `index_add_` or atomics, so a step repeats bit for bit.  On CPU tensors
+    their plain versions.  Counted in `narrow_edge.launches`."""
+    narrow_edge.launches += 1
+    h = torch.relu(a[:, :, None, :] + gather_rows_trainable(b, nbr, rev))
+    h = layer_norm(h, g1, be1)
+    h = layer_norm(torch.relu(linear(h, w2.t(), b2)), g2, be2)
+    return masked_max(h, mask, dim=2)
+
+
+narrow_edge.launches = 0
+
+
 class EdgeNorm(nn.Module):
     """One post-ReLU norm stage of an edge MLP outside "layer" mode: its
     `bn` in "batch" mode, the identity in "none"."""
@@ -116,6 +157,12 @@ class EdgeMLP(nn.Module):
         h1, h2 = channels
         self.norm = get_default_norm()
         self.kernel_route = self.norm == "layer" and kernel_widths(h1, h2)
+        # "layer" mode's training route: "kernel" (K1/K5 + K6) at the JAX
+        # package's kernel widths where the port's kernels take them,
+        # "narrow" (`narrow_edge`) otherwise
+        self.train_route = (None if self.norm != "layer"
+                            else "kernel" if self.kernel_route and jax_kernel_widths(h1, h2)
+                            else "narrow")
         self.lin_self = Dense(fin, h1)
         self.lin_nbr = Dense(fin, h1, bias=False)
         if self.norm != "layer":
@@ -142,11 +189,13 @@ class EdgeMLP(nn.Module):
 
     def forward(self, x, nbr, nbr_mask, edge_tile: Optional[int] = None, train: bool = False,
                 rev=None):
-        """"layer" mode: K5 at `edge_tile` when given, K1 otherwise, in
-        training on fp32 lin_self/lin_nbr with K6 backward (its db_table
-        over `rev`, the table's reverse table, when given); widths the
-        kernels do not take: `plain_edge` in both.
-        Other modes: the fp32 tail in PyTorch (`edge_tile` unused)."""
+        """"layer" mode: at inference K5 at `edge_tile` when given, K1
+        otherwise (`plain_edge` at widths the kernels do not take).  In
+        training, on fp32 lin_self/lin_nbr, by `train_route`: "kernel" the
+        same forward with K6 backward, "narrow" `narrow_edge` (`edge_tile`
+        unused); K6's db_table and `narrow_edge`'s gather backward sum over
+        `rev`, the table's reverse table, when given.  Other modes: the fp32
+        tail in PyTorch (`edge_tile` unused)."""
         if self.norm != "layer":
             a = self.lin_self(x)
             h = torch.relu(a[:, :, None, :] + gather_plain(self.lin_nbr(x), nbr))
@@ -158,6 +207,8 @@ class EdgeMLP(nn.Module):
         b = self.lin_nbr(x, dt)
         args = (a, b, nbr, nbr_mask, self.dense_1_kernel, self.dense_1_bias,
                 self.ln0_scale, self.ln0_bias, self.ln1_scale, self.ln1_bias)
+        if train and self.train_route == "narrow":
+            return narrow_edge(*args, rev=rev)
         if not self.kernel_route:
             return plain_edge(*args)
         if train:
@@ -168,8 +219,8 @@ class EdgeMLP(nn.Module):
 
 
 def reverse_tables(mesh: MeshBatch, train: bool):
-    """The batch's (tpl, geo) reverse tables, which K6 reads in training;
-    (None, None) at inference."""
+    """The batch's (tpl, geo) reverse tables, which K6 and `narrow_edge`
+    read in training; (None, None) at inference."""
     return (mesh.tpl_rev, mesh.geo_rev) if train else (None, None)
 
 

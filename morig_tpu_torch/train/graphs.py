@@ -41,7 +41,8 @@ from morig_tpu_torch.train.trainer import TrainState
 COUNTED = {"K1": edge_fused.fused_edge_mlp, "K2": knn_fused.knn_batched,
            "K3": gather_fused.gather_rows, "K4": knn_fused.knn_topk,
            "K5": edge_fused.fused_edge_mlp_windowed, "K6": edge_fused.fused_edge_mlp_bwd,
-           "KS": gather_fused.scatter_rows, "KG": gemm.gemm, "plain_edge": gcu.plain_edge}
+           "KS": gather_fused.scatter_rows, "KG": gemm.gemm, "plain_edge": gcu.plain_edge,
+           "narrow": gcu.narrow_edge}
 REPLAYED = dict.fromkeys(COUNTED, 0)
 
 

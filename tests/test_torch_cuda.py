@@ -589,10 +589,13 @@ def test_skel_step_on_card_matches_cpu(cuda, kind, monkeypatch):
 def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
     """A GCUMotion in training on creature tables (degree 16, V padded to
     1024), as the motion stages run it: GCNDeform's first unit (feature 64
-    wide, positions 16, widths new to training) and SkinNet's (128 and 64).
-    Each of its four edge layers' K1 call is held to the plain version, and
-    each K6 call, with the dout the layer's backward really received, to
-    edge_mlp_bwd_plain by relative L2 (assert_k6_close)."""
+    wide, positions 16) and SkinNet's (128 and 64).  Its edge layers take
+    the JAX package's training split: the 128-wide feature layers K1 + K6,
+    each K1 call held to the plain version and each K6 call, with the dout
+    the layer's backward really received, to edge_mlp_bwd_plain by relative
+    L2 (assert_k6_close); the narrower ones `narrow_edge`, each call's
+    output and gradients (with its dout) held to the same call on the CPU
+    (`_narrow_card_against_cpu`)."""
     from morig_tpu_torch.data.creature import creature_rig_dataset
     from morig_tpu_torch.nn import gcu
     from morig_tpu_torch.weights import randomize_
@@ -605,8 +608,8 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
     g = torch.Generator(device=cuda).manual_seed(out)
     x = torch.randn(*mesh.verts.shape[:2], 4, device=cuda, generator=g)
     w = torch.randn(*mesh.verts.shape[:2], out, device=cuda, generator=g)
-    calls = []
-    original = gcu.fused_edge_mlp_trainable
+    calls, narrow_calls = [], []
+    original, narrow = gcu.fused_edge_mlp_trainable, gcu.narrow_edge
 
     def record(a, b, nbr, mask, *params, **kw):
         y = original(a, b, nbr, mask, *params, **kw)
@@ -616,13 +619,23 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
         calls.append(entry)
         return y
 
-    gcu.fused_edge_mlp_trainable = record
+    def record_narrow(*args, rev=None):
+        y = narrow(*args, rev=rev)
+        entry = [tuple(t.detach().clone() for t in args), rev, None]
+        y.register_hook(lambda d, e=entry: e.__setitem__(2, d.detach().clone()))
+        narrow_calls.append(entry)
+        return y
+
+    record_narrow.launches = 0
+    gcu.fused_edge_mlp_trainable, gcu.narrow_edge = record, record_narrow
     try:
         ((net(mesh.verts, x, mesh, train=True) * w).sum()).backward()
     finally:
-        gcu.fused_edge_mlp_trainable = original
-    assert sorted(args[0].shape[-1] for args, _ in calls) == sorted(
-        [pos_feat, pos_feat, out // 2, out // 2])
+        gcu.fused_edge_mlp_trainable, gcu.narrow_edge = original, narrow
+    kernel = [out // 2] * 2 if out // 2 >= 128 else []
+    assert sorted(args[0].shape[-1] for args, _ in calls) == kernel
+    assert sorted(e[0][0].shape[-1] for e in narrow_calls) == sorted(
+        [pos_feat] * 2 + ([out // 2] * 2 if not kernel else []))
     for args, dout in calls:
         got, ref = ef.fused_edge_mlp(*args), ef.edge_mlp_plain(*args)
         err = (got - ref).abs()
@@ -630,6 +643,14 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
         assert dout is not None and torch.isfinite(dout).all()
         assert_k6_close(ef.fused_edge_mlp_bwd(*args, dout), ef.edge_mlp_bwd_plain(*args, dout))
         torch.cuda.synchronize()
+    for args, rev, dout in narrow_calls:
+        assert dout is not None and torch.isfinite(dout).all()
+        rel, flipped, valid = _narrow_card_against_cpu(cuda, args, rev, dout)
+        print(f"narrow_edge H={args[0].shape[-1]} on creature tables: card against CPU, "
+              f"{flipped} of {valid} vertices flipped, relative L2 "
+              f"{dict(zip(NARROW_NAMES, rel))}")
+        assert flipped <= NARROW_FLIP_FRAC * valid, (flipped, valid)
+        assert all(v <= NARROW_TOL for v in rel), rel
 
 
 def _windowed_args(dev, H, D, TV, V, seed, B=2, leave=True):
@@ -1565,6 +1586,117 @@ def test_windowed_trainable_launches_k5_and_k6(cuda):
         runs.append([out.detach()] + [t.grad for t in leaves])
     for x, y in zip(*runs):
         assert torch.equal(x, y)
+
+
+# narrow_edge on the card against the CPU: both fp32 throughout, KG and
+# torch.matmul summing the products in other orders, so the outputs part in
+# the last bits (measured below 1.8e-7 relative L2).  Where that moves an
+# input of a ReLU across 0 or a near-tie of the max, the card's gradient for
+# that edge and channel takes another route than the CPU's, which moves
+# every gradient a little (that dout reaches W2, b2 and the LayerNorms
+# through another entry): with the whole dout, measured on the H100 da, db
+# 7.9e-5 relative L2 at H = 64 on random tables with no max flipped, all
+# else below 1e-6.  So a call is compared where the routing is the same on
+# both sides: `_narrow_card_against_cpu` finds the vertices whose routing
+# differs (the active entries of both ReLUs and each channel's set of
+# maximal edges, recorded on each side), at most NARROW_FLIP_FRAC of the
+# valid vertices, and holds the output and every gradient with those
+# vertices' dout set to 0 on both sides within NARROW_TOL relative L2.
+NARROW_TOL = 1e-5
+NARROW_FLIP_FRAC = 1e-2
+
+
+def _narrow_side(dev, args, rev, dout):
+    """One `narrow_edge` call (args: a, b, nbr, mask, w2, b2, g1, be1, g2,
+    be2; rev: its reverse table) on `dev`: (its output and the gradients of
+    a, b, w2, b2, g1, be1, g2, be2, on the CPU; its routing, (B, V, D, H1 +
+    2 H2) bool on the CPU: the entries each ReLU passes, then each channel's
+    maximal edges)."""
+    from morig_tpu_torch.kernels.edge_fused import layer_norm
+    from morig_tpu_torch.kernels.neighbors import masked_max
+    from morig_tpu_torch.nn import gcu
+
+    leaves = [t.detach().to(dev).float().requires_grad_() if t.is_floating_point()
+              else t.to(dev) for t in args]
+    route = []
+
+    def norm(x, g, b):                    # its input is a ReLU's output
+        route.append(x.detach() > 0)
+        return layer_norm(x, g, b)
+
+    def maximum(x, mask, dim):
+        filled = torch.where(mask[..., None], x.detach(), float("-inf"))
+        route.append(filled == filled.amax(dim, keepdim=True))
+        return masked_max(x, mask, dim)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(gcu, "layer_norm", norm)
+    mp.setattr(gcu, "masked_max", maximum)
+    try:
+        out = gcu.narrow_edge(*leaves, rev=tuple(t.to(dev) for t in rev))
+    finally:
+        mp.undo()
+    out.backward(dout.to(dev))
+    return ([out.detach().cpu()] + [t.grad.cpu() for t in leaves if t.requires_grad],
+            torch.cat(route, -1).cpu())
+
+
+def _narrow_card_against_cpu(cuda, args, rev, dout):
+    """`_narrow_side` on the card and on the CPU: (the relative L2 of the
+    output and of each gradient with the flipped vertices' dout at 0 on both
+    sides; the flipped vertices, those whose routing differs; the valid
+    vertices)."""
+    cpu = torch.device("cpu")
+    flipped = (_narrow_side(cuda, args, rev, dout)[1]
+               != _narrow_side(cpu, args, rev, dout)[1]).any(-1).any(-1)
+    kept = dout.cpu() * (~flipped)[..., None]
+    got, ref = _narrow_side(cuda, args, rev, kept)[0], _narrow_side(cpu, args, rev, kept)[0]
+    rel = [((x - y).norm() / y.norm().clamp_min(1e-30)).item() for x, y in zip(got, ref)]
+    return rel, int(flipped.sum()), int(args[3].any(-1).sum())
+
+
+NARROW_NAMES = ("out", "da", "db", "dw2", "db2", "dg1", "dbe1", "dg2", "dbe2")
+
+
+@pytest.mark.parametrize("H", [16, 32, 64])
+def test_narrow_edge_on_card_matches_cpu_and_repeats(cuda, H):
+    """`nn.gcu.narrow_edge`, the fp32 training tail of the edge layers
+    narrower than 128, on K6's training tables (B=4, V=2048 with 1298 valid
+    rows, D=16) over the table's masked reverse table: twice bit for bit on
+    the card, one K3, one KS and two KG launches a call (the W2 product and
+    its dh; the weight's gradient is torch's, as every Dense's), no K1 or
+    K6; output and every gradient (a, b, W2, b2, both LayerNorms) of the
+    same call on the CPU within NARROW_TOL relative L2 where both route the
+    max alike (`_narrow_card_against_cpu`)."""
+    from morig_tpu_torch.kernels.gemm import gemm
+    from morig_tpu_torch.nn import gcu
+
+    args, dout = _training_tables(cuda, H, 16, seed=H)
+    args = tuple(t.float() if t.is_floating_point() else t for t in args)
+    a, b, nbr, mask, *params = args
+    rev = gf.reverse_table(nbr, nbr.shape[1], mask)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in (a, b, *params)]
+        before = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches,
+                  gf.gather_rows.launches, gf.scatter_rows.launches, gemm.launches,
+                  gcu.narrow_edge.launches)
+        out = gcu.narrow_edge(leaves[0], leaves[1], nbr, mask, *leaves[2:], rev=rev)
+        (out * dout).sum().backward()
+        torch.cuda.synchronize()
+        after = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches,
+                 gf.gather_rows.launches, gf.scatter_rows.launches, gemm.launches,
+                 gcu.narrow_edge.launches)
+        assert tuple(x - y for x, y in zip(after, before)) == (0, 0, 1, 1, 2, 1)
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    rel, flipped, valid = _narrow_card_against_cpu(cuda, args, rev, dout)
+    rel = dict(zip(NARROW_NAMES, rel))
+    print(f"narrow_edge H={H}: card against CPU, {flipped} of {valid} vertices flipped, "
+          f"relative L2 {rel}")
+    assert flipped <= NARROW_FLIP_FRAC * valid, (flipped, valid)
+    assert all(v <= NARROW_TOL for v in rel.values()), rel
 
 
 def _repro_stages(dev):

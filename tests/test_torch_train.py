@@ -3,8 +3,9 @@ against the JAX package, on the CPU.
 
 On a CPU tensor each port kernel wrapper runs its plain version; the JAX
 side runs its Pallas kernels in interpret mode (`jax_training_kernels`:
-every edge layer through the fused forward and backward kernels, the kNN
-through the fused kernel and its VJP).  Inputs come from numpy seeds and
+every edge layer from 128 wide through the fused forward and backward
+kernels, the narrower ones through the package's fp32 XLA tail, as the
+port's `narrow_edge`; the kNN through the fused kernel and its VJP).  Inputs come from numpy seeds and
 go to both sides.  Tolerances are stated per test with their reasons.
 """
 import dataclasses
@@ -150,13 +151,16 @@ def _grads_close(got: dict, ref: dict, tol, what: str):
 
 
 @pytest.mark.parametrize("fin,out", [(3, 32), (32, 64), (64, 256), (256, 512)])
-def test_gcu_train_backward_matches_flax(fin, out):
-    """Each of CorrNet's four GCUs in training (its two edge layers through
-    K1 forward + K6 backward, the fuse MLP in fp32), fed the same input and
-    the same dout on the valid vertices: the output at LAYER, the input's
-    gradient and every parameter's gradient at LAYER_GRAD.  Both sides run
-    the same precision, so this holds the edge layers' backward without the
-    noise a whole step piles up through 8 layers (the step test's GRAD)."""
+def test_gcu_train_backward_matches_flax(fin, out, monkeypatch):
+    """Each of CorrNet's four GCUs in training (its two edge layers 16, 32,
+    128 or 256 wide: from 128 through K1 forward + K6 backward here and the
+    Pallas trainable kernel in JAX, below it the fp32 tail on both sides;
+    the fuse MLP in fp32), fed the same input and the same dout on the
+    valid vertices: the output at LAYER, the input's gradient and every
+    parameter's gradient at LAYER_GRAD; each side's route counted.  Both
+    sides run the same precision, so this holds the edge layers' backward
+    without the noise a whole step piles up through 8 layers (the step
+    test's GRAD)."""
     entries, _ = F.capsule_inputs(2)
     jm, tm = F.meshes(entries)
     vm = np.asarray(jm.vert_mask)
@@ -170,12 +174,19 @@ def test_gcu_train_backward_matches_flax(fin, out):
         y, vjp = jax.vjp(lambda pp, xx: m.apply({"params": pp}, xx, jm, True), p_, x_)
         return (y, *vjp(d_))
 
-    with F.jax_training_kernels():
+    with F.jax_training_kernels() as routes:
         ref, jdp, jdx = jax.jit(fwd_bwd)(p, jnp.asarray(x), jnp.asarray(dout))
+    half = out // 2
+    assert set(routes.pallas) == ({(half, half)} if half >= 128 else set())
     net = F.bridged(lambda: tgcu.GCU(fin, out), W.flax_to_state_dict(p))
+    calls, trainable = [], tgcu.fused_edge_mlp_trainable
+    monkeypatch.setattr(tgcu, "fused_edge_mlp_trainable",
+                        lambda *a, **k: calls.append(1) or trainable(*a, **k))
+    narrow = tgcu.narrow_edge.launches
     xt = torch.as_tensor(x).requires_grad_()
     y = net(xt, tm, train=True)
     y.backward(torch.as_tensor(dout))
+    assert (len(calls), tgcu.narrow_edge.launches - narrow) == ((2, 0) if half >= 128 else (0, 2))
     assert_rel_close(y, ref, LAYER, vm, f"GCU{out}")
     assert_rel_close(xt.grad, jdx, LAYER_GRAD, vm, f"GCU{out} dx")
     _grads_close({n: q.grad for n, q in net.named_parameters()}, W.flax_to_state_dict(jdp),
@@ -415,7 +426,7 @@ def corr_step():
     jb, tb = jds.batch([0, 1], 0, 2), tds.batch([0, 1], 0, 2, device="cpu")
     jstage = jstages.CorrPoseStage()
     model = jcn.CorrNet()
-    with F.jax_training_kernels():
+    with F.jax_training_kernels() as routes:
         params = F.flax_params(model, 31, jb.mesh, jb.points, True, True)
 
         def loss_fn(p):
@@ -432,7 +443,18 @@ def corr_step():
     state = stage.init_state(device="cpu")
     state.model.load_state_dict(W.flax_to_state_dict(params), strict=True)
     # the gradients before the step's in-place clip, as jax.grad gives them
-    outputs = state.model(tb.mesh, tb.points, train=True, train_vismask=True)
+    trainable, kernel_calls = tgcu.fused_edge_mlp_trainable, []
+
+    def counted(*a, **k):
+        kernel_calls.append(tuple(a[4].shape))
+        return trainable(*a, **k)
+
+    tgcu.fused_edge_mlp_trainable, narrow = counted, tgcu.narrow_edge.launches
+    try:
+        outputs = state.model(tb.mesh, tb.points, train=True, train_vismask=True)
+    finally:
+        tgcu.fused_edge_mlp_trainable = trainable
+    narrow = tgcu.narrow_edge.launches - narrow
     stage._losses(outputs, tb, True)[0].backward()
     grads = {n: p.grad.clone() for n, p in state.model.named_parameters()}
     before = (tef.fused_edge_mlp.launches, tef.fused_edge_mlp_bwd.launches,
@@ -442,7 +464,7 @@ def corr_step():
                       tkf.knn_batched.launches)
     return dict(jmetrics=jmetrics, jgrads=W.flax_to_state_dict(jgrads),
                 jnew=W.flax_to_state_dict(jnew), metrics=metrics, grads=grads, state=state,
-                stage=stage, batch=tb)
+                stage=stage, batch=tb, routes=(set(routes.pallas), kernel_calls, narrow))
 
 
 def test_corr_pose_step_losses_match_jax(corr_step):
@@ -458,7 +480,12 @@ def test_corr_pose_step_grads_match_jax(corr_step):
     """Every parameter's gradient (before the clip) at the GRAD tolerance,
     relative to that gradient's mean and max magnitude, and the whole
     gradient vector to GRAD_TOTAL relative L2 (torch_port_fixtures states
-    both with the measured errors)."""
+    both with the measured errors).  The mesh encoder's 128- and 256-wide
+    edge layers took K1 + K6 here and the Pallas trainable kernel in JAX,
+    its four 16- and 32-wide ones the fp32 tail on both sides."""
+    jax_pallas, kernel_calls, narrow = corr_step["routes"]
+    assert jax_pallas == {(128, 128), (256, 256)}
+    assert sorted(kernel_calls) == [(128, 128)] * 2 + [(256, 256)] * 2 and narrow == 4
     grads, ref = corr_step["grads"], corr_step["jgrads"]
     assert set(grads) == set(ref)
     for n, g in grads.items():

@@ -173,7 +173,7 @@ def windowed_step():
         jgcu.set_edge_tile(prev[1])
     assert prev[1] == 256
     model = jcn.CorrNet()
-    with F.jax_training_kernels("windowed"):
+    with F.jax_training_kernels("windowed") as routes:
         params = F.flax_params(model, 31, jb.mesh, jb.points, True, True)
 
         def loss_fn(p):
@@ -184,13 +184,17 @@ def windowed_step():
     assert (jgcu.get_edge_impl(), jgcu.get_edge_tile()) == prev
     stage = tstages.CorrPoseStage()
     stage.train_vismask = True
-    calls, revs, meshes = [], [], []
-    trainable = tgcu.fused_edge_mlp_trainable
+    calls, revs, narrow_revs, meshes = [], [], [], []
+    trainable, gather = tgcu.fused_edge_mlp_trainable, tgcu.gather_rows_trainable
 
     def record(*args, **kw):
         calls.append(kw.get("tile_v"))
         revs.append(kw.get("rev"))
         return trainable(*args, **kw)
+
+    def record_narrow(values, idx, rev=None):      # the narrow layers' gather
+        narrow_revs.append(rev)
+        return gather(values, idx, rev)
 
     grads = {}
     for name, batch in (("windowed", tb), ("full", dataclasses.replace(
@@ -198,25 +202,28 @@ def windowed_step():
         meshes.append(batch.mesh)
         state = stage.init_state(device="cpu")
         state.model.load_state_dict(W.flax_to_state_dict(params), strict=True)
-        tgcu.fused_edge_mlp_trainable = record
+        tgcu.fused_edge_mlp_trainable, tgcu.gather_rows_trainable = record, record_narrow
         try:
             outputs = state.model(batch.mesh, batch.points, train=True, train_vismask=True)
         finally:
-            tgcu.fused_edge_mlp_trainable = trainable
+            tgcu.fused_edge_mlp_trainable, tgcu.gather_rows_trainable = trainable, gather
         total, metrics = stage._losses(outputs, batch, True)
         total.backward()
         grads[name] = ({n: p.grad.clone() for n, p in state.model.named_parameters()},
                        {k: float(v.detach()) for k, v in metrics.items()})
     return dict(jmetrics=jmetrics, jgrads=W.flax_to_state_dict(jgrads), grads=grads, calls=calls,
-                revs=revs, meshes=meshes)
+                revs=revs, narrow_revs=narrow_revs, meshes=meshes, jax_pallas=routes.pallas)
 
 
 def test_windowed_corr_step_matches_jax(windowed_step):
-    """Every edge layer of the step took the K5 trainable (tile 128; 8 of
-    them); the losses at NETWORK and every gradient at GRAD relative to its
+    """The mesh encoder's 128- and 256-wide edge layers (4 of its 8) took
+    the K5 trainable (tile 128) on the port and the windowed Pallas
+    trainable on the JAX side, its 16- and 32-wide ones the fp32 tail on
+    both; the losses at NETWORK and every gradient at GRAD relative to its
     magnitude, the whole gradient vector at GRAD_TOTAL (the tolerances of
     the full-table step, test_torch_train, with their reasons)."""
-    assert windowed_step["calls"][:8] == [128] * 8
+    assert windowed_step["calls"][:4] == [128] * 4
+    assert set(windowed_step["jax_pallas"]) == {(128, 128), (256, 256)}
     grads, metrics = windowed_step["grads"]["windowed"]
     for k in ("corr_loss", "vis_loss", "total_loss"):
         ref = float(windowed_step["jmetrics"][k])
@@ -235,23 +242,25 @@ def test_windowed_corr_step_is_the_full_table_step(windowed_step):
     edge tile and the step on the full table give the same losses and
     gradients bit for bit (plain versions on the CPU, one thread)."""
     (gw, mw), (gf, mf) = windowed_step["grads"]["windowed"], windowed_step["grads"]["full"]
-    assert windowed_step["calls"][8:] == [None] * 8
+    assert windowed_step["calls"][4:] == [None] * 4
     assert mw == mf
     for n in gw:
         assert torch.equal(gw[n], gf[n]), n
 
 
 def test_training_edge_calls_take_the_batch_reverse_tables(windowed_step):
-    """Each training edge call of the step gets, for K6's db_table, the
-    reverse table its batch holds for that table (`MeshBatch.tpl_rev` /
-    `geo_rev`, built once per batch: 8 calls per batch share two tables),
-    and that table is `reverse_table` of the batch's neighbour table."""
-    revs = windowed_step["revs"]
-    assert len(revs) == 16
+    """Each training edge call of the step gets, for K6's db_table or the
+    narrow layers' gather backward, the reverse table its batch holds for
+    that table (`MeshBatch.tpl_rev` / `geo_rev`, built once per batch: 4
+    kernel and 4 narrow calls per batch share two tables), and that table
+    is `reverse_table` of the batch's neighbour table."""
+    revs, narrow_revs = windowed_step["revs"], windowed_step["narrow_revs"]
+    assert len(revs) == 8 and len(narrow_revs) == 8
     for i, mesh in enumerate(windowed_step["meshes"]):
         tables = (mesh.tpl_rev, mesh.geo_rev)
-        assert all(any(r is t for t in tables) for r in revs[8 * i:8 * i + 8])
-        assert {id(r) for r in revs[8 * i:8 * i + 8]} == {id(t) for t in tables}
+        for got in (revs[4 * i:4 * i + 4], narrow_revs[4 * i:4 * i + 4]):
+            assert all(any(r is t for t in tables) for r in got)
+            assert {id(r) for r in got} == {id(t) for t in tables}
         V = mesh.tpl_nbr.shape[1]
         for (order, offsets), nbr, mask in ((mesh.tpl_rev, mesh.tpl_nbr, mesh.tpl_mask),
                                             (mesh.geo_rev, mesh.geo_nbr, mesh.geo_mask)):

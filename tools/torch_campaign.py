@@ -279,18 +279,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def sizes(args) -> dict:
-    """Seeds, sizes, epochs and patience of a run (tools/campaign.py:193-226)."""
+    """Seeds, sizes, epochs and patience of a run (tools/campaign.py:193-226),
+    and the held-out tracking's frames (the smoke tracks 2)."""
     if args.smoke:
         E = dict(corr=3, deform=3, deform_seq=3, rig=3, skin=3, skel=3)
         return dict(train=[0, 1], val=[100], test=[200], n_pts=256, tv=700, E=E,
-                    P=dict.fromkeys(E, None), bs=2, seq_frames=5)
+                    P=dict.fromkeys(E, None), bs=2, seq_frames=5, track_frames=3)
     s = args.epochs_scale
     return dict(train=list(range(args.train_creatures)), val=VAL_SEEDS, test=TEST_SEEDS,
                 n_pts=1024, tv=1900,
                 E=dict(corr=int(200 * s), deform=int(220 * s), deform_seq=int(150 * s),
                        rig=int(420 * s), skin=int(300 * s), skel=int(240 * s)),
                 P=dict(corr=80, deform=60, deform_seq=60, rig=120, skin=120, skel=120),
-                bs=args.batch_size, seq_frames=11)
+                bs=args.batch_size, seq_frames=11, track_frames=TRACK_FRAMES)
 
 
 def main(argv=None) -> dict:
@@ -412,7 +413,7 @@ def main(argv=None) -> dict:
         args.dir, dev, test_seeds, tv, n_pts, pose_te, rig_te,
         dict(deform=deform_state, deform_seq=deform_seq_state, joint=joint_state,
              mask=mask_state, root=root_state, bone=bone_state, skin=skin_state),
-        skin, timings)
+        skin, timings, z["track_frames"])
     timings["total_s"] = time.time() - t_all
     summary = summarize(
         dict(train=len(train_seeds), val=len(val_seeds), test=len(test_seeds), epochs=E,
@@ -429,12 +430,12 @@ def main(argv=None) -> dict:
 
 
 def heldout(out_dir: str, dev, test_seeds, tv: int, n_pts: int, pose_te, rig_te, states: dict,
-            skin, timings: dict) -> tuple:
+            skin, timings: dict, track_frames: int) -> tuple:
     """The held-out evaluation (tools/campaign.py:409-566): rigs of the
     test creatures under each joint configuration, with voxels and surface
     geodesics of the regenerated creatures; skin L1 on the GT skeleton;
-    tracking of the first test creature with the sequential and the
-    discrete DeformNet.  Returns (the headline configuration's per-model
+    tracking of the first test creature over `track_frames` frames (the
+    first the rest pose) with the sequential and the discrete DeformNet.  Returns (the headline configuration's per-model
     joint metrics, the skin L1 per model, the flow errors of each
     tracking); `timings["heldout"]` gets the seconds of each part."""
     from morig_tpu_torch.core import batch as B
@@ -513,7 +514,7 @@ def heldout(out_dir: str, dev, test_seeds, tv: int, n_pts: int, pose_te, rig_te,
     # tracking of the first held-out creature with its GT rig, by the
     # sequential DeformNet (eval_tracking.py:21) and, as an ablation on the
     # same data, by the discrete-keyframe one
-    seq = make_creature_sequence(seed=test_seeds[0], num_frames=TRACK_FRAMES,
+    seq = make_creature_sequence(seed=test_seeds[0], num_frames=track_frames,
                                  num_points=min(n_pts, 512), target_verts=tv)
     c = seq["rig"]
     gt_rig = sk.Rig(names=list(c.names), pos=c.joints.astype(np.float64), parents=c.parents,
@@ -527,7 +528,7 @@ def heldout(out_dir: str, dev, test_seeds, tv: int, n_pts: int, pose_te, rig_te,
         t0 = time.time()
         traj, vis, quats = run_tracker(c.verts, seq["pts_traj"])
         dt = time.time() - t0
-        frames = TRACK_FRAMES - 1
+        frames = track_frames - 1
         h["tracking"][ab_name] = dict(seconds=dt, frames=frames, frames_per_s=frames / dt,
                                       peak_gib=peak_gib(dev))
         terrs[ab_name] = flow_errors(traj, seq["vtx_traj"][:, 1:, :], seq["vismask"][:, 1:])

@@ -1,11 +1,13 @@
 """The replayed training steps of chip_smoke.py's phase 20 on one NVIDIA GPU:
-for each of its cases (corr, corr through K5, rig jointnet, bone), one
-eager train step against one replay of the captured step, each from fresh
-seeded weights, with its CUDA-event median ms, device ops, busy ms and idle
-share (`chip_smoke.profile_scan_case`, what `chip_smoke.py --profile`
-prints in phase 20), without the rest of the smoke run.
+for each of its cases (corr, corr through K5, rig jointnet, bone) and two of
+this tool's (deform: DeformPoseStage, its extractor frozen, on phase 6's
+capsules; skin: SkinStage on phase 10's creatures), one eager train step
+against one replay of the captured step, each from fresh seeded weights,
+with its CUDA-event median ms, device ops, busy ms and idle share
+(`chip_smoke.profile_scan_case`, what `chip_smoke.py --profile` prints in
+phase 20), without the rest of the smoke run.
 
-    PYTHONPATH=<root> python3 tools/torch_replay_time.py [--kernels]
+    PYTHONPATH=<root> python3 tools/torch_replay_time.py [--kernels] [--cases corr,skin]
 
 With --kernels, also per case: one replay under torch.profiler, its device
 time by kernel (the largest first); and the products the captured step
@@ -99,7 +101,23 @@ def kernel_split(cs, case, dev) -> None:
               f"KG {t_k:.4f} ms ({tk:.3f} per step), torch.matmul {t_l:.4f} ms ({tl:.3f})")
 
 
-def main(kernels: bool) -> None:
+def more_cases(cs, rig_ds) -> list:
+    """The deform and skin cases, on phase 6's and phase 10's data (batch 4,
+    4 epochs in chunks of 2; the launches are not held here)."""
+    from morig_tpu_torch.train.scanned import pose_scan_batcher, rig_scan_batcher
+    from morig_tpu_torch.train.stages import DeformPoseStage, SkinStage
+
+    ds = cs.train_dataset()
+    return [cs.ScanCase("deform", DeformPoseStage,
+                        lambda rng, train: ds.epoch_batches(rng, cs.TRAIN_B, "modelsresource",
+                                                            False, train),
+                        pose_scan_batcher(ds, cs.TRAIN_B, "modelsresource", False), 4, 2, {}),
+            cs.ScanCase("skin", SkinStage,
+                        lambda rng, train: rig_ds.epoch_batches(rng, cs.TRAIN_B, train),
+                        rig_scan_batcher(rig_ds, cs.TRAIN_B), 4, 2, {})]
+
+
+def main(kernels: bool, names=None) -> None:
     import chip_smoke as cs
 
     dev = torch.device("cuda", 0)
@@ -108,7 +126,9 @@ def main(kernels: bool) -> None:
     cs.kb.library()
     t0 = time.perf_counter()
     rig_ds = cs.creature_rig_dataset(num_models=cs.TRAIN_B, seed=0)
-    for case in cs.scan_cases(rig_ds, cs.skel_batch()):
+    for case in cs.scan_cases(rig_ds, cs.skel_batch()) + more_cases(cs, rig_ds):
+        if names and case.name not in names:
+            continue
         cs.profile_scan_case(case, dev)
         if kernels:
             kernel_split(cs, case, dev)
@@ -119,4 +139,7 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels", action="store_true",
                         help="also each replayed step by kernel, and its KG products timed alone")
-    main(parser.parse_args().kernels)
+    parser.add_argument("--cases", default=None,
+                        help="comma-separated case names (default: all six)")
+    a = parser.parse_args()
+    main(a.kernels, a.cases.split(",") if a.cases else None)
