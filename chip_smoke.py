@@ -33,7 +33,15 @@ Phases, each printing its own lines:
                bound, each half of its rows and of its columns and every
                route and tile its planner can be forced to against the
                whole call bit for bit, torch.matmul its plain version and
-               library call, each shape's time beside the library's),
+               library call, each shape's time beside the library's; and
+               KN and KNB, the fp32 tail of the edge layers narrower than
+               128 forward and backward, at the corr and deform steps'
+               narrow widths 16, 32 and 64 on the training tables, KNB's
+               recomputed forward against KN's output and a second KNB
+               call against the first bit for bit, its gradients held
+               where the routing cannot differ (`narrow_agree`), beside
+               the composite route they replaced (K3, KG and PyTorch's
+               elementwise kernels) as their yardstick, forward and backward),
                with errors, tolerances, the least time the card could take
                (`bound_ms`) and two times per kernel: its device ms (the
                summed durations of its own launches under torch.profiler
@@ -72,12 +80,14 @@ Phases, each printing its own lines:
                P=1024, frame pair (0, 2), vismask branch on), from a seeded
                `init_state` on the card: one warm-up step, then 6 timed
                steps on the same batch, each checked (finite loss and
-               gradient norm, parameters moved); the kernel counts are
-               zeroed just before the first timed step and read just after
-               it (K1 = K6 = 4, the 128- and 256-wide edge layers; narrow
-               4, the 16- and 32-wide ones on the fp32 tail, the JAX
-               package's training split; K2 = 1, K3 = 6, KS = 8, K4 = K5 =
-               0); then one `eval_step`.  Prints the step's median and quartiles,
+               gradient norm, parameters moved), the warm-up's K1/K6 and
+               KN/KNB calls recorded and held against their plain versions;
+               the kernel counts are zeroed just before the first timed
+               step and read just after it (K1 = K6 = 4, the 128- and
+               256-wide edge layers; narrow 4, the 16- and 32-wide ones on
+               the fp32 tail, the JAX package's training split, KN = KNB =
+               4; K2 = 1, K3 = 2, KS = 4, K4 = K5 = 0); then one
+               `eval_step`.  Prints the step's median and quartiles,
                steps/s, peak device memory and the first and last total
                loss, which must be lower; with --profile also the step's
                device ops, busy time and idle share and K1's, K6's and
@@ -88,10 +98,11 @@ Phases, each printing its own lines:
                held against their plain versions at their shapes, the eval
                loss (`eval_step`), 6 timed steps, each checked, the eval
                loss again, which must be lower; the counts of the first
-               timed step must be K1 8, K2 3, K6 4, narrow 12, K3 12, KS
-               8, plain_edge 0, and the extractor must equal the loaded
-               CorrNet bit for bit; then one step of a fresh stage with the
-               extractor trained (K6 8, K3 14, KS 20, the extractor moved).  Prints the step's median and quartiles,
+               timed step must be K1 8, K2 3, K6 4, narrow 12, KN 12, KNB
+               8, K3 0, KS 0, plain_edge 0, and the extractor must equal
+               the loaded CorrNet bit for bit; then one step of a fresh
+               stage with the extractor trained (K6 8, KNB 12, K3 2, KS 8,
+               the extractor moved).  Prints the step's median and quartiles,
                steps/s, peak memory, the losses and the last grad norm;
                with --profile one step's device ops, busy ms, idle share
                and K1's and K6's ms;
@@ -100,11 +111,10 @@ Phases, each printing its own lines:
                its defaults (about 1900 vertices in the 2048 bucket,
                degree-16 tables, T=5, up to 48 joints), B=4: as phase 9,
                with the embedding draws of `eval_step` from a fixed
-               generator; counts K1 24, K6 24, narrow 48, K3 = KS = 66 (the
-               narrow layers' gathers and the multi-positive infoNCE's 18),
-               K2 0, plain_edge 0;
+               generator; counts K1 24, K6 24, narrow = KN = KNB = 48, K3 =
+               KS = 18 (the multi-positive infoNCE's), K2 0, plain_edge 0;
  11. skin    — `SkinStage` on the same batch, as phase 10 (K1 = K6 = 26,
-               narrow 46, K3 = KS = 64).
+               narrow = KN = KNB = 46, K3 = KS = 18).
  12. skel    — `BoneStage`, then `RootStage`, at full width from seeded
                weights on `creature_skel_dataset(num_models=4, seed=0)` at
                its defaults (`cli.py train bone|root --data creature`): 12
@@ -112,7 +122,8 @@ Phases, each printing its own lines:
                in the 2048 bucket, degree-16 tables, J <= 32, P = 496.  One
                step first moves the zero-initialized head (until it does,
                every gradient behind it is 0), then as phase 9: counts K1 2,
-               K6 2, narrow 4, K3 = KS = 4, K2 0, plain_edge 0 per step; then one
+               K6 2, narrow = KN = KNB = 4, K3 = KS = 0, K2 0, plain_edge 0
+               per step; then one
                `eval_step` counted apart: K1 6, K3 2 (BoneNet's joint-set
                SAs) or 4 (RootNet's SAs and fp2, fp1), its K1 and K3 calls
                recorded and held against their plain versions as in
@@ -170,13 +181,14 @@ Phases, each printing its own lines:
                after it and must be its training steps' and evaluations'
                launches (a training step's as phases 6, 9, 10 and 12, an
                evaluation's K1 on every edge layer: train corr_pose: K1 4 +
-               8, K6 4, narrow 4, K2 1 + 1, K3 6 + 6, KS 8; its windowed
-               run the same with K5 in place of K1; train deform_pose: K1
-               8 + 20, K6 4, narrow 12, K2 3 + 3, K3 12 + 6, KS 8; eval
-               deform: K1 20, K2 3, K3 6; train joints: K1 2 x 24 + 2 x 72,
-               K6 2 x 24, narrow 2 x 48, K3 = KS = 2 x 66; predict-rig: 2
-               capsule_predictor steps of K1 = K6 = 24 + 24 + 2 + 2,
-               narrow = 48 + 48 + 4 + 4, K3 = KS = 66 + 66 + 4 + 4, then 2
+               8, K6 4, narrow = KN = KNB = 4, K2 1 + 1, K3 2 + 6, KS 4;
+               its windowed run the same with K5 in place of K1; train
+               deform_pose: K1 8 + 20, K6 4, narrow = KN 12, KNB 8, K2 3 +
+               3, K3 0 + 6, KS 0; eval deform: K1 20, K2 3, K3 6; train
+               joints: K1 2 x 24 + 2 x 72, K6 2 x 24, narrow = KN = KNB = 2
+               x 48, K3 = KS = 2 x 18; predict-rig: 2 capsule_predictor
+               steps of K1 = K6 = 24 + 24 + 2 + 2, narrow = KN = KNB = 48 +
+               48 + 4 + 4, K3 = KS = 18 + 18, then 2
                predict_rig calls of K1 one per edge layer, K2 3, K3 12;
                track: 1 frame of K1 20, K2 3, K3 6; the evals of folders
                none); its first K1, K2, K3 and KS calls
@@ -264,7 +276,8 @@ Phases, each printing its own lines:
                `tools/torch_eval_campaign_tracking.py --frames 5
                --timing-iters 1` on it, both in this process with the
                counts zeroed before and read after each: the campaign must
-               launch K1, K2, K3, K6 and KS and take the narrow route, the
+               launch K1, K2, K3, K6, KS, KN and KNB and take the narrow
+               route, the
                tracking K1, K2 and K3, neither K4, K5 or `plain_edge`; every recorded
                K1/K2/K3/KS call (first of each shape) and every training
                K1/K6 call is held against its plain version as in phases
@@ -318,7 +331,7 @@ Phases, each printing its own lines:
                quaternions of unit norm; with --profile also one step's
                device ops, busy ms and idle share for the flow and the IK
                half.
-Then a JSON line of kernel results, KS among them (launches counted in
+Then a JSON line of kernel results, KS, KG, KN and KNB among them (launches counted in
 the main paths' counted runs: path 1, path 2, the training step, the first
 timed step of each of phases 9-12 and 17 (its K5 steps) and phase 9's step
 with the extractor trained, phase 12's counted `eval_step`s, phase 13's
@@ -374,11 +387,13 @@ from morig_tpu_torch.kernels import build as kb
 from morig_tpu_torch.kernels.edge_fused import (
     bwd_step_tiles, edge_mlp_bwd_plain, edge_mlp_dw2_plain, edge_mlp_plain,
     edge_mlp_windowed_plain, fused_edge_mlp, fused_edge_mlp_bwd, fused_edge_mlp_dw2,
-    fused_edge_mlp_windowed)
+    fused_edge_mlp_windowed, layer_norm)
 from morig_tpu_torch.kernels import gather_fused, knn_fused
-from morig_tpu_torch.kernels.gemm import gemm, gemm_plain, sm_count
+from morig_tpu_torch.kernels import narrow_edge as ne
+from morig_tpu_torch.kernels.gemm import gemm, gemm_plain, linear, sm_count
 from morig_tpu_torch.kernels import neighbors as nbk
-from morig_tpu_torch.kernels.gather_fused import (gather_plain, gather_rows, plan_scatter,
+from morig_tpu_torch.kernels.gather_fused import (gather_plain, gather_rows,
+                                                  gather_rows_trainable, plan_scatter,
                                                   reverse_table, row_scatter_launch,
                                                   scatter_rows, scatter_rows_plain)
 from morig_tpu_torch.kernels.knn_fused import NEG, knn_batched, knn_plain, knn_topk
@@ -431,6 +446,16 @@ K6_DW2_TOL = 1e-5
 # KS_TOL * max(max |plain|, 1); against itself run again, bit for bit.
 KS_TOL = 1e-5
 K6_NAMES = ("da", "db_table", "dw2", "db2", "dg1", "dbe1", "dg2", "dbe2")
+# KN and KNB, the narrow layers' fp32 tail, against their plain versions:
+# fp32 throughout, the products and the LayerNorm sums in other orders, so
+# the outputs agree to NARROW_TOL relative L2 (tests/test_torch_cuda.py).
+# Where that moves an input of the second ReLU across 0 or a near-tie of
+# the max, the gradient takes another route, so KNB is held with the dout
+# of the vertices `narrow_edge.near_tie_vertices` finds within NARROW_DELTA
+# of such a tie set to 0 (at most NARROW_NEAR_FRAC of the valid vertices),
+# every gradient within NARROW_TOL relative L2; KNB's recomputed forward
+# equals KN's output bit for bit, and a second KNB call the first.
+NARROW_TOL, NARROW_DELTA, NARROW_NEAR_FRAC = 1e-5, 1e-5, 0.1
 REPS = 20         # calls per kernel timing (and CUDA-event samples of the profiles)
 MEDIANS: dict = {}  # each timed path's call median and each timed stage's step median, ms
 MAIN_REPS = 7     # timed calls of predict_rig_batch after the warm-up
@@ -1160,6 +1185,115 @@ def check_kg(dev):
     return res
 
 
+# the narrow layers' widths of the corr and deform steps on phase 6's tables
+NARROW_PHASE_WIDTHS = (16, 32, 64)
+
+
+def narrow_inputs(dev, nbr, mask, H, g):
+    """fp32 a, b, W2 and vectors (b2, g1, be1, g2, be2) of a narrow layer on
+    these tables, and a dout."""
+    Bt, V, _ = nbr.shape
+    a, b = (torch.randn(Bt, V, H, device=dev, generator=g) for _ in range(2))
+    w2 = torch.randn(H, H, device=dev, generator=g) / math.sqrt(H)
+    vecs = [0.1 * torch.randn(H, device=dev, generator=g),
+            torch.rand(H, device=dev, generator=g) + 0.5,
+            0.1 * torch.randn(H, device=dev, generator=g),
+            torch.rand(H, device=dev, generator=g) + 0.5,
+            0.1 * torch.randn(H, device=dev, generator=g)]
+    return (a, b, nbr, mask, w2, *vecs), torch.randn(Bt, V, H, device=dev, generator=g)
+
+
+def narrow_composite(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, rev):
+    """The narrow route before KN and KNB, the yardstick of their times:
+    the gather on K3 (its backward KS over `rev`), the W2 product on KG, and
+    PyTorch's elementwise and reduction kernels for the ReLUs, the
+    LayerNorms (here with the two-pass statistics) and the masked max; the
+    backward by autograd."""
+    h = torch.relu(a[:, :, None, :] + gather_rows_trainable(b, nbr, rev))
+    h = layer_norm(h, g1, be1, True)
+    h = layer_norm(torch.relu(linear(h, w2.t(), b2)), g2, be2, True)
+    return nbk.masked_max(h, mask, dim=2)
+
+
+def narrow_agree(args, dout, rev, where: str) -> tuple[float, float, str]:
+    """KN and KNB against their plain versions on the same inputs, under the
+    rules of NARROW_TOL: (KN's max_abs_err, KNB's over its gradients, a
+    description); raises where they disagree."""
+    out, ref = ne.narrow_edge_fwd(*args), ne.narrow_edge_plain(*args)
+    grads, fwd = ne.narrow_edge_bwd(*args, dout, rev=rev, return_forward=True)
+    again = ne.narrow_edge_bwd(*args, dout, rev=rev)
+    near = ne.near_tie_vertices(*args, delta=NARROW_DELTA)
+    kept = dout * (~near)[..., None]
+    got = ne.narrow_edge_bwd(*args, kept, rev=rev)
+    want = ne.narrow_edge_bwd_plain(*args, kept, rev=rev)
+    torch.cuda.synchronize()
+    valid, n_near = int(args[3].any(-1).sum()), int(near.sum())
+    rel_fwd = ((out - ref).norm() / ref.norm().clamp(min=1e-30)).item()
+    rels = [((x - y).norm() / y.norm().clamp(min=1e-30)).item() for x, y in zip(got, want)]
+    e_fwd = (out - ref).abs().max().item()
+    e_bwd = max((x - y).abs().max().item() for x, y in zip(got, want))
+    same = torch.equal(fwd, out)
+    repeats = all(torch.equal(x, y) for x, y in zip(grads, again))
+    finite = all(bool(torch.isfinite(x).all()) for x in grads)
+    desc = (f"KN rel L2 {rel_fwd:.3g} max {e_fwd:.3g}; KNB ({n_near} of {valid} vertices near a "
+            f"tie, their dout 0) rel L2 " + ", ".join(f"{n} {r:.3g}" for n, r in zip(K6_NAMES, rels))
+            + f" (tol {NARROW_TOL}), max {e_bwd:.3g}; KNB's recomputed forward equals KN's "
+            f"output: {same}; a second KNB call bit for bit: {repeats}")
+    if not (rel_fwd <= NARROW_TOL and max(rels) <= NARROW_TOL and same and repeats and finite
+            and n_near <= NARROW_NEAR_FRAC * max(valid, 1)):
+        raise AssertionError(f"KN/KNB disagree with their plain versions at {where}: {desc}")
+    return e_fwd, e_bwd, desc
+
+
+def check_kn(dev, mesh) -> tuple[Timings, Timings]:
+    """KN and KNB at NARROW_PHASE_WIDTHS over phase 6's tables (B=4,
+    V=2048, D=12) with the tables' masked reverse table, against their
+    plain versions (`narrow_agree`), each with its device and call ms, the
+    plain version's call ms, the bound (the fp32 products, KN one and KNB
+    three of 2 E H^2 FLOPs over the E valid edges, at the fp32 rate
+    without tensor cores, or the bytes) and, as the composite yardstick,
+    the route they replaced (`narrow_composite`): its forward for KN, its
+    backward by autograd for KNB, device and call ms."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    nbr, mask = mesh.tpl_nbr, mesh.tpl_mask
+    Bn, V, D = nbr.shape
+    rev = reverse_table(nbr, V, mask)
+    kn, knb = Timings(), Timings()
+    for H in NARROW_PHASE_WIDTHS:
+        args, dout = narrow_inputs(dev, nbr, mask, H, g)
+        e_f, e_b, desc = narrow_agree(args, dout, rev, f"phase 3 H={H}")
+        leaves = [t.detach().clone().requires_grad_() if t.is_floating_point() else t
+                  for t in args]
+        params = [t for t in leaves if t.is_floating_point()]
+        composite = narrow_composite(*leaves, rev)
+        t_f = kernel_ms(lambda: ne.narrow_edge_fwd(*args), DEVICE_NAMES["KN"])
+        t_b = kernel_ms(lambda: ne.narrow_edge_bwd(*args, dout, rev=rev), DEVICE_NAMES["KNB"])
+        with torch.no_grad():
+            t_cf = kernel_ms(lambda: narrow_composite(*args, rev))
+        t_cb = kernel_ms(lambda: torch.autograd.grad(composite, params, dout, retain_graph=True))
+        t_pf = call_ms(lambda: ne.narrow_edge_plain(*args))
+        t_pb = call_ms(lambda: ne.narrow_edge_bwd_plain(*args, dout, rev=rev))
+        flops = 2.0 * int(mask.sum()) * H * H
+        rows = nbytes(args[0])                      # a (B,V,H) fp32: out, da and db alike
+        b_f = kn.add(e_f, t_f, t_pf, nbytes(*args) + rows, flops, composite=t_cf,
+                     peak=FP32_FLOPS)
+        b_b = knb.add(e_b, t_b, t_pb, nbytes(*args, dout) + 2 * rows + 4 * (H * H + 5 * H),
+                      3 * flops, composite=t_cb, peak=FP32_FLOPS)
+        print(f"KN/KNB narrow_edge B={Bn} V={V} D={D} H={H} ({int(mask.sum())} valid edges): "
+              f"{desc}; KN device {t_f[0]:.4f} ms call {t_f[1]:.4f} ms, plain {t_pf:.4f} ms, "
+              f"bound {b_f:.4f} ms, the composite forward device {t_cf[0]:.4f} ms call "
+              f"{t_cf[1]:.4f} ms; KNB device {t_b[0]:.4f} ms call {t_b[1]:.4f} ms, plain "
+              f"{t_pb:.4f} ms, bound {b_b:.4f} ms, the composite's backward device "
+              f"{t_cb[0]:.4f} ms call {t_cb[1]:.4f} ms")
+        del composite, leaves, params
+    for name, res in (("KN", kn), ("KNB", knb)):
+        print(f"{name} over the {len(NARROW_PHASE_WIDTHS)} widths at the training tables: device "
+              f"{res.device_ms:.4f} ms, call {res.call_ms:.4f} ms; plain {res.plain_ms:.4f} ms; "
+              f"bound {res.bound_ms:.4f} ms; the composite route's device "
+              f"{res.composite_device_ms:.4f} ms, call {res.composite_ms:.4f} ms")
+    return kn, knb
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the two paths
 # ---------------------------------------------------------------------------
@@ -1197,15 +1331,19 @@ def check_rigs(rigs, entries):
 # Substrings of each kernel's device-op names (K6: its main kernel, its dW2
 # kernel, the fixed-order sums and the ordered scatter of db_table it
 # launches after them under a name of its own, `edge_db_sum_kernel`; KS: the
-# ordered row scatter of `scatter_rows`, the port's own kernel); no name
-# holds another's, and K6's time includes its db_table sum.
+# ordered row scatter of `scatter_rows`, the port's own kernel; KNB: its
+# main kernel, the fold of its partials and its db_table's ordered scatter,
+# `narrow_db_sum_kernel`); no name holds another's, and K6's and KNB's times
+# include their db_table sums.
 DEVICE_NAMES = {"K1": "edge_mlp_table_kernel", "K2": "knn_wgmma_kernel", "K3": "gather_rows_kernel", "K4": "knn_wgmma_kernel",
                 "K5": "edge_mlp_windowed_kernel",
                 "K6": ("edge_mlp_bwd_kernel", "edge_mlp_dw2_kernel", "sum_parts_kernel",
                        "edge_db_sum_kernel"),
-                "KS": "row_scatter_kernel", "KG": "gemm_f32_"}
+                "KS": "row_scatter_kernel", "KG": "gemm_f32_", "KN": "narrow_edge_fwd_kernel",
+                "KNB": ("narrow_edge_bwd_kernel", "narrow_fold_kernel", "narrow_db_sum_kernel")}
 COUNTERS = {"K1": fused_edge_mlp, "K2": knn_batched, "K3": gather_rows, "K4": knn_topk, "K5": fused_edge_mlp_windowed,
-            "K6": fused_edge_mlp_bwd, "KS": scatter_rows, "KG": gemm}
+            "K6": fused_edge_mlp_bwd, "KS": scatter_rows, "KG": gemm, "KN": ne.narrow_edge_fwd,
+            "KNB": ne.narrow_edge_bwd}
 
 
 def zero_counts() -> None:
@@ -1415,15 +1553,15 @@ def phase_a_inputs(entries):
 
 # Training takes the JAX package's split (nn/gcu.py `EdgeMLP.train_route`):
 # an edge layer with H1 >= 128 (a multiple of 128) through K1 forward and K6
-# backward, a narrower one through the fp32 tail `narrow_edge` (counted as
-# `narrow`), whose neighbour gather is one K3 launch forward and one KS
-# launch backward (where its input takes a gradient).  Per CorrPoseStage
-# step: the mesh encoder's 8 edge layers (4 GCUs x tpl/geo), the 128- and
-# 256-wide 4 through K1 and K6, the 16- and 32-wide 4 narrow; K2: the
-# vismask 1-NN; K3: infoNCE's two anchor-row gathers (PointNet++'s training
-# gathers index plainly) and the narrow layers' 4; KS: the backward of K2's
-# two gathers, of infoNCE's two and of the narrow layers' 4.
-EXPECTED_TRAIN = {"K1": 4, "K2": 1, "K3": 6, "K4": 0, "K5": 0, "K6": 4, "KS": 8, "narrow": 4}
+# backward, a narrower one through the fp32 tail `narrow_edge_trainable`:
+# one KN launch forward and one KNB launch backward (where its input takes a
+# gradient).  Per CorrPoseStage step: the mesh encoder's 8
+# edge layers (4 GCUs x tpl/geo), the 128- and 256-wide 4 through K1 and K6,
+# the 16- and 32-wide 4 narrow; K2: the vismask 1-NN; K3: infoNCE's two
+# anchor-row gathers (PointNet++'s training gathers index plainly); KS: the
+# backward of K2's two gathers and of infoNCE's two.
+EXPECTED_TRAIN = {"K1": 4, "K2": 1, "K3": 2, "K4": 0, "K5": 0, "K6": 4, "KS": 4, "KN": 4,
+                  "KNB": 4}
 
 
 def train_dataset(edge_tile=None) -> PoseDataset:
@@ -1448,9 +1586,11 @@ def param_snapshot(model):
 
 
 def train(batch, dev, profile_phase: bool):
-    """One warm-up step and TRAIN_STEPS timed steps of CorrPoseStage on one
-    batch, each checked; the kernel counts of the first timed step must be
-    EXPECTED_TRAIN.  Returns them."""
+    """One warm-up step, whose K1/K6 and KN/KNB calls are recorded and held
+    against their plain versions (`check_recorded_training`), and
+    TRAIN_STEPS timed steps of CorrPoseStage on one batch, each checked; the
+    kernel counts of the first timed step must be EXPECTED_TRAIN.  Returns
+    them."""
     stage = CorrPoseStage()
     stage.train_vismask = True
     state = stage.init_state(0)                     # on the card
@@ -1459,9 +1599,13 @@ def train(batch, dev, profile_phase: bool):
     print(f"train: CorrNet {sum(p.numel() for p in state.model.parameters())} parameters; "
           f"batch B={Bn} V={V} P={batch.points.pts.shape[1]} D={D}")
     t0 = time.perf_counter()
-    losses = [stage.train_step(state, batch, gen)["total_loss"]]
+    calls: dict = {}
+    with recording_training_calls(calls):
+        losses = [stage.train_step(state, batch, gen)["total_loss"]]
     torch.cuda.synchronize()
     print(f"train warm-up step: {time.perf_counter() - t0:.3f} s, total_loss {losses[0]:.6f}")
+    check_recorded_training("train", calls)
+    del calls
     torch.cuda.reset_peak_memory_stats()
     walls, launches = [], None
     for _ in range(TRAIN_STEPS):
@@ -1614,53 +1758,56 @@ def check_recorded(phase: str, calls: dict) -> None:
 
 # Per step, each edge layer on its training route (phase 6).
 # DeformPoseStage: 20 edge layers, the frozen CorrNet's 8 (their forward
-# only: K1 4, narrow 4 with their K3) and GCNDeform's 12 (the 128- and
+# only: K1 4, narrow 4 with their KN) and GCNDeform's 12 (the 128- and
 # 256-wide 4 of GCUMotion's feature halves through K1 and K6, the 64-wide 2
-# and the six 16-wide position layers narrow, with K3 and KS); K2 on the
+# and the six 16-wide position layers narrow, KN and KNB); K2 on the
 # vismask 1-NN, the voting and the completion.  With the extractor
-# trained, its 4 through K6 and its narrow 4's KS too, plus the deform
+# trained, its 4 through K6 and its narrow 4's KNB too, plus the deform
 # step's infoNCE gathers (K3 2) and the backward of its three kNN calls'
 # gathers and of those (KS 8).  RigStage: 72 edge layer calls, the motion
 # trunk's 12 for each of the 5 keyframes and the head's 12, 24 through K1
 # and K6 (of each 12: the feature halves of gcu_2 and gcu_3), 48 narrow;
 # SkinStage: the same trunk, and SkinNet's 12, its six 128-wide feature
 # layers through K1 and K6, its six 64-wide position layers narrow; no
-# kNN; K3 and KS: the narrow layers' and the multi-positive infoNCE's
-# gathers and their backward, 3 in each of its 6 calls (the 5 keyframes
-# and their aggregate).  No edge layer of these stages at full width takes
-# the plain route (`plain_edge`).
-EXPECTED_DEFORM = {"K1": 8, "K2": 3, "K3": 12, "K4": 0, "K5": 0, "K6": 4, "KS": 8,
-                   "narrow": 12, "plain_edge": 0}
-EXPECTED_DEFORM_EXTRACTOR = dict(EXPECTED_DEFORM, K6=8, K3=14, KS=20)
+# kNN; K3 and KS: the multi-positive infoNCE's gathers and their backward,
+# 3 in each of its 6 calls (the 5 keyframes and their aggregate).  No edge
+# layer of these stages at full width takes the plain route (`plain_edge`).
+EXPECTED_DEFORM = {"K1": 8, "K2": 3, "K3": 0, "K4": 0, "K5": 0, "K6": 4, "KS": 0, "KN": 12,
+                   "KNB": 8, "plain_edge": 0}
+EXPECTED_DEFORM_EXTRACTOR = dict(EXPECTED_DEFORM, K6=8, K3=2, KS=8, KNB=12)
 MOTION_NCE = 18
 RIG_NARROW, SKIN_NARROW = 48, 46
-EXPECTED_MOTION = {"K1": 24, "K2": 0, "K3": MOTION_NCE + RIG_NARROW, "K4": 0, "K5": 0, "K6": 24,
-                   "KS": MOTION_NCE + RIG_NARROW, "narrow": RIG_NARROW, "plain_edge": 0}
-EXPECTED_SKIN = dict(EXPECTED_MOTION, K1=26, K6=26, K3=MOTION_NCE + SKIN_NARROW,
-                     KS=MOTION_NCE + SKIN_NARROW, narrow=SKIN_NARROW)
+EXPECTED_MOTION = {"K1": 24, "K2": 0, "K3": MOTION_NCE, "K4": 0, "K5": 0, "K6": 24,
+                   "KS": MOTION_NCE, "KN": RIG_NARROW, "KNB": RIG_NARROW, "plain_edge": 0}
+EXPECTED_SKIN = dict(EXPECTED_MOTION, K1=26, K6=26, KN=SKIN_NARROW, KNB=SKIN_NARROW)
 MOTION_STEPS = 6          # timed steps after the warm-up in phases 9-11
 
 
 def zero_stage_counts() -> None:
     zero_counts()
     gcu.plain_edge.launches = 0
-    gcu.narrow_edge.launches = 0
 
 
 def read_stage_counts() -> dict:
-    return dict(read_counts(), plain_edge=gcu.plain_edge.launches,
-                narrow=gcu.narrow_edge.launches)
+    return dict(read_counts(), plain_edge=gcu.plain_edge.launches)
 
 
 @contextlib.contextmanager
 def recording_training_calls(calls: dict):
     """Record in `calls` the inputs of the first training edge call of each
-    shape, by wrapping `fused_edge_mlp_trainable` where the edge layers look
-    it up: its forward's (K1, or K5 with its tile: bf16 a and b as the
-    autograd Function rounds them, the tables, the parameters as they were)
-    and, for a call that takes a gradient, also the dout its backward (K6)
-    receives."""
-    original = gcu.fused_edge_mlp_trainable
+    shape, by wrapping `fused_edge_mlp_trainable` and `narrow_edge_trainable`
+    where the edge layers look them up: the forward's (K1, or K5 with its
+    tile: bf16 a and b as the autograd Function rounds them; KN: fp32 a and
+    b, with the reverse table; the tables, the parameters as they were)
+    and, for a call that takes a gradient, also the dout its backward (K6,
+    KNB) receives."""
+    original, narrow = gcu.fused_edge_mlp_trainable, gcu.narrow_edge_trainable
+
+    def record(fwd, bwd, key, args, out, extra):
+        calls.setdefault((fwd,) + key, [fwd, args, None, extra])
+        if out.requires_grad and (bwd,) + key not in calls:
+            entry = calls[(bwd,) + key] = [bwd, args, None, extra]
+            out.register_hook(lambda g, e=entry: e.__setitem__(2, g.detach().float().clone()))
 
     def call(a, b, nbr, mask, *params, **kw):
         out = original(a, b, nbr, mask, *params, **kw)
@@ -1668,18 +1815,22 @@ def recording_training_calls(calls: dict):
         key = (tuple(a.shape), tuple(nbr.shape), tuple(params[0].shape))
         args = (a.detach().to(torch.bfloat16), b.detach().to(torch.bfloat16), nbr, mask,
                 *(p.detach().clone() for p in params))
-        fwd = "K5" if tile_v else "K1"
-        calls.setdefault((fwd,) + key, [fwd, args, None, tile_v])
-        if out.requires_grad and ("K6",) + key not in calls:
-            entry = calls[("K6",) + key] = ["K6", args, None, tile_v]
-            out.register_hook(lambda g, e=entry: e.__setitem__(2, g.detach().float().clone()))
+        record("K5" if tile_v else "K1", "K6", key, args, out, tile_v)
         return out
 
-    gcu.fused_edge_mlp_trainable = call
+    def call_narrow(a, b, nbr, mask, *params, rev=None):
+        out = narrow(a, b, nbr, mask, *params, rev=rev)
+        key = (tuple(a.shape), tuple(nbr.shape), tuple(params[0].shape))
+        args = (a.detach().clone(), b.detach().clone(), nbr, mask,
+                *(p.detach().clone() for p in params))
+        record("KN", "KNB", key, args, out, rev)
+        return out
+
+    gcu.fused_edge_mlp_trainable, gcu.narrow_edge_trainable = call, call_narrow
     try:
         yield calls
     finally:
-        gcu.fused_edge_mlp_trainable = original
+        gcu.fused_edge_mlp_trainable, gcu.narrow_edge_trainable = original, narrow
 
 
 def check_recorded_training(phase: str, calls: dict) -> None:
@@ -1687,11 +1838,20 @@ def check_recorded_training(phase: str, calls: dict) -> None:
     inputs: K1 and K5 within K1_TOL / K1_MEAN_TOL, K5 also equal bit for bit
     to the forward K6 recomputes (the max its route compares against: the
     windowed trainable's invariant), K6's gradients as `k6_agree` holds them
-    (dout from the recorded backward)."""
-    worst, shapes = {"K1": 0.0, "K5": 0.0, "K6": 0.0}, {"K1": [], "K5": [], "K6": []}
+    (dout from the recorded backward); KN and KNB as `narrow_agree` holds
+    them (KN with a zero dout: KNB's recomputed forward against KN's
+    output)."""
+    kernels = ("K1", "K5", "K6", "KN", "KNB")
+    worst, shapes = dict.fromkeys(kernels, 0.0), {k: [] for k in kernels}
     for kernel, args, dout, tile in calls.values():
         where = f"{phase} a {tuple(args[0].shape)} nbr {tuple(args[2].shape)}"
-        if kernel in ("K1", "K5"):
+        if kernel in ("KN", "KNB"):
+            if kernel == "KNB" and dout is None:
+                raise AssertionError(f"{where}: no dout reached the recorded KNB call")
+            e_f, e_b, _ = narrow_agree(args, torch.zeros_like(args[0]) if dout is None else dout,
+                                       tile, where)
+            e = e_f if kernel == "KN" else e_b
+        elif kernel in ("K1", "K5"):
             if kernel == "K1":
                 got, ref = fused_edge_mlp(*args), edge_mlp_plain(*args)
             else:
@@ -1861,12 +2021,12 @@ def train_motion(name: str, stage, batch, dev, profile_phase: bool) -> dict:
 # ---------------------------------------------------------------------------
 
 # Per step: the shape encoder's 6 edge layers (3 GCUs x tpl/geo), the
-# 128-wide 2 through K1 and K6, the 32- and 64-wide 4 narrow (their K3 and
-# KS); the joint-set PointNet++ gathers by plain indexing in training.
+# 128-wide 2 through K1 and K6, the 32- and 64-wide 4 narrow (KN and KNB);
+# the joint-set PointNet++ gathers by plain indexing in training.
 # One eval_step: K1 on all 6 and K3 on every SA grouping and kNN
 # interpolation (BoneNet's joint-set sa1-2; RootNet's sa1-2 and fp2-1, fp3
 # broadcasting).
-EXPECTED_SKEL = {"K1": 2, "K2": 0, "K3": 4, "K4": 0, "K5": 0, "K6": 2, "KS": 4, "narrow": 4,
+EXPECTED_SKEL = {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 2, "KS": 0, "KN": 4, "KNB": 4,
                  "plain_edge": 0}
 SKEL_EVAL = {"K1": 6, "K2": 0, "K4": 0, "K5": 0, "K6": 0, "plain_edge": 0}
 EXPECTED_SKEL_EVAL = {"bone": dict(SKEL_EVAL, K3=2), "root": dict(SKEL_EVAL, K3=4)}
@@ -2446,7 +2606,7 @@ class Tee(io.StringIO):
 
 
 def stage_counts(**per) -> dict:
-    return dict(dict.fromkeys(list(COUNTERS) + ["plain_edge", "narrow"], 0), **per)
+    return dict(dict.fromkeys(list(COUNTERS) + ["plain_edge"], 0), **per)
 
 
 def run_cli(name: str, argv: list, expected: dict, dev) -> tuple[dict, str]:
@@ -2504,7 +2664,7 @@ def cli_phase(dev, edge: int) -> dict:
     motion, motion_eval_k1 = EXPECTED_MOTION, 72
     # joint, mask, bone, root
     capsule_step = {k: 2 * motion.get(k, 0) + 2 * EXPECTED_SKEL.get(k, 0)
-                    for k in ("K1", "K3", "K6", "KS", "narrow")}
+                    for k in ("K1", "K3", "K6", "KS", "KN", "KNB")}
     predict_calls = 2                                        # capsule_predictor's two capsules
     tracked = CLI_TRACK_FRAMES - 1
 
@@ -2518,14 +2678,16 @@ def cli_phase(dev, edge: int) -> dict:
         "eval deform": deform_eval,
         "train joints": stage_counts(K1=2 * motion["K1"] + 2 * motion_eval_k1,
                                      K6=2 * motion["K6"], K3=2 * motion["K3"],
-                                     KS=2 * motion["KS"], narrow=2 * motion["narrow"]),
+                                     KS=2 * motion["KS"], KN=2 * motion["KN"],
+                                     KNB=2 * motion["KNB"]),
         "predict-rig": stage_counts(
             K1=CLI_PREDICT_STEPS * capsule_step["K1"] + predict_calls * edge,
             K6=CLI_PREDICT_STEPS * capsule_step["K6"],
             K2=predict_calls * EXPECTED_KNN_LAUNCHES,
             K3=predict_calls * EXPECTED_GATHER_LAUNCHES + CLI_PREDICT_STEPS * capsule_step["K3"],
             KS=CLI_PREDICT_STEPS * capsule_step["KS"],
-            narrow=CLI_PREDICT_STEPS * capsule_step["narrow"]),
+            KN=CLI_PREDICT_STEPS * capsule_step["KN"],
+            KNB=CLI_PREDICT_STEPS * capsule_step["KNB"]),
         "eval rig": stage_counts(),
         "track": stage_counts(K1=tracked * 20, K2=tracked * EXPECTED_KNN_LAUNCHES, K3=tracked * 6),
         "eval tracking": stage_counts(),
@@ -3306,10 +3468,10 @@ def scanned_phase(dev, rig_ds, skel, profile_phase: bool) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 # every kernel a campaign runs must launch (K1 and K6 in every stage, K2 in
-# the corr and deform stages, K3 and KS in the losses' and the narrow edge
-# layers' gathers), and the narrow route; it passes no edge_tile, so K5
-# stays 0, and no path calls K4
-CAMPAIGN_KERNELS = ("K1", "K2", "K3", "K6", "KS")
+# the corr and deform stages, K3 and KS in the losses' gathers, KN and KNB
+# in the narrow edge layers), and the narrow route; it passes no edge_tile,
+# so K5 stays 0, and no path calls K4
+CAMPAIGN_KERNELS = ("K1", "K2", "K3", "K6", "KS", "KN", "KNB")
 CAMPAIGN_STAGES = ("corr", "deform", "deform_seq", "joints", "mask", "skin", "bone", "root")
 
 
@@ -3374,7 +3536,7 @@ def campaign_phase(dev, after=None) -> tuple[list[dict], list]:
         with recording_kernel_calls(calls), recording_training_calls(tcalls):
             summary, launches = counted_run(lambda: campaign.main(
                 ["--dir", root, "--smoke", "--device", str(dev)]))
-        check_campaign_counts("smoke", launches, CAMPAIGN_KERNELS + ("narrow",))
+        check_campaign_counts("smoke", launches, CAMPAIGN_KERNELS)
         check_recorded("campaign", calls)
         check_recorded_training("campaign", tcalls)
         mean = summary["mean"]
@@ -3564,6 +3726,10 @@ SOURCES = {
     "KS": ("cuda", "morig_tpu_torch/csrc/row_scatter.cu", "none"),
     # the port's own: XLA's products on a TPU do not depend on the batch
     "KG": ("cuda", "morig_tpu_torch/csrc/gemm_f32.cu", "none"),
+    # the port's own: the JAX package trains these layers on XLA's fusions
+    # of its fp32 tail (morig_tpu/nn/gcu.py:316-320), no Pallas kernel
+    "KN": ("cuda", "morig_tpu_torch/csrc/narrow_edge.cu", "none"),
+    "KNB": ("cuda", "morig_tpu_torch/csrc/narrow_edge.cu", "none"),
 }
 
 
@@ -3598,6 +3764,7 @@ def main(profile_phase: bool = False):
                "K5": check_k5(dev, mesh_bt, stack_meshes(entries)),
                "K6": check_k6(dev, batch.mesh), "KS": check_scatter(dev, batch.mesh),
                "KG": check_kg(dev)}
+    results["KN"], results["KNB"] = check_kn(dev, batch.mesh)
     check_k1_training(dev, batch.mesh)
     st = PROFILER_STATS
     print(f"profiler: {st['timings']} device timings, {st['retried']} taken again, "
@@ -3669,8 +3836,7 @@ def main(profile_phase: bool = False):
         n = sum(c.get(name, 0) for c in runs)
         kernels.append({"name": name, "route": route, "source": src, "replaces": rep,
                         "launches": n, **results[name].json()})
-    narrow = sum(c.get("narrow", 0) for c in runs)
-    print(f"seconds by phase: {seconds}; narrow edge-layer calls (training) {narrow}")
+    print(f"seconds by phase: {seconds}")
     print(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,8 +10,9 @@
 //   out[v] = max_{d valid} LN2(relu(LN1(relu(a[v] + b[nbr[v,d]])) @ W2 + b2))
 //
 // and 0 where no edge is valid.  a, b arrive in bf16; the W2 product takes
-// bf16 operands with fp32 accumulation; both LayerNorms are fp32 with var =
-// E[x^2] - E[x]^2, eps 1e-6, over the true width.  K5 reads the neighbour row
+// bf16 operands with fp32 accumulation; both LayerNorms are fp32, eps 1e-6,
+// over the true width, two-pass at H = 128 and 256 and one-pass below, as
+// the JAX package's kernels (edge_wgmma.cuh `kTwoPass`).  K5 reads the neighbour row
 // from its vertex tile's window: for tile i of TV rows (NB tiles) the 3*TV
 // rows from ws = clip(i-1, 0, NB-3)*TV; a neighbour outside it reads a zero
 // row, as the TPU kernel's one-hot finds no hit there.

@@ -19,10 +19,13 @@
 // the A operand and the accumulator, so LN1, LN2 and the masked max need no
 // shared memory: a row's statistics are summed over the 4 lanes of a quad
 // (and, where two warpgroups split the columns, with the other warpgroup's
-// through a 64-row exchange).  LayerNorms are fp32 with var = max(E[x^2] -
-// E[x]^2, 0), eps 1e-6, over the true width.  A slab in which no vertex of
-// the unit has a valid edge is skipped, and so is every slab of a unit
-// without one (its rows are 0).  Where two warpgroups share a unit's rows
+// through a 64-row exchange).  LayerNorms are fp32, eps 1e-6, over the true
+// width, with the JAX package's statistics for it (`kTwoPass`): at H = 128
+// and 256, where its kernels run unpadded, the two-pass variance
+// mean((x - mu)^2) (a second statistics pass over the row once mu is
+// known); below, where they run lane-padded, max(E[x^2] - E[x]^2, 0).  A
+// slab in which no vertex of the unit has a valid edge is skipped, and so
+// is every slab of a unit without one (its rows are 0).  Where two warpgroups share a unit's rows
 // and split its output columns (kSplit, H = 256: 128 accumulators and 128
 // running maxima per thread would not fit in registers), each builds LN1
 // for half of the k-chunks and the two trade their fragments through
@@ -163,6 +166,11 @@ __device__ __forceinline__ float quad_sum(float x) {
   return __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
+// Whether a LayerNorm over H values takes the two-pass variance
+// (kernels/edge_fused.py `two_pass`).
+template <int H>
+constexpr bool kTwoPass = H >= 128;
+
 // A LayerNorm's statistics over H values (a power of two, so that a product
 // with 1 / H is the quotient by H exactly) from their sum s and sum of
 // squares s2: mu, and inv = rsqrt(max(E[x^2] - mu^2, 0) + eps).
@@ -172,6 +180,33 @@ __device__ __forceinline__ void ln_mu_inv(float s, float s2, float& mu, float& i
   constexpr float kInvH = 1.f / H;
   mu = __fmul_rn(s, kInvH);
   inv = rsqrtf(__fadd_rn(fmaxf(__fmaf_rn(-mu, mu, __fmul_rn(s2, kInvH)), 0.f), kEps));
+}
+
+// The two-pass form: mu from the sum s, then inv = rsqrt(ss / H + eps) from
+// ss, the sum of (x - mu)^2.
+template <int H>
+__device__ __forceinline__ float ln_mu(float s) {
+  return __fmul_rn(s, 1.f / H);
+}
+template <int H>
+__device__ __forceinline__ float ln_inv(float ss) {
+  return rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / H), kEps));
+}
+
+// One component (0: .x, 1: .y) of a row's partial statistics traded with the
+// other warpgroup's half through ex ([2][64] float2, under one block
+// barrier): this thread's rows r and r + 8 (quad lane 0 writes), then the
+// other half's added in.
+__device__ __forceinline__ void trade_half(float2* ex, int g, int r, int q, int comp,
+                                           float (&v)[2]) {
+  float* e = reinterpret_cast<float*>(ex);
+  if (q == 0) {
+    e[2 * (g * kUnit + r) + comp] = v[0];
+    e[2 * (g * kUnit + r + 8) + comp] = v[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) v[h] = __fadd_rn(v[h], e[2 * ((1 - g) * kUnit + r + 8 * h) + comp]);
 }
 
 // (x - mu) * inv, and its affine output xn * g + be.
@@ -273,9 +308,10 @@ __device__ __forceinline__ void relu_sum(const __nv_bfloat16* __restrict__ ar,
 // row's, or one warpgroup's half), into the fragments of k-chunks p0 P/4 ...
 // a*: the vertex's row of a (read only when valid); b*: the neighbour's row
 // of b, or nullptr for a zero row.  Two passes over the row (statistics,
-// then values) keep only the fragments in registers; with `stat` ([2][64]
-// float2, under one block barrier) each row's statistics are summed with
-// the other warpgroup's half; mu and inv get each row's statistics.  Lane
+// then values; three with the two-pass variance) keep only the fragments in
+// registers; with `stat` ([2][64] float2, under one block barrier, two with
+// the two-pass variance) each row's statistics are summed with the other
+// warpgroup's half; mu and inv get each row's statistics.  Lane
 // q's piece p is columns (4p + q) P .. (P = 8, or 4 at H=16), so a quad
 // reads 4P contiguous values of a row per load; where a row's parity (sw_lo,
 // sw_hi: the parity of its vertex, r & 1 in K1 and K5) is odd, its quad
@@ -302,6 +338,8 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
     return (4 * (p0 + (NPX > 1 ? p ^ sw[h] : p)) + q) * P;
   };
 
+  // pass 1: each row's sum (and, one-pass, its sum of squares); two-pass,
+  // once mu is known, a second pass sums (x - mu)^2
   float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
   for (int p = 0; p < NPX; ++p) {
@@ -314,30 +352,56 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
 #pragma unroll
       for (int e = 0; e < P; ++e) {
         s[h] = __fadd_rn(s[h], t[e]);
-        s2[h] = __fmaf_rn(t[e], t[e], s2[h]);
+        if constexpr (!kTwoPass<H>) s2[h] = __fmaf_rn(t[e], t[e], s2[h]);
       }
     }
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     s[h] = quad_sum(s[h]);
-    s2[h] = quad_sum(s2[h]);
+    if constexpr (!kTwoPass<H>) s2[h] = quad_sum(s2[h]);
   }
-  if (stat != nullptr) {
-    if (q == 0) {
-      stat[g * kUnit + r] = make_float2(s[0], s2[0]);
-      stat[g * kUnit + r + 8] = make_float2(s[1], s2[1]);
-    }
-    __syncthreads();
+  if constexpr (kTwoPass<H>) {
+    if (stat != nullptr) trade_half(stat, g, r, q, 0, s);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float2 o = stat[(1 - g) * kUnit + r + 8 * h];
-      s[h] = __fadd_rn(s[h], o.x);
-      s2[h] = __fadd_rn(s2[h], o.y);
+    for (int h = 0; h < 2; ++h) mu[h] = ln_mu<H>(s[h]);
+#pragma unroll
+    for (int p = 0; p < NPX; ++p) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!ok[h]) continue;
+        const int col = piece_col(p, h);
+        float t[P];
+        relu_sum<P>(ar[h] + col, br[h] != nullptr ? br[h] + col : nullptr, t);
+#pragma unroll
+        for (int e = 0; e < P; ++e) {
+          const float dv = __fsub_rn(t[e], mu[h]);
+          s2[h] = __fmaf_rn(dv, dv, s2[h]);
+        }
+      }
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) s2[h] = quad_sum(s2[h]);
+    if (stat != nullptr) trade_half(stat, g, r, q, 1, s2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = ln_inv<H>(s2[h]);
+  } else {
+    if (stat != nullptr) {
+      if (q == 0) {
+        stat[g * kUnit + r] = make_float2(s[0], s2[0]);
+        stat[g * kUnit + r + 8] = make_float2(s[1], s2[1]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 o = stat[(1 - g) * kUnit + r + 8 * h];
+        s[h] = __fadd_rn(s[h], o.x);
+        s2[h] = __fadd_rn(s2[h], o.y);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ln_mu_inv<H>(s[h], s2[h], mu[h], inv[h]);
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) ln_mu_inv<H>(s[h], s2[h], mu[h], inv[h]);
   // pass 2: each row's normalised values of the piece at p's load (piece
   // p ^ sw where pieces pair up), packed as fragments
   auto pack_piece = [&](int p, uint32_t (&pk)[CP][4]) {
@@ -401,7 +465,8 @@ __device__ __forceinline__ void ln1_pieces(const __nv_bfloat16* __restrict__ a_l
 // statistics of the thread's rows r (lo) and r + 8 (hi).  With kSplit the
 // two warpgroups of the block hold the two column halves of the same rows,
 // and each row's statistics are the sum of both halves', exchanged through
-// red ([2][64] float2) under one block barrier.  K1 and K6 both call this,
+// red ([2][64] float2) under one block barrier (two, for the sum and then
+// the sum of squared deviations, with the two-pass variance).  K1 and K6 both call this,
 // then `ln_affine(t, mu, inv, g2, be2)` per element: the output bits K6's
 // route compares.
 template <int H, int NW, bool kSplit>
@@ -409,6 +474,39 @@ __device__ __forceinline__ void ln2_stats(float (&acc)[NW / 2], const Vecs<H>& v
                                           int r, int wg, float2* red, float (&mu)[2],
                                           float (&inv)[2]) {
   const float* b2 = vec.b2() + n0 + 2 * q;
+  if constexpr (kTwoPass<H>) {
+    float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NW / 8; ++i) {
+      const float2 bb = *reinterpret_cast<const float2*>(b2 + 8 * i);
+      acc[4 * i] = fmaxf(__fadd_rn(acc[4 * i], bb.x), 0.f);
+      acc[4 * i + 1] = fmaxf(__fadd_rn(acc[4 * i + 1], bb.y), 0.f);
+      acc[4 * i + 2] = fmaxf(__fadd_rn(acc[4 * i + 2], bb.x), 0.f);
+      acc[4 * i + 3] = fmaxf(__fadd_rn(acc[4 * i + 3], bb.y), 0.f);
+      s[0] = __fadd_rn(s[0], __fadd_rn(acc[4 * i], acc[4 * i + 1]));
+      s[1] = __fadd_rn(s[1], __fadd_rn(acc[4 * i + 2], acc[4 * i + 3]));
+    }
+    s[0] = quad_sum(s[0]);
+    s[1] = quad_sum(s[1]);
+    if constexpr (kSplit) trade_half(red, wg, r, q, 0, s);
+    mu[0] = ln_mu<H>(s[0]);
+    mu[1] = ln_mu<H>(s[1]);
+#pragma unroll
+    for (int i = 0; i < NW / 8; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float d0 = __fsub_rn(acc[4 * i + 2 * h], mu[h]);
+        const float d1 = __fsub_rn(acc[4 * i + 2 * h + 1], mu[h]);
+        ss[h] = __fadd_rn(ss[h], __fmaf_rn(d0, d0, __fmul_rn(d1, d1)));
+      }
+    }
+    ss[0] = quad_sum(ss[0]);
+    ss[1] = quad_sum(ss[1]);
+    if constexpr (kSplit) trade_half(red, wg, r, q, 1, ss);
+    inv[0] = ln_inv<H>(ss[0]);
+    inv[1] = ln_inv<H>(ss[1]);
+    return;
+  }
   float s_lo = 0.f, s2_lo = 0.f, s_hi = 0.f, s2_hi = 0.f;
 #pragma unroll
   for (int i = 0; i < NW / 8; ++i) {

@@ -12,7 +12,8 @@
 // row gathers) and the db_table sum of the edge backward K6
 // (csrc/edge_mlp_bwd.cu), whose main kernel writes each valid edge's
 // bf16(dx) row to a per-edge buffer for it (launched there as
-// edge_db_sum_kernel, the same sum under K6's own name).  On the TPU neither needs it:
+// edge_db_sum_kernel, the same sum under K6's own name), and of KNB
+// (csrc/narrow_edge.cu) over its fp32 dx rows (as narrow_db_sum_kernel).  On the TPU neither needs it:
 // the JAX package's K6 accumulates db_table in a VMEM block over a grid that
 // runs in order, and XLA's scatter-add on a TPU is sequential; on the card
 // an atomic scatter adds in an order that changes from run to run.
@@ -192,14 +193,23 @@ __global__ void __launch_bounds__(256, 4) row_scatter_kernel(
   scatter_rows_in_order<T, VEC, G>(rows, order, offsets, out, R, C, passes);
 }
 
-// The same sum under a name of its own, launched for K6's db_table, so that a
-// profile tells K6's time from the scatters of `scatter_rows`.
+// The same sum under names of their own, launched for K6's db_table (bf16
+// rows) and KNB's (fp32 rows, csrc/narrow_edge.cu), so that a profile tells
+// their time from the scatters of `scatter_rows`.
 template <bool VEC, int G>
 __global__ void __launch_bounds__(256, 4) edge_db_sum_kernel(
     const __nv_bfloat16* __restrict__ rows, const long long* __restrict__ order,
     const long long* __restrict__ offsets, float* __restrict__ out, long long R, int C,
     int passes) {
   scatter_rows_in_order<__nv_bfloat16, VEC, G>(rows, order, offsets, out, R, C, passes);
+}
+
+template <bool VEC, int G>
+__global__ void __launch_bounds__(256, 4) narrow_db_sum_kernel(
+    const float* __restrict__ rows, const long long* __restrict__ order,
+    const long long* __restrict__ offsets, float* __restrict__ out, long long R, int C,
+    int passes) {
+  scatter_rows_in_order<float, VEC, G>(rows, order, offsets, out, R, C, passes);
 }
 
 struct Args {
@@ -212,15 +222,18 @@ struct Args {
   cudaStream_t stream;
 };
 
+// edge_db: an edge backward's db_table, K6's (bf16 rows) or KNB's (fp32)
 template <typename T, bool VEC, int G>
 void launch(const Args& a, bool edge_db) {
   const T* rows = static_cast<const T*>(a.rows);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (edge_db) {
+  if (edge_db) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
       edge_db_sum_kernel<VEC, G><<<a.grid, a.threads, 0, a.stream>>>(
           rows, a.order, a.offsets, a.out, a.R, a.C, a.passes);
-      return;
-    }
+    else
+      narrow_db_sum_kernel<VEC, G><<<a.grid, a.threads, 0, a.stream>>>(
+          rows, a.order, a.offsets, a.out, a.R, a.C, a.passes);
+    return;
   }
   row_scatter_kernel<T, VEC, G><<<a.grid, a.threads, 0, a.stream>>>(
       rows, a.order, a.offsets, a.out, a.R, a.C, a.passes);
@@ -244,8 +257,9 @@ bool launch_group(const Args& a, bool edge_db, int group) {
 
 // rows (E, C) fp32 (bf16 = 0) or bf16 (bf16 = 1); order (N) int64, entries
 // in [0, E); offsets (R + 1) int64, non-decreasing from 0 to at most N;
-// out (R, C) fp32.  edge_db = 1 (bf16 rows only) launches the sum as
-// edge_db_sum_kernel, K6's db_table.  The plan (gather_fused.py
+// out (R, C) fp32.  edge_db = 1 launches the sum under an edge backward's
+// name: edge_db_sum_kernel for bf16 rows (K6's db_table),
+// narrow_db_sum_kernel for fp32 rows (KNB's).  The plan (gather_fused.py
 // `plan_scatter`): vec = 1 for the 16-byte route (C x the element size a
 // multiple of 16, rows 16-byte aligned), 0 for the scalar one; group lanes
 // per target row; passes over the row's channels; threads per block; grid.
@@ -259,7 +273,7 @@ extern "C" int row_scatter(const void* rows, int bf16, int edge_db, const void* 
   const bool bad_vec =
       vec && ((C * esize) % 16 != 0 || reinterpret_cast<uintptr_t>(rows) % 16 != 0);
   const long long lanes = vec ? C * esize / 16 : C;
-  if ((edge_db && !bf16) || bad_vec || threads < 32 || threads > 256 || threads % 32 != 0 ||
+  if (bad_vec || threads < 32 || threads > 256 || threads % 32 != 0 ||
       static_cast<long long>(passes) * group < lanes ||
       static_cast<long long>(grid) * threads < R * group)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -78,6 +78,17 @@ class Rig:
                     q[j] = q[p] + G[p] @ off[j]
         return G, q
 
+    def global_transforms_homogeneous(self, local_rots=None, root_trans=None) -> np.ndarray:
+        """(J,4,4) homogeneous global transforms of `fk`: rotation block and
+        joint position; the rest pose (identity local rotations) by default."""
+        if local_rots is None:
+            local_rots = np.repeat(np.eye(3)[None], self.num_joints, 0)
+        G, q = self.fk(local_rots, root_trans)
+        out = np.repeat(np.eye(4)[None], self.num_joints, 0)
+        out[:, :3, :3] = G
+        out[:, :3, 3] = q
+        return out
+
     def save(self, path: str) -> None:
         root = self.root_id
         with open(path, "w") as f:

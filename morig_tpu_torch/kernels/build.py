@@ -50,6 +50,12 @@ _SIGNATURES = {
     "knn_topk": [_P] * 5 + [_I] * 5 + [_P],
     # values, idx, out, B, N, M, C, vec, stream
     "gather_rows_forward": [_P] * 3 + [_I] * 5 + [_P],
+    # a, b, nbr, mask, w2, vecs, out, B, V, D, H, stream
+    "narrow_edge_forward": [_P] * 7 + [_I] * 4 + [_P],
+    # B, V, D, out grid
+    "narrow_edge_backward_grid": [_I] * 3 + [ctypes.POINTER(_I)],
+    # a, b, nbr, mask, w2, vecs, dout, da, dxe, part, sums, ymax, B, V, D, H, grid, stream
+    "narrow_edge_backward": [_P] * 12 + [_I] * 5 + [_P],
     # rows, bf16, edge_db, order, offsets, out, R, C, then the plan
     # (kernels/gather_fused.py `plan_scatter`): vec, group, passes, threads,
     # grid; stream

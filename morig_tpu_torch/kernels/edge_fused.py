@@ -7,7 +7,10 @@ Per vertex v over its D table edges:
 
 and 0 where no edge of v is valid.  a and b arrive rounded to bf16; the W2
 product takes bf16 operands with fp32 accumulation; both LayerNorms run in
-fp32 (eps 1e-6, variance E[x^2] - E[x]^2) over the true width.
+fp32 (eps 1e-6) over the true width, with the JAX package's statistics for
+each width (`ln_parts`): at 128 and 256, where its kernels run unpadded, the
+two-pass variance mean((x - mu)^2) of its `_ln`; at 16, 32 and 64, where they
+run lane-padded to 128 with the true width given, max(E[x^2] - E[x]^2, 0).
 
 K1 (`fused_edge_mlp`, the serving call and the training forward) reads each
 neighbour row from the whole table; K5 (`fused_edge_mlp_windowed`) reads it
@@ -34,30 +37,44 @@ import torch
 
 from morig_tpu_torch.kernels import build as kb
 from morig_tpu_torch.kernels.gather_fused import (reverse_table, row_scatter_launch,
-                                                  scatter_rows_plain)
+                                                  row_scatter_plain, scatter_rows_plain)
 
 LN_EPS = 1e-6
 MAX_DEGREE = 16
 WIDTHS = (16, 32, 64, 128, 256)
 
 
-def _ln_parts(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def two_pass(h: int) -> bool:
+    """Whether the edge kernels' LayerNorms over width h take the two-pass
+    variance: the JAX package runs its Pallas kernels unpadded from 128
+    (`_ln` with no true width, two-pass) and lane-padded below (one-pass)."""
+    return h >= 128
+
+
+def ln_parts(h: torch.Tensor, two: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(xn, inv) of an fp32 LayerNorm over the last axis: inv = rsqrt(var +
-    eps) with var = max(E[x^2] - E[x]^2, 0), xn = (h - mu) * inv."""
+    eps), xn = (h - mu) * inv, with var = mean((h - mu)^2) where `two` (the
+    JAX package's `_ln` without a true width: the XLA tail and the unpadded
+    kernels) and max(E[x^2] - E[x]^2, 0) otherwise (flax's LayerNorm, the
+    padded kernels)."""
     h = h.float()
     mu = h.mean(-1, keepdim=True)
-    var = torch.clamp((h * h).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    if two:
+        var = ((h - mu) * (h - mu)).mean(-1, keepdim=True)
+    else:
+        var = torch.clamp((h * h).mean(-1, keepdim=True) - mu * mu, min=0.0)
     inv = torch.rsqrt(var + LN_EPS)
     return (h - mu) * inv, inv
 
 
-def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """fp32 LayerNorm over the last axis with flax's statistics: var =
-    max(E[x^2] - E[x]^2, 0), eps 1e-6."""
-    return _ln_parts(h)[0] * scale + bias
+def layer_norm(h: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               two: bool = False) -> torch.Tensor:
+    """fp32 LayerNorm over the last axis, eps 1e-6: flax's one-pass
+    statistics, or the two-pass ones with `two` (`ln_parts`)."""
+    return ln_parts(h, two)[0] * scale + bias
 
 
-def _ln_bwd(dy, scale, xn, inv):
+def ln_bwd(dy, scale, xn, inv):
     """Gradient with respect to a LayerNorm's input given its output's."""
     dxn = dy * scale
     m1 = dxn.mean(-1, keepdim=True)
@@ -66,10 +83,11 @@ def _ln_bwd(dy, scale, xn, inv):
 
 
 def _tail_plain(a, gathered, mask, w2, b2, g1, be1, g2, be2):
+    two = two_pass(w2.shape[0])
     h = torch.relu(a.float()[:, :, None, :] + gathered)
-    h = layer_norm(h, g1, be1)
+    h = layer_norm(h, g1, be1, two)
     h2 = torch.matmul(h.to(torch.bfloat16).float(), w2.to(torch.bfloat16).float()) + b2
-    h2 = layer_norm(torch.relu(h2), g2, be2)
+    h2 = layer_norm(torch.relu(h2), g2, be2, two)
     h2 = torch.where(mask[..., None], h2, torch.full_like(h2, -1e30))
     out = h2.max(dim=2).values
     return torch.where(mask.any(dim=2)[..., None], out, torch.zeros_like(out))
@@ -233,31 +251,49 @@ fused_edge_mlp_windowed.launches = 0
 # K6: the backward of K1, and the trainable tail
 # ---------------------------------------------------------------------------
 
-def _bwd_plain_parts(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: bool = False):
+def relu_grad(x: torch.Tensor) -> torch.Tensor:
+    """jnp.maximum(x, 0)'s derivative: 1 above 0, 1/2 at exactly 0, else 0."""
+    return (x > 0).float() + 0.5 * (x == 0).float()
+
+
+def _bwd_plain_parts(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, dout, precise: bool = False,
+                     two: bool | None = None, relu_half: bool = False, rev=None):
     """`edge_mlp_bwd_plain`'s gradients and its per-edge h and ds (B,V,D,H),
-    rounded as the products take them."""
+    rounded as the products take them.  `two`: the LayerNorms' two-pass
+    statistics (default `two_pass(H)`); `relu_half`: each ReLU's derivative
+    1/2 at exactly 0 (`relu_grad`, jnp.maximum's) instead of 0; `rev`: the
+    table's reverse table, over which db_table sums the per-edge rows in
+    their flat (b, v, d) order (`row_scatter_plain`)."""
     mx = torch.float32 if precise else torch.bfloat16
 
     def rnd(t):
         return t.to(mx).float()
 
+    def relu_bwd(x, g):
+        return g * relu_grad(x) if relu_half else torch.where(x > 0, g, torch.zeros_like(x))
+
     a, b = rnd(a), rnd(b)
+    two = two_pass(w2.shape[0]) if two is None else two
     x = a[:, :, None, :] + _gather(b, nbr)                       # (B,V,D,H1)
-    xn1, inv1 = _ln_parts(torch.relu(x))
+    xn1, inv1 = ln_parts(torch.relu(x), two)
     h = xn1 * g1 + be1
     s = torch.matmul(rnd(h), rnd(w2)) + b2
-    xn2, inv2 = _ln_parts(torch.relu(s))
+    xn2, inv2 = ln_parts(torch.relu(s), two)
     y = xn2 * g2 + be2
     best = torch.where(mask[..., None], y, torch.full_like(y, -1e30)).max(dim=2, keepdim=True)
     eq = (mask[..., None] & (y == best.values)).float()
     dout = dout.float()
     dout = torch.where(mask.any(dim=2)[..., None], dout, torch.zeros_like(dout))
     dy = eq * (dout[:, :, None, :] / eq.sum(2, keepdim=True).clamp(min=1.0))
-    ds = torch.where(s > 0, _ln_bwd(dy, g2, xn2, inv2), torch.zeros_like(s))
+    ds = relu_bwd(s, ln_bwd(dy, g2, xn2, inv2))
     dh = torch.matmul(rnd(ds), rnd(w2).t())
     dw2 = torch.einsum("bvdi,bvdo->io", rnd(h), rnd(ds))
-    dx = torch.where(x > 0, _ln_bwd(dh, g1, xn1, inv1), torch.zeros_like(x))
-    db = scatter_rows_plain(nbr, rnd(dx), b.shape[1])
+    dx = relu_bwd(x, ln_bwd(dh, g1, xn1, inv1))
+    B, V, D, H = dx.shape
+    if rev is None:
+        db = scatter_rows_plain(nbr, rnd(dx), V)
+    else:
+        db = row_scatter_plain(rnd(dx).reshape(-1, H), *rev, B * V).reshape(B, V, H)
     dims = (0, 1, 2)
     grads = (dx.sum(2), db, dw2, ds.sum(dims), (dh * xn1).sum(dims), dh.sum(dims),
              (dy * xn2).sum(dims), dy.sum(dims))

@@ -147,16 +147,14 @@ def row_scatter_plain(rows, order, offsets, n_out: int) -> torch.Tensor:
 def row_scatter_launch(rows, order, offsets, n_out: int, edge_db: bool = False) -> torch.Tensor:
     """One launch of the ordered row scatter on the card: rows (E, C) fp32 or
     bf16, a reverse table, -> (n_out, C) fp32, launched as `plan_scatter`
-    says.  `edge_db` (bf16 rows): the launch K6 makes for its db_table,
-    under a kernel name of its own.  Uncounted: its callers count
-    (`scatter_rows`, and K6 as one of its launches).  On a CPU tensor
-    `row_scatter_plain`."""
+    says.  `edge_db`: the launch an edge backward makes for its db_table,
+    under a kernel name of its own (K6's for bf16 rows, KNB's for fp32).
+    Uncounted: its callers count (`scatter_rows`, and K6 and KNB as one of
+    their launches).  On a CPU tensor `row_scatter_plain`."""
     if not rows.is_cuda:
         return row_scatter_plain(rows, order, offsets, n_out)
     if rows.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"row scatter takes fp32 or bf16 rows, got {rows.dtype}")
-    if edge_db and rows.dtype != torch.bfloat16:
-        raise TypeError("K6's db_table sum takes bf16 rows")
     if offsets.numel() != n_out + 1 or rows.dim() != 2:
         raise ValueError("row scatter: (E, C) rows and n_out + 1 offsets")
     for t in (order, offsets):

@@ -23,9 +23,8 @@ tests/test_torch_gemm_plan.py -q` holds the planner on the CPU; on the card
 `python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q -k gemm`
 holds the kernel, and `chip_smoke.py`'s phase 3 (`check_kg`) times it.
 
-`linear` (nn.mlp.Dense's fp32 x @ W^T + b, the local product of
-parallel/mesh.py `tp_linear`, and the W2 product of the edge layers' fp32
-training tail, nn.gcu `narrow_edge`) and `bmm` (a batch of products, each sample
+`linear` (nn.mlp.Dense's fp32 x @ W^T + b and the local product of
+parallel/mesh.py `tp_linear`) and `bmm` (a batch of products, each sample
 its own) take KG on the card in the forward and for the gradients of their
 activations; `dot_last` takes it for a per-sample sum of products over the
 last axis (a masked mean's numerator), which PyTorch's reduction splits

@@ -17,11 +17,13 @@ batch carries an `edge_tile`, and K6 backward on the whole table either way
 K6's max routing needs; K6 sums db_table over the reverse table the batch
 holds, `MeshBatch.tpl_rev`): the JAX package's `set_edge_impl("fused")` and
 `set_edge_impl("windowed")` training.  Every narrower layer trains on the
-JAX package's fp32 XLA tail, `narrow_edge`, with no bf16 rounding and no
+JAX package's fp32 XLA tail, `narrow_edge_trainable`, with no bf16 rounding and no
 windowing: relu(a + gather(b)), LayerNorm, relu(h W2 + b2), LayerNorm,
-masked max, on the port's own kernels (K3 forward and the ordered scatter
-KS backward over the batch's reverse table for the gather, KG for the W2
-product as for every fp32 Dense), so a step still repeats bit for bit.  JAX's other gates are not
+masked max, with the tail's two-pass LayerNorm statistics and the gradient
+JAX's autodiff gives it (relu'(0) = 1/2), fused into the port's kernel pair
+KN forward and KNB backward (kernels/narrow_edge.py; KNB's db_table summed
+over the batch's reverse table by the ordered row scatter), so a step
+still repeats bit for bit.  JAX's other gates are not
 carried: its VMEM budgets model the TPU's scoped memory, and its rule that
 V be a multiple of its 256-vertex tile holds for every bucket the port's
 datasets pad to (256, 512, 1024, 2048, 4096, 8192: data/pose.py,
@@ -29,10 +31,10 @@ data/rig.py, data/creature.py; serving's 1536 too).
 
 A layer whose widths the kernels do not take (`kernel_widths` false: the
 narrow layers of a net built with a small `width_scale`) runs K1's plain
-version, `plain_edge`, at inference, and `narrow_edge` in training.  The
-choice is made on the widths alone, like the JAX package's `_fusable`, and
-each call of either is counted in `plain_edge.launches` /
-`narrow_edge.launches`.
+version, `plain_edge`, at inference, and `narrow_edge_trainable` in
+training.  The choice is made on the widths alone, like the JAX package's
+`_fusable`; each call of `plain_edge` is counted in `plain_edge.launches`,
+and the narrow route's kernels count their own launches.
 
 In "batch" and "none" norm mode (`nn.mlp.set_default_norm`) an EdgeMLP
 has no LayerNorm tail, so no edge kernel computes it: the JAX package's
@@ -53,9 +55,9 @@ from torch import nn
 from morig_tpu_torch.core.batch import MeshBatch
 from morig_tpu_torch.kernels.edge_fused import (
     WIDTHS, check_neighbor_locality, edge_mlp_plain, fused_edge_mlp, fused_edge_mlp_trainable,
-    fused_edge_mlp_windowed, layer_norm)
-from morig_tpu_torch.kernels.gather_fused import gather_plain, gather_rows_trainable
-from morig_tpu_torch.kernels.gemm import linear
+    fused_edge_mlp_windowed)
+from morig_tpu_torch.kernels.gather_fused import gather_plain
+from morig_tpu_torch.kernels.narrow_edge import narrow_edge_trainable
 from morig_tpu_torch.kernels.neighbors import masked_max
 from morig_tpu_torch.nn.mlp import MLP, Dense, get_default_norm, lecun_normal_
 from morig_tpu_torch.nn.norm import MaskedBatchNorm
@@ -111,28 +113,6 @@ def jax_kernel_widths(h1: int, h2: int) -> bool:
     return h1 >= 128 and h1 % 128 == 0 and h2 % 128 == 0
 
 
-def narrow_edge(a, b, nbr, mask, w2, b2, g1, be1, g2, be2, rev=None):
-    """The training tail of an edge layer below the JAX package's kernel
-    widths, its fp32 XLA tail with no bf16 rounding: relu(a + b[nbr]),
-    LayerNorm, relu(h @ W2 + b2), LayerNorm, the masked max over the table
-    (its gradient split equally among tied maxima, as jnp.max's).  a, b
-    (B,V,H1) fp32; returns (B,V,H2) fp32.  The gather is K3 with the ordered
-    scatter KS as its backward, over `rev` (the table's reverse table, as a
-    MeshBatch holds it; a table built in the backward when None), and the
-    W2 product is `kernels.gemm.linear`, every fp32 Dense's: KG forward and
-    for dh, torch's sum over the rows for the weight's gradient.  No
-    `index_add_` or atomics, so a step repeats bit for bit.  On CPU tensors
-    their plain versions.  Counted in `narrow_edge.launches`."""
-    narrow_edge.launches += 1
-    h = torch.relu(a[:, :, None, :] + gather_rows_trainable(b, nbr, rev))
-    h = layer_norm(h, g1, be1)
-    h = layer_norm(torch.relu(linear(h, w2.t(), b2)), g2, be2)
-    return masked_max(h, mask, dim=2)
-
-
-narrow_edge.launches = 0
-
-
 class EdgeNorm(nn.Module):
     """One post-ReLU norm stage of an edge MLP outside "layer" mode: its
     `bn` in "batch" mode, the identity in "none"."""
@@ -159,7 +139,7 @@ class EdgeMLP(nn.Module):
         self.kernel_route = self.norm == "layer" and kernel_widths(h1, h2)
         # "layer" mode's training route: "kernel" (K1/K5 + K6) at the JAX
         # package's kernel widths where the port's kernels take them,
-        # "narrow" (`narrow_edge`) otherwise
+        # "narrow" (`narrow_edge_trainable`) otherwise
         self.train_route = (None if self.norm != "layer"
                             else "kernel" if self.kernel_route and jax_kernel_widths(h1, h2)
                             else "narrow")
@@ -192,9 +172,9 @@ class EdgeMLP(nn.Module):
         """"layer" mode: at inference K5 at `edge_tile` when given, K1
         otherwise (`plain_edge` at widths the kernels do not take).  In
         training, on fp32 lin_self/lin_nbr, by `train_route`: "kernel" the
-        same forward with K6 backward, "narrow" `narrow_edge` (`edge_tile`
-        unused); K6's db_table and `narrow_edge`'s gather backward sum over
-        `rev`, the table's reverse table, when given.  Other modes: the fp32
+        same forward with K6 backward, "narrow" `narrow_edge_trainable`
+        (KN forward, KNB backward; `edge_tile` unused); K6's and KNB's db_table sum over `rev`, the table's
+        reverse table, when given.  Other modes: the fp32
         tail in PyTorch (`edge_tile` unused)."""
         if self.norm != "layer":
             a = self.lin_self(x)
@@ -208,7 +188,7 @@ class EdgeMLP(nn.Module):
         args = (a, b, nbr, nbr_mask, self.dense_1_kernel, self.dense_1_bias,
                 self.ln0_scale, self.ln0_bias, self.ln1_scale, self.ln1_bias)
         if train and self.train_route == "narrow":
-            return narrow_edge(*args, rev=rev)
+            return narrow_edge_trainable(*args, rev=rev)
         if not self.kernel_route:
             return plain_edge(*args)
         if train:
@@ -219,8 +199,8 @@ class EdgeMLP(nn.Module):
 
 
 def reverse_tables(mesh: MeshBatch, train: bool):
-    """The batch's (tpl, geo) reverse tables, which K6 and `narrow_edge`
-    read in training; (None, None) at inference."""
+    """The batch's (tpl, geo) reverse tables, which K6 and KNB read in
+    training; (None, None) at inference."""
     return (mesh.tpl_rev, mesh.geo_rev) if train else (None, None)
 
 

@@ -33,7 +33,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from morig_tpu_torch.kernels import edge_fused, gather_fused, gemm, knn_fused
+from morig_tpu_torch.kernels import edge_fused, gather_fused, gemm, knn_fused, narrow_edge
 from morig_tpu_torch.nn import gcu
 from morig_tpu_torch.train.trainer import TrainState
 
@@ -41,8 +41,8 @@ from morig_tpu_torch.train.trainer import TrainState
 COUNTED = {"K1": edge_fused.fused_edge_mlp, "K2": knn_fused.knn_batched,
            "K3": gather_fused.gather_rows, "K4": knn_fused.knn_topk,
            "K5": edge_fused.fused_edge_mlp_windowed, "K6": edge_fused.fused_edge_mlp_bwd,
-           "KS": gather_fused.scatter_rows, "KG": gemm.gemm, "plain_edge": gcu.plain_edge,
-           "narrow": gcu.narrow_edge}
+           "KS": gather_fused.scatter_rows, "KG": gemm.gemm, "KN": narrow_edge.narrow_edge_fwd,
+           "KNB": narrow_edge.narrow_edge_bwd, "plain_edge": gcu.plain_edge}
 REPLAYED = dict.fromkeys(COUNTED, 0)
 
 

@@ -39,7 +39,12 @@ the loop bit for bit, and a capture that fails raising; the row-invariant
 product KG against the float64 product, every route and tile its planner
 can be forced to against the planned call bit for bit (K at the chunk's
 edges), halves of its rows and columns against the whole call, and a
-split-route call replayed from a CUDA graph.  Shapes and types a kernel
+split-route call replayed from a CUDA graph; the narrow layers' fp32 tail
+KN and KNB at every width it takes against their plain versions (exact
+ties, KNB's recomputed forward against KN's output bit for bit, repeats,
+batch rows alone against the whole batch, a CUDA-graph replay) and the
+narrow route against the same call on the CPU where the routing cannot
+differ.  Shapes and types a kernel
 does not take raise on a CUDA tensor instead of falling back.
 """
 import math
@@ -236,10 +241,61 @@ def test_edge_mlp_bwd_kernel_matches_plain(cuda, H, D):
     assert (got[0][:, 7] == 0).all() and (got[0][1, -1] == 0).all()   # no valid edge
 
 
-def test_trainable_tail_on_card_matches_cpu_plain(cuda):
-    """Gradients through fused_edge_mlp_trainable (K1 forward, K6 backward)
-    on the card against the same Function on the CPU (plain versions)."""
-    args, dout = _bwd_args(cuda, 128, seed=5)
+# K6 through the trainable on the card against the same Function on the CPU
+# where the routing cannot differ.  Both sides round LN1's output h to bf16
+# from fp32 values summed in another order, and a rare h lands one bf16 ulp
+# apart, which moves its row's s = h W2 + b2 by up to that ulp times |W2|;
+# every other difference is fp32 summation order.  Where such a difference
+# moves an s across 0 (the second ReLU) or reorders a near-tie of the max,
+# that row's gradient takes another route on the card, which at B=2, V=301
+# moves more than K6_FRAC_TOL of db_table's entries at once.  `k6_near_ties`
+# finds, from the forward in float64, the (vertex, channel) entries of dout
+# whose route could differ: the h entries within K6_H_REL (relative, at
+# least 1) of a bf16 rounding boundary, each row's resulting bound on s's
+# change (plus K6_DELTA for the summation order) and the bound it gives on
+# LN2's output; then a channel of a vertex whose maximal edge is not alone
+# within those bounds (exact ties of duplicated neighbours compute alike),
+# or whose possibly maximal edge has an s within its bound of 0.  Those
+# entries' dout is 0 on both sides, at most K6_NEAR_FRAC of the valid
+# vertices' entries.
+K6_DELTA, K6_H_REL, K6_NEAR_FRAC = 1e-5, 1e-5, 0.1
+
+
+def k6_near_ties(args):
+    """(B, V, H) bool, on the CPU: the entries of dout whose gradient route
+    K6 and its plain version could take apart (the rule above)."""
+    a, b, nbr, mask, w2, b2, g1, be1, g2, be2 = (t.detach().cpu() for t in args)
+    a, b, w2 = (t.to(torch.bfloat16).double() for t in (a, b, w2))
+    b2, g1, be1, g2, be2 = (t.double() for t in (b2, g1, be1, g2, be2))
+
+    def ln(x):
+        d = x - x.mean(-1, keepdim=True)
+        inv = torch.rsqrt((d * d).mean(-1, keepdim=True) + ef.LN_EPS)
+        return d * inv, inv
+
+    bsel = torch.arange(a.shape[0])[:, None, None]
+    h = ln((a[:, :, None, :] + b[bsel, nbr]).clamp_min(0))[0] * g1 + be1
+    t = K6_H_REL * h.abs().clamp_min(1.0)
+    step = (h + t).to(torch.bfloat16).double() - (h - t).to(torch.bfloat16).double()
+    s = h.to(torch.bfloat16).double() @ w2 + b2
+    ds = step @ w2.abs() + K6_DELTA * (1 + s.abs())
+    xn2, inv2 = ln(s.clamp_min(0))
+    y = xn2 * g2 + be2
+    dmax = ds.amax(-1, keepdim=True)
+    dy = g2.abs() * inv2 * (ds + dmax + xn2.abs() * inv2 * dmax) + K6_DELTA * (1 + y.abs())
+    valid = mask[..., None]
+    yv = torch.where(valid, y, torch.tensor(float("-inf"), dtype=y.dtype))
+    top = yv.amax(2, keepdim=True)
+    dtop = torch.where(yv == top, dy, torch.zeros_like(dy)).amax(2, keepdim=True)
+    cand = valid & (yv >= top - dy - dtop)
+    relu_near = (s.abs() <= ds).any(-1, keepdim=True)
+    near = (cand & (yv != top)).any(2) | (cand & relu_near).any(2)
+    return near & mask.any(-1)[..., None]
+
+
+def _trainable_card_and_cpu(cuda, args, dout):
+    """The gradients of a, b, W2 and the vectors through
+    fused_edge_mlp_trainable, on the card and on the CPU."""
     a, b, nbr, mask, *params = args
     grads = []
     for dev in (cuda, torch.device("cpu")):
@@ -249,6 +305,35 @@ def test_trainable_tail_on_card_matches_cpu_plain(cuda):
         (out * dout.to(dev)).sum().backward()
         grads.append([t.grad.cpu() for t in leaves])
     torch.cuda.synchronize()
+    return grads
+
+
+def test_trainable_tail_on_card_matches_cpu_plain(cuda):
+    """Gradients through fused_edge_mlp_trainable (K1 forward, K6 backward)
+    on the card against the same Function on the CPU (plain versions), at
+    B=2, V=301 (no multiple of the tile: padded rows), where the routing
+    cannot differ: the dout entries `k6_near_ties` finds are 0 on both
+    sides (at most K6_NEAR_FRAC), then the K6 tolerances.  Without that a
+    single near-tie route flip moves more than K6_FRAC_TOL of db_table's
+    entries here (5 of 64 seeds at 128, tools/torch_k6_flip_probe.py)."""
+    args, dout = _bwd_args(cuda, 128, seed=5)
+    near = k6_near_ties(args)
+    valid = int(args[3].any(-1).sum()) * near.shape[-1]
+    print(f"K6 trainable B=2 V=301: {int(near.sum())} of {valid} dout entries near a tie")
+    assert int(near.sum()) <= K6_NEAR_FRAC * valid
+    grads = _trainable_card_and_cpu(cuda, args, dout * (~near).to(cuda))
+    assert_k6_close(grads[0], grads[1])
+
+
+def test_trainable_tail_on_card_matches_cpu_plain_on_training_tables(cuda):
+    """The same on the training tables (B=4, V=2048 with 1298 valid rows,
+    D=12, neighbour column 1 a copy of column 0) with the whole dout: there
+    K6_FRAC_TOL admits the entries one near-tie route flip moves (K6's rule,
+    chip_smoke.py `k6_agree`)."""
+    args, dout = _training_tables(cuda, 128, 12, seed=5)
+    nbr, mask = args[2], args[3]
+    nbr[:, :, 1], mask[:, :, 1] = nbr[:, :, 0], mask[:, :, 0]
+    grads = _trainable_card_and_cpu(cuda, args, dout)
     assert_k6_close(grads[0], grads[1])
 
 
@@ -593,9 +678,10 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
     the JAX package's training split: the 128-wide feature layers K1 + K6,
     each K1 call held to the plain version and each K6 call, with the dout
     the layer's backward really received, to edge_mlp_bwd_plain by relative
-    L2 (assert_k6_close); the narrower ones `narrow_edge`, each call's
-    output and gradients (with its dout) held to the same call on the CPU
-    (`_narrow_card_against_cpu`)."""
+    L2 (assert_k6_close); the narrower ones `narrow_edge_trainable` (KN +
+    KNB), each
+    call's output and gradients (with its dout) held to the same call on the
+    CPU (`_narrow_card_against_cpu`)."""
     from morig_tpu_torch.data.creature import creature_rig_dataset
     from morig_tpu_torch.nn import gcu
     from morig_tpu_torch.weights import randomize_
@@ -609,7 +695,7 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
     x = torch.randn(*mesh.verts.shape[:2], 4, device=cuda, generator=g)
     w = torch.randn(*mesh.verts.shape[:2], out, device=cuda, generator=g)
     calls, narrow_calls = [], []
-    original, narrow = gcu.fused_edge_mlp_trainable, gcu.narrow_edge
+    original, narrow = gcu.fused_edge_mlp_trainable, gcu.narrow_edge_trainable
 
     def record(a, b, nbr, mask, *params, **kw):
         y = original(a, b, nbr, mask, *params, **kw)
@@ -626,12 +712,11 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
         narrow_calls.append(entry)
         return y
 
-    record_narrow.launches = 0
-    gcu.fused_edge_mlp_trainable, gcu.narrow_edge = record, record_narrow
+    gcu.fused_edge_mlp_trainable, gcu.narrow_edge_trainable = record, record_narrow
     try:
         ((net(mesh.verts, x, mesh, train=True) * w).sum()).backward()
     finally:
-        gcu.fused_edge_mlp_trainable, gcu.narrow_edge = original, narrow
+        gcu.fused_edge_mlp_trainable, gcu.narrow_edge_trainable = original, narrow
     kernel = [out // 2] * 2 if out // 2 >= 128 else []
     assert sorted(args[0].shape[-1] for args, _ in calls) == kernel
     assert sorted(e[0][0].shape[-1] for e in narrow_calls) == sorted(
@@ -645,11 +730,11 @@ def test_gcu_motion_training_kernels_match_plain(cuda, pos_feat, out):
         torch.cuda.synchronize()
     for args, rev, dout in narrow_calls:
         assert dout is not None and torch.isfinite(dout).all()
-        rel, flipped, valid = _narrow_card_against_cpu(cuda, args, rev, dout)
+        rel, near, valid = _narrow_card_against_cpu(cuda, args, rev, dout)
         print(f"narrow_edge H={args[0].shape[-1]} on creature tables: card against CPU, "
-              f"{flipped} of {valid} vertices flipped, relative L2 "
+              f"{near} of {valid} vertices near a tie, relative L2 "
               f"{dict(zip(NARROW_NAMES, rel))}")
-        assert flipped <= NARROW_FLIP_FRAC * valid, (flipped, valid)
+        assert near <= NARROW_NEAR_FRAC * valid, (near, valid)
         assert all(v <= NARROW_TOL for v in rel), rel
 
 
@@ -1588,115 +1673,217 @@ def test_windowed_trainable_launches_k5_and_k6(cuda):
         assert torch.equal(x, y)
 
 
-# narrow_edge on the card against the CPU: both fp32 throughout, KG and
-# torch.matmul summing the products in other orders, so the outputs part in
-# the last bits (measured below 1.8e-7 relative L2).  Where that moves an
-# input of a ReLU across 0 or a near-tie of the max, the card's gradient for
-# that edge and channel takes another route than the CPU's, which moves
-# every gradient a little (that dout reaches W2, b2 and the LayerNorms
-# through another entry): with the whole dout, measured on the H100 da, db
-# 7.9e-5 relative L2 at H = 64 on random tables with no max flipped, all
-# else below 1e-6.  So a call is compared where the routing is the same on
-# both sides: `_narrow_card_against_cpu` finds the vertices whose routing
-# differs (the active entries of both ReLUs and each channel's set of
-# maximal edges, recorded on each side), at most NARROW_FLIP_FRAC of the
-# valid vertices, and holds the output and every gradient with those
-# vertices' dout set to 0 on both sides within NARROW_TOL relative L2.
-NARROW_TOL = 1e-5
-NARROW_FLIP_FRAC = 1e-2
+# The narrow route on the card (KN forward, KNB backward) against the same
+# call on the CPU (their plain versions): both fp32 throughout, the products
+# and the LayerNorm sums in other orders, so the outputs part in the last
+# bits (the composite route before KN/KNB: below 1.8e-7).  Where that moves
+# an input of the second ReLU across 0 or a near-tie of the max, the card's
+# gradient for that edge and channel takes another route than the CPU's,
+# which moves every gradient a little.  So a call is compared where the
+# routing cannot differ: `narrow_edge.near_tie_vertices` finds, from the
+# forward in float64, the vertices with a valid edge whose second ReLU input
+# lies within NARROW_DELTA of 0 or a channel whose two largest distinct
+# values among the valid edges lie within NARROW_DELTA (the first ReLU's
+# input a + b is the same fp32 sum on both sides, and exact ties of
+# duplicated neighbours compute alike); at most NARROW_NEAR_FRAC of the
+# valid vertices (up to
+# 5.1% on the training tables, at H = 8 and D = 16, counted on the CPU),
+# their dout set to 0 on both sides; the output and every gradient then
+# within NARROW_TOL relative L2 (measured up to 4.8e-7 at H = 16-64 on the
+# H100).  At H = 8 a LayerNorm over 8 channels, most of them zeroed by the
+# ReLU before it, can have a variance near 0, where its 1/sigma lifts the
+# two sides' rounding: da and db within NARROW_TOL_8 there (measured 2.3e-5
+# at D = 12).
+NARROW_TOL, NARROW_TOL_8 = 1e-5, 1e-4
+NARROW_DELTA, NARROW_NEAR_FRAC = 1e-5, 0.1
+NARROW_NAMES = ("out", "da", "db", "dw2", "db2", "dg1", "dbe1", "dg2", "dbe2")
+
+
+def narrow_near_ties(args):
+    """`narrow_edge.near_tie_vertices` at NARROW_DELTA, on the CPU."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
+
+    return ne.near_tie_vertices(*(t.detach().cpu() for t in args), delta=NARROW_DELTA)
 
 
 def _narrow_side(dev, args, rev, dout):
-    """One `narrow_edge` call (args: a, b, nbr, mask, w2, b2, g1, be1, g2,
-    be2; rev: its reverse table) on `dev`: (its output and the gradients of
-    a, b, w2, b2, g1, be1, g2, be2, on the CPU; its routing, (B, V, D, H1 +
-    2 H2) bool on the CPU: the entries each ReLU passes, then each channel's
-    maximal edges)."""
-    from morig_tpu_torch.kernels.edge_fused import layer_norm
-    from morig_tpu_torch.kernels.neighbors import masked_max
-    from morig_tpu_torch.nn import gcu
+    """One `narrow_edge_trainable` call (args: a, b, nbr, mask, w2, b2, g1,
+    be1, g2, be2; rev: its reverse table) on `dev`: its output and the
+    gradients of a, b, w2, b2, g1, be1, g2, be2, on the CPU."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
 
     leaves = [t.detach().to(dev).float().requires_grad_() if t.is_floating_point()
               else t.to(dev) for t in args]
-    route = []
-
-    def norm(x, g, b):                    # its input is a ReLU's output
-        route.append(x.detach() > 0)
-        return layer_norm(x, g, b)
-
-    def maximum(x, mask, dim):
-        filled = torch.where(mask[..., None], x.detach(), float("-inf"))
-        route.append(filled == filled.amax(dim, keepdim=True))
-        return masked_max(x, mask, dim)
-
-    mp = pytest.MonkeyPatch()
-    mp.setattr(gcu, "layer_norm", norm)
-    mp.setattr(gcu, "masked_max", maximum)
-    try:
-        out = gcu.narrow_edge(*leaves, rev=tuple(t.to(dev) for t in rev))
-    finally:
-        mp.undo()
+    out = ne.narrow_edge_trainable(*leaves, rev=tuple(t.to(dev) for t in rev))
     out.backward(dout.to(dev))
-    return ([out.detach().cpu()] + [t.grad.cpu() for t in leaves if t.requires_grad],
-            torch.cat(route, -1).cpu())
+    return [out.detach().cpu()] + [t.grad.cpu() for t in leaves if t.requires_grad]
 
 
 def _narrow_card_against_cpu(cuda, args, rev, dout):
-    """`_narrow_side` on the card and on the CPU: (the relative L2 of the
-    output and of each gradient with the flipped vertices' dout at 0 on both
-    sides; the flipped vertices, those whose routing differs; the valid
-    vertices)."""
-    cpu = torch.device("cpu")
-    flipped = (_narrow_side(cuda, args, rev, dout)[1]
-               != _narrow_side(cpu, args, rev, dout)[1]).any(-1).any(-1)
-    kept = dout.cpu() * (~flipped)[..., None]
-    got, ref = _narrow_side(cuda, args, rev, kept)[0], _narrow_side(cpu, args, rev, kept)[0]
+    """`_narrow_side` on the card and on the CPU with the near-tie vertices'
+    dout at 0: (the relative L2 of the output and of each gradient; the
+    near-tie vertices; the valid vertices)."""
+    near = narrow_near_ties(args)
+    kept = dout.cpu() * (~near)[..., None]
+    got, ref = _narrow_side(cuda, args, rev, kept), _narrow_side(torch.device("cpu"), args, rev,
+                                                                 kept)
     rel = [((x - y).norm() / y.norm().clamp_min(1e-30)).item() for x, y in zip(got, ref)]
-    return rel, int(flipped.sum()), int(args[3].any(-1).sum())
+    return rel, int(near.sum()), int(args[3].any(-1).sum())
 
 
-NARROW_NAMES = ("out", "da", "db", "dw2", "db2", "dg1", "dbe1", "dg2", "dbe2")
+def _narrow_counts():
+    from morig_tpu_torch.kernels import gemm
+    from morig_tpu_torch.kernels import narrow_edge as ne
+
+    return (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches, gf.gather_rows.launches,
+            gf.scatter_rows.launches, gemm.gemm.launches, ne.narrow_edge_fwd.launches,
+            ne.narrow_edge_bwd.launches)
+
+
+def _narrow_args(dev, H, D=16, seed=0):
+    """K6's training tables (B=4, V=2048 with 1298 valid rows, degree D)
+    with fp32 a, b and parameters, and a dout."""
+    args, dout = _training_tables(dev, H, D, seed=seed)
+    return tuple(t.float() if t.is_floating_point() else t for t in args), dout
 
 
 @pytest.mark.parametrize("H", [16, 32, 64])
 def test_narrow_edge_on_card_matches_cpu_and_repeats(cuda, H):
-    """`nn.gcu.narrow_edge`, the fp32 training tail of the edge layers
+    """`narrow_edge_trainable`, the fp32 training tail of the edge layers
     narrower than 128, on K6's training tables (B=4, V=2048 with 1298 valid
     rows, D=16) over the table's masked reverse table: twice bit for bit on
-    the card, one K3, one KS and two KG launches a call (the W2 product and
-    its dh; the weight's gradient is torch's, as every Dense's), no K1 or
-    K6; output and every gradient (a, b, W2, b2, both LayerNorms) of the
-    same call on the CPU within NARROW_TOL relative L2 where both route the
-    max alike (`_narrow_card_against_cpu`)."""
-    from morig_tpu_torch.kernels.gemm import gemm
-    from morig_tpu_torch.nn import gcu
+    the card, one KN and one KNB launch a call and no K1, K6, K3, KS or KG;
+    output and every gradient (a, b, W2, b2, both LayerNorms) of the same
+    call on the CPU within NARROW_TOL relative L2 where the routing cannot
+    differ (`_narrow_card_against_cpu`)."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
 
-    args, dout = _training_tables(cuda, H, 16, seed=H)
-    args = tuple(t.float() if t.is_floating_point() else t for t in args)
+    args, dout = _narrow_args(cuda, H, seed=H)
     a, b, nbr, mask, *params = args
     rev = gf.reverse_table(nbr, nbr.shape[1], mask)
     runs = []
     for _ in range(2):
         leaves = [t.detach().clone().requires_grad_() for t in (a, b, *params)]
-        before = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches,
-                  gf.gather_rows.launches, gf.scatter_rows.launches, gemm.launches,
-                  gcu.narrow_edge.launches)
-        out = gcu.narrow_edge(leaves[0], leaves[1], nbr, mask, *leaves[2:], rev=rev)
+        before = _narrow_counts()
+        out = ne.narrow_edge_trainable(leaves[0], leaves[1], nbr, mask, *leaves[2:], rev=rev)
         (out * dout).sum().backward()
         torch.cuda.synchronize()
-        after = (ef.fused_edge_mlp.launches, ef.fused_edge_mlp_bwd.launches,
-                 gf.gather_rows.launches, gf.scatter_rows.launches, gemm.launches,
-                 gcu.narrow_edge.launches)
-        assert tuple(x - y for x, y in zip(after, before)) == (0, 0, 1, 1, 2, 1)
+        assert tuple(x - y for x, y in zip(_narrow_counts(), before)) == (0, 0, 0, 0, 0, 1, 1)
         runs.append([out.detach()] + [t.grad for t in leaves])
     for x, y in zip(*runs):
         assert torch.equal(x, y)
-    rel, flipped, valid = _narrow_card_against_cpu(cuda, args, rev, dout)
+    rel, near, valid = _narrow_card_against_cpu(cuda, args, rev, dout)
     rel = dict(zip(NARROW_NAMES, rel))
-    print(f"narrow_edge H={H}: card against CPU, {flipped} of {valid} vertices flipped, "
+    print(f"narrow_edge H={H}: card against CPU, {near} of {valid} vertices near a tie, "
           f"relative L2 {rel}")
-    assert flipped <= NARROW_FLIP_FRAC * valid, (flipped, valid)
+    assert near <= NARROW_NEAR_FRAC * valid, (near, valid)
     assert all(v <= NARROW_TOL for v in rel.values()), rel
+
+
+@pytest.mark.parametrize("D", [4, 12, 16])
+@pytest.mark.parametrize("H", [8, 16, 32, 64])
+def test_narrow_kernels_match_plain(cuda, H, D):
+    """KN and KNB against their plain versions on the card, on the training
+    tables at degree D with neighbour column 1 a copy of column 0 (exact
+    ties): KN's output within NARROW_TOL relative L2, KNB's recomputed
+    forward equal to KN's output bit for bit (the invariant its route rests
+    on), a second KNB call equal bit for bit, and every gradient within
+    NARROW_TOL relative L2 (NARROW_TOL_8 at H = 8) where the routing cannot
+    differ."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
+
+    args, dout = _narrow_args(cuda, H, D=D, seed=H + D)
+    nbr, mask = args[2].clone(), args[3].clone()
+    nbr[:, :, 1], mask[:, :, 1] = nbr[:, :, 0], mask[:, :, 0]
+    args = args[:2] + (nbr, mask) + args[4:]
+    out = ne.narrow_edge_fwd(*args)
+    grads, fwd = ne.narrow_edge_bwd(*args, dout, return_forward=True)
+    again = ne.narrow_edge_bwd(*args, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd, out)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    ref = ne.narrow_edge_plain(*args)
+    assert ((out - ref).norm() / ref.norm()).item() <= NARROW_TOL
+    near = narrow_near_ties(args).to(cuda)
+    assert int(near.sum()) <= NARROW_NEAR_FRAC * int(mask.any(-1).sum())
+    kept = dout * (~near)[..., None]
+    got, ref = ne.narrow_edge_bwd(*args, kept), ne.narrow_edge_bwd_plain(*args, kept)
+    tol = NARROW_TOL_8 if H == 8 else NARROW_TOL
+    for name, x, y in zip(NARROW_NAMES[1:], got, ref):
+        rel = ((x - y).norm() / y.norm().clamp_min(1e-30)).item()
+        print(f"KNB H={H} D={D} {name}: relative L2 {rel:.3g}")
+        assert torch.isfinite(x).all() and rel <= tol, (name, rel)
+
+
+def test_narrow_kernel_rows_do_not_depend_on_the_batch(cuda):
+    """KN's output, KNB's da and db_table rows of each batch row alone (B =
+    1) equal the whole batch's rows bit for bit: a vertex's rows do not
+    depend on B, on the padding or on the grid (the row invariance of the
+    data-parallel split, parallel/steps.py)."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
+
+    args, dout = _narrow_args(cuda, 64, seed=5)
+    out = ne.narrow_edge_fwd(*args)
+    da, db = ne.narrow_edge_bwd(*args, dout)[:2]
+    for i in range(args[0].shape[0]):
+        part = tuple(t[i:i + 1] if t.dim() == 3 else t for t in args)
+        assert torch.equal(ne.narrow_edge_fwd(*part), out[i:i + 1])
+        got = ne.narrow_edge_bwd(*part, dout[i:i + 1])
+        assert torch.equal(got[0], da[i:i + 1]) and torch.equal(got[1], db[i:i + 1])
+
+
+def test_narrow_kernels_replay_in_a_cuda_graph(cuda):
+    """The narrow tail forward and backward (KN, KNB and its scatter over a
+    given reverse table) captured in one CUDA graph and replayed, on the
+    captured inputs and on new ones copied into them, equal the eager calls
+    bit for bit; the capture counts one KN and one KNB launch."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
+
+    args, dout = _narrow_args(cuda, 32, seed=9)
+    rev = gf.reverse_table(args[2], args[2].shape[1], args[3])
+
+    def step():
+        return (ne.narrow_edge_fwd(*args),) + ne.narrow_edge_bwd(*args, dout, rev=rev)
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (ne.narrow_edge_fwd.launches, ne.narrow_edge_bwd.launches)
+    with torch.cuda.graph(graph):
+        outs = step()
+    assert (ne.narrow_edge_fwd.launches, ne.narrow_edge_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(outs, eager))
+    args[0].copy_(torch.randn_like(args[0]))
+    dout.copy_(torch.randn_like(dout))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(outs, step()))
+
+
+def test_narrow_kernels_refuse_what_they_do_not_take(cuda):
+    """KN and KNB raise on a CUDA tensor at a width outside NARROW_WIDTHS,
+    a degree above 16 or bf16 inputs; nothing falls back to the plain
+    version."""
+    from morig_tpu_torch.kernels import narrow_edge as ne
+
+    args, dout = _narrow_args(cuda, 12, D=4)
+    with pytest.raises(ValueError, match="equal widths"):
+        ne.narrow_edge_fwd(*args)
+    with pytest.raises(ValueError, match="equal widths"):
+        ne.narrow_edge_bwd(*args, dout)
+    args, dout = _narrow_args(cuda, 16, D=4)
+    wide = torch.cat([args[2]] * 5, -1), torch.cat([args[3]] * 5, -1)
+    with pytest.raises(ValueError, match="degree"):
+        ne.narrow_edge_fwd(args[0], args[1], *wide, *args[4:])
+    with pytest.raises(TypeError, match="fp32"):
+        ne.narrow_edge_fwd(args[0].to(torch.bfloat16), *args[1:])
 
 
 def _repro_stages(dev):

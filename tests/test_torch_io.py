@@ -155,6 +155,19 @@ def test_rig_fk_matches_jax():
         np.testing.assert_array_equal(got, ref)
 
 
+def test_rig_global_transforms_homogeneous_match_jax():
+    """The (J,4,4) global transforms, at the rest pose and at random local
+    rotations with a root translation, equal the JAX package's bit for bit."""
+    _, jrig, trig = _capsule_rigs()
+    rng = np.random.default_rng(3)
+    R = np.linalg.qr(rng.normal(size=(trig.num_joints, 3, 3)))[0]
+    rest = trig.global_transforms_homogeneous()
+    np.testing.assert_array_equal(rest, jrig.global_transforms_homogeneous())
+    assert rest.shape == (trig.num_joints, 4, 4) and (rest[:, 3] == [0, 0, 0, 1]).all()
+    np.testing.assert_array_equal(trig.global_transforms_homogeneous(R, np.array([0.1, 0.2, 0.3])),
+                                  jrig.global_transforms_homogeneous(R, np.array([0.1, 0.2, 0.3])))
+
+
 # ---------------------------------------------------------------------------
 # the reference-layout loaders
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's kernel functions (K1 edge MLP, K2 kNN + gather, K3 row gather,
 K4 kNN, K5 windowed edge MLP) against the JAX package's Pallas kernels, run
-in interpret mode on the CPU; the layouts the wgmma kernels read (K1/K5's
+in interpret mode on the CPU (K1 and K5 also where the LayerNorms' inputs
+sit far from 0); the layouts the wgmma kernels read (K1/K5's
 W2, K6's dW2 scratch tiles and dh operand) written out on the CPU, and
 K6's dW2 plain version against the plain backward's dW2.
 
@@ -75,6 +76,47 @@ def test_edge_mlp_matches_pallas_interpret(H, Vn, Dn):
         assert_close(got, ref, atol=2e-2, what=what)
         assert np.abs(got.numpy() - np.asarray(ref)).mean() < 1e-4
     assert (got.numpy()[:, 5] == 0).all() and (got.numpy()[1, 77] == 0).all()
+
+
+# K1 and K5 at the unpadded widths with the LayerNorms' inputs at mean
+# EDGE_OFFSET and spread about 1 (a = EDGE_OFFSET, exact in bf16; b ~ N(0, 1);
+# b2 shifted by EDGE_OFFSET), where the Pallas kernels take the two-pass
+# variance.  Each side resolves such inputs to ~EDGE_OFFSET * 2^-24 in fp32
+# and rounds the LN1 output to bf16, so more elements land a bf16 ulp apart
+# than on centred inputs: measured max 5.7e-3, mean 2.6e-4 (K1, H = 128 and
+# 256), held at 2e-2 and 1e-3; max(E[x^2] - E[x]^2, 0) gives max 0.82, mean
+# 6.2e-2.
+EDGE_OFFSET, OFFSET_MEAN_TOL = 1024.0, 1e-3
+
+
+def _offset(a, vecs):
+    vecs = list(vecs)
+    vecs[0] = vecs[0] + np.float32(EDGE_OFFSET)          # b2
+    return np.full_like(a, EDGE_OFFSET), vecs
+
+
+@pytest.mark.parametrize("H", [128, 256])
+def test_edge_mlp_two_pass_on_offset_inputs_matches_pallas_interpret(H):
+    """K1's and K5's plain versions at H = 128 and 256 against the Pallas
+    kernels (interpret) where both LayerNorms' inputs sit 1024 sigma from
+    0: atol 2e-2, mean error below OFFSET_MEAN_TOL."""
+    a, b, nbr, mask, w2, vecs = _edge_inputs(H, seed=H + 5)
+    a, vecs = _offset(a, vecs)
+    got = _port_edge(a, b, nbr, mask, w2, vecs)
+    j = [jnp.asarray(x) for x in (a, b, nbr, mask, w2, *vecs)]
+    ref = jef.fused_edge_mlp_auto(*j, tile_v=128, interpret=True)
+    assert_close(got, ref, atol=2e-2, what="K1")
+    assert np.abs(got.numpy() - np.asarray(ref)).mean() < OFFSET_MEAN_TOL
+    TV, Vw = 16, 64
+    nbr = _local_nbr(np.random.default_rng(H), Vw, TV, leave=False)
+    t = torch.as_tensor
+    args = (t(a[:, :Vw]).to(torch.bfloat16), t(b[:, :Vw]).to(torch.bfloat16), t(nbr).long(),
+            t(mask[:, :Vw]), t(w2), *map(t, vecs))
+    got = tef.fused_edge_mlp_windowed(*args, tile_v=TV)
+    j = [jnp.asarray(x) for x in (a[:, :Vw], b[:, :Vw], nbr, mask[:, :Vw], w2, *vecs)]
+    ref = jef.fused_edge_mlp_auto(*j, windowed=True, tile_v=TV, interpret=True)
+    assert_close(got, ref, atol=2e-2, what="K5")
+    assert np.abs(got.numpy() - np.asarray(ref)).mean() < OFFSET_MEAN_TOL
 
 
 def _local_nbr(rng, Vw, TV, leave: bool):

@@ -199,10 +199,10 @@ def jax_skin_full(d, bones_packed, flow, surf_geo=None, vox=None):
     probs = jax.nn.softmax(logits, axis=-1) * lmask
     full = jax.vmap(lambda p, n: jnp.zeros((p.shape[0], Bmax), jnp.float32).at[
         jnp.arange(p.shape[0])[:, None], n].add(p))(probs, nn)
-    pruned = jax.vmap(lambda f, nbr, msk: prune_and_normalize(
-        post_filter_skin(f, nbr, msk, num_ring=SP.post_filter_rings), SP.prune_ratio_rig))(
-        full, mesh.tpl_nbr, mesh.tpl_mask)
-    return pruned, desc, logits
+    smoothed = jax.vmap(lambda f, nbr, msk: post_filter_skin(
+        f, nbr, msk, num_ring=SP.post_filter_rings))(full, mesh.tpl_nbr, mesh.tpl_mask)
+    pruned = jax.vmap(lambda f: prune_and_normalize(f, SP.prune_ratio_rig))(smoothed)
+    return pruned, desc, logits, smoothed
 
 
 def jax_host_joints(d, clusters):
@@ -406,6 +406,33 @@ def test_host_tail_with_outside_bone_cost_matches_jax(dag, jax_vox):
     assert any((a.parents != b.parents).any() for a, b in zip(with_cost, without))
 
 
+# The pruning zeroes a smoothed weight below prune_ratio x its row's max, a
+# step in the weight.  The logits' error e (their largest over the valid
+# vertices; they are held at NETWORK first) moves a softmax probability by
+# at most e / 2 (to first order: p_i (1 - p_i) times the spread of the
+# logits' errors, at most 2 e), the one-ring smoothing averages those, so a
+# smoothed weight and its row's max each move by at most e / 2 and a weight
+# that lies within (1 + prune_ratio) e / 2 of the threshold may take the
+# other side of it; those vertices, found from the JAX side's smoothed
+# weights, are left out of the comparison of the pruned weights, and their
+# count is bounded by PRUNE_NEAR_FRAC of the valid vertices (measured 19 of
+# 76 on the JAX DAG's skeletons, 7 of 76 on the voxel stages' with
+# geodesics, 0 of 76 in batch mode).
+PRUNE_NEAR_FRAC = 0.3
+
+
+def near_prune_threshold(ref_smoothed, logits, ref_logits, vm):
+    """(B, V) bool: the vertices with a smoothed weight (the JAX side's,
+    before pruning) within (1 + prune_ratio) e / 2 of prune_ratio x its row's
+    max, e the largest error of the port's skin logits over the valid
+    vertices `vm`."""
+    e = np.abs(F.np_(logits).astype(np.float64) - np.asarray(ref_logits, np.float64))[vm].max()
+    sm = np.asarray(ref_smoothed, np.float64)
+    r = SP.prune_ratio_rig
+    margin = np.abs(sm - r * sm.max(-1, keepdims=True)).min(-1)
+    return vm & (margin <= (1 + r) * e / 2)
+
+
 def _check_skin(dag, stages, flow, vox=None, monkeypatch=None):
     skels = trp.skeletons_from_logits(stages["joints_list"], stages["logits"], MAX_JOINTS,
                                       vox is not None)
@@ -417,7 +444,7 @@ def _check_skin(dag, stages, flow, vox=None, monkeypatch=None):
         bp[i, :nb, :6], bp[i, :nb, 6], bp[i, :nb, 7] = bones[:nb], isleaf[:nb], 1.0
     geo = {} if vox is None else dict(surf_geo=vox["jax_sg"], vox=vox["jax"])
     with F.jax_fused_kernels():
-        ref, desc, ref_logits = jax_skin_full(dag, jnp.asarray(bp), flow, **geo)
+        ref, desc, ref_logits, ref_sm = jax_skin_full(dag, jnp.asarray(bp), flow, **geo)
     if vox is not None:
         # the port's geodesics agree to fp32 rounding; bones equidistant from
         # a vertex (a leaf bone and its parent bone share an end) then tie,
@@ -434,10 +461,6 @@ def _check_skin(dag, stages, flow, vox=None, monkeypatch=None):
         F.assert_close(got_d, ref_d, atol=1e-5, rtol=1e-5, what="geodesics")
         monkeypatch.setattr(trp, "vertex_bone_geodesic_device",
                             lambda *a, **k: torch.as_tensor(ref_d))
-        # and on the JAX skin logits: at the NETWORK tolerance a weight near
-        # the 0.35 x row-max pruning threshold flips to 0 for these bones
-        skin_logits = torch.as_tensor(np.asarray(ref_logits))
-        monkeypatch.setattr(dag["pred"].skin, "forward", lambda *a: (None, None, skin_logits))
     t_flow = torch.as_tensor(np.asarray(flow))
     port_geo = () if vox is None else (vox["port"], vox["port_sg"])
     got = F.np_(dag["pred"].skin_full(torch.as_tensor(bp), t_flow, dag["tm"], *port_geo))
@@ -447,7 +470,9 @@ def _check_skin(dag, stages, flow, vox=None, monkeypatch=None):
         monkeypatch.undo()
     logits = dag["pred"].skin(torch.as_tensor(np.asarray(desc)), t_flow, dag["tm"])[2]
     assert_rel_close(logits, ref_logits, NETWORK, vm, "skin logits")
-    err = np.abs(got - ref)[vm]
+    near = near_prune_threshold(ref_sm, logits, ref_logits, vm)
+    assert near.sum() <= PRUNE_NEAR_FRAC * vm.sum(), (near.sum(), vm.sum())
+    err = np.abs(got - ref)[vm & ~near]
     assert err.max() <= 1e-2, err.max()
     np.testing.assert_allclose(got[vm].sum(-1), 1.0, atol=1e-5)
 
@@ -455,8 +480,10 @@ def _check_skin(dag, stages, flow, vox=None, monkeypatch=None):
 def test_skin_full_program(dag, jax_dag):
     """Program 3 on the JAX DAG's skeletons and flow: the skin logits at the
     NETWORK tolerance, the smoothed, pruned weights within 1e-2 (measured
-    2.2e-3; no weight lies near the 0.35 x row-max pruning threshold, where
-    a difference would flip a weight to 0), and rows that sum to 1."""
+    2.2e-3) away from the 0.35 x row-max pruning threshold, where the
+    logits' error can flip a weight to 0 or back (`near_prune_threshold`;
+    a LayerNorm mean's summation order alone flips one weight here, an
+    error of 0.26 in its vertex's weights), and rows that sum to 1."""
     _check_skin(dag, jax_dag, jax_dag["flow"])
 
 

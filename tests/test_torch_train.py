@@ -117,6 +117,34 @@ def test_edge_bwd_plain_formula_matches_pallas_interpret(H):
         assert_close(g, r, atol=1e-5 * scale, what=name)
 
 
+# K6's plain version at H = 128 and 256 where both LayerNorms' inputs sit at
+# mean 1024 with spread about 1 (a = 1024, exact in bf16; b2 shifted by
+# 1024), against the TPU kernel (interpret), whose `_ln_fwd` takes the
+# variance in two passes.  Each side resolves such inputs to ~1024 * 2^-24
+# in fp32 before rounding h, ds and dx to bf16, so many more elements land a
+# bf16 ulp apart than on centred inputs (and route flips follow): measured
+# relative L2 up to 1.8e-2 (db_table, dW2, dg1), held at K6_OFFSET_L2;
+# max(E[x^2] - E[x]^2, 0) gives 5.5e-2 to 0.24 on every gradient but dbe2.
+K6_OFFSET_L2 = 5e-2
+
+
+@pytest.mark.parametrize("H", [128, 256])
+def test_edge_bwd_plain_two_pass_on_offset_inputs(H):
+    """Every gradient of K6's plain version within K6_OFFSET_L2 relative L2 of
+    the TPU kernel's (interpret) on offset inputs."""
+    args, dout = _bwd_inputs(H, seed=H + 2)
+    a, b, nbr, mask, w2, b2, *rest = args
+    args = (np.full_like(a, 1024.0), b, nbr, mask, w2, b2 + np.float32(1024.0), *rest)
+    t = torch.as_tensor
+    got = tef.edge_mlp_bwd_plain(*map(t, args), t(dout))
+    ref = jef.fused_edge_mlp_bwd(*map(jnp.asarray, args), jnp.asarray(dout), tile_v=128,
+                                 interpret=True)
+    for name, g, r in zip(K6_NAMES, got, ref):
+        g, r = F.np_(g).astype(np.float64), np.asarray(r, np.float64)
+        rel = np.linalg.norm(g - r) / np.linalg.norm(r)
+        assert rel <= K6_OFFSET_L2, (name, rel)
+
+
 def test_trainable_tail_grads_are_the_plain_backward():
     """On the CPU fused_edge_mlp_trainable's forward is K1's plain version
     on bf16(a), bf16(b), and its gradients are edge_mlp_bwd_plain's exactly;
@@ -180,13 +208,15 @@ def test_gcu_train_backward_matches_flax(fin, out, monkeypatch):
     assert set(routes.pallas) == ({(half, half)} if half >= 128 else set())
     net = F.bridged(lambda: tgcu.GCU(fin, out), W.flax_to_state_dict(p))
     calls, trainable = [], tgcu.fused_edge_mlp_trainable
+    narrow, narrow_trainable = [], tgcu.narrow_edge_trainable
     monkeypatch.setattr(tgcu, "fused_edge_mlp_trainable",
                         lambda *a, **k: calls.append(1) or trainable(*a, **k))
-    narrow = tgcu.narrow_edge.launches
+    monkeypatch.setattr(tgcu, "narrow_edge_trainable",
+                        lambda *a, **k: narrow.append(1) or narrow_trainable(*a, **k))
     xt = torch.as_tensor(x).requires_grad_()
     y = net(xt, tm, train=True)
     y.backward(torch.as_tensor(dout))
-    assert (len(calls), tgcu.narrow_edge.launches - narrow) == ((2, 0) if half >= 128 else (0, 2))
+    assert (len(calls), len(narrow)) == ((2, 0) if half >= 128 else (0, 2))
     assert_rel_close(y, ref, LAYER, vm, f"GCU{out}")
     assert_rel_close(xt.grad, jdx, LAYER_GRAD, vm, f"GCU{out} dx")
     _grads_close({n: q.grad for n, q in net.named_parameters()}, W.flax_to_state_dict(jdp),
@@ -444,17 +474,22 @@ def corr_step():
     state.model.load_state_dict(W.flax_to_state_dict(params), strict=True)
     # the gradients before the step's in-place clip, as jax.grad gives them
     trainable, kernel_calls = tgcu.fused_edge_mlp_trainable, []
+    narrow_trainable, narrow_calls = tgcu.narrow_edge_trainable, []
 
     def counted(*a, **k):
         kernel_calls.append(tuple(a[4].shape))
         return trainable(*a, **k)
 
-    tgcu.fused_edge_mlp_trainable, narrow = counted, tgcu.narrow_edge.launches
+    def counted_narrow(*a, **k):
+        narrow_calls.append(tuple(a[4].shape))
+        return narrow_trainable(*a, **k)
+
+    tgcu.fused_edge_mlp_trainable, tgcu.narrow_edge_trainable = counted, counted_narrow
     try:
         outputs = state.model(tb.mesh, tb.points, train=True, train_vismask=True)
     finally:
-        tgcu.fused_edge_mlp_trainable = trainable
-    narrow = tgcu.narrow_edge.launches - narrow
+        tgcu.fused_edge_mlp_trainable, tgcu.narrow_edge_trainable = trainable, narrow_trainable
+    narrow = len(narrow_calls)
     stage._losses(outputs, tb, True)[0].backward()
     grads = {n: p.grad.clone() for n, p in state.model.named_parameters()}
     before = (tef.fused_edge_mlp.launches, tef.fused_edge_mlp_bwd.launches,

@@ -185,16 +185,16 @@ def windowed_step():
     stage = tstages.CorrPoseStage()
     stage.train_vismask = True
     calls, revs, narrow_revs, meshes = [], [], [], []
-    trainable, gather = tgcu.fused_edge_mlp_trainable, tgcu.gather_rows_trainable
+    trainable, narrow = tgcu.fused_edge_mlp_trainable, tgcu.narrow_edge_trainable
 
     def record(*args, **kw):
         calls.append(kw.get("tile_v"))
         revs.append(kw.get("rev"))
         return trainable(*args, **kw)
 
-    def record_narrow(values, idx, rev=None):      # the narrow layers' gather
+    def record_narrow(*args, rev=None):            # the narrow layers' KN + KNB
         narrow_revs.append(rev)
-        return gather(values, idx, rev)
+        return narrow(*args, rev=rev)
 
     grads = {}
     for name, batch in (("windowed", tb), ("full", dataclasses.replace(
@@ -202,11 +202,11 @@ def windowed_step():
         meshes.append(batch.mesh)
         state = stage.init_state(device="cpu")
         state.model.load_state_dict(W.flax_to_state_dict(params), strict=True)
-        tgcu.fused_edge_mlp_trainable, tgcu.gather_rows_trainable = record, record_narrow
+        tgcu.fused_edge_mlp_trainable, tgcu.narrow_edge_trainable = record, record_narrow
         try:
             outputs = state.model(batch.mesh, batch.points, train=True, train_vismask=True)
         finally:
-            tgcu.fused_edge_mlp_trainable, tgcu.gather_rows_trainable = trainable, gather
+            tgcu.fused_edge_mlp_trainable, tgcu.narrow_edge_trainable = trainable, narrow
         total, metrics = stage._losses(outputs, batch, True)
         total.backward()
         grads[name] = ({n: p.grad.clone() for n, p in state.model.named_parameters()},
@@ -250,7 +250,7 @@ def test_windowed_corr_step_is_the_full_table_step(windowed_step):
 
 def test_training_edge_calls_take_the_batch_reverse_tables(windowed_step):
     """Each training edge call of the step gets, for K6's db_table or the
-    narrow layers' gather backward, the reverse table its batch holds for
+    narrow layers' KNB db_table, the reverse table its batch holds for
     that table (`MeshBatch.tpl_rev` / `geo_rev`, built once per batch: 4
     kernel and 4 narrow calls per batch share two tables), and that table
     is `reverse_table` of the batch's neighbour table."""

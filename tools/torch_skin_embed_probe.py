@@ -21,13 +21,14 @@ generator and the schedule):
 
   scanned      run_epochs_scanned (each step a CUDA-graph replay), the
                package's training numerics: layers narrower than 128 in
-               fp32 (`nn.gcu.narrow_edge`), the others through K1 + K6, the
+               fp32 (`narrow_edge_trainable`), the others through K1 + K6, the
                JAX package's split;
   bf16_narrow  scanned, every edge layer the kernels take through K1 + K6 on
                bf16 operands, the narrow ones too (the port's training
                before it took the JAX split; patched here only);
   fp32_edge    scanned, every edge layer's tail in fp32 (no bf16 rounding,
-               no K1/K6);
+               no K1/K6): KN + KNB below 128, their plain version by
+               autograd at 128 and 256, which KN and KNB do not take;
   loop         run_epochs (eager steps): the graphs' part.
 
 One JSON line per (source, form, seed) with the per-epoch train and val
@@ -51,6 +52,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from morig_tpu_torch.data.creature import creature_rig_dataset  # noqa: E402
+from morig_tpu_torch.kernels.narrow_edge import (  # noqa: E402
+    NARROW_WIDTHS, narrow_edge_plain, narrow_edge_trainable)
 from morig_tpu_torch.nn import gcu  # noqa: E402
 from morig_tpu_torch.train import scanned, trainer  # noqa: E402
 from morig_tpu_torch.train.stages import SkinStage  # noqa: E402
@@ -61,8 +64,11 @@ TRAIN, VAL = (12, 0), (3, 100)        # (creatures, first seed) of the campaign'
 
 
 def all_narrow(*args, rev=None, **_):
-    """Every edge layer's training tail in fp32: `narrow_edge`."""
-    return gcu.narrow_edge(*args, rev=rev)
+    """Every edge layer's training tail in fp32: `narrow_edge_trainable` at the widths
+    KN and KNB take, their plain version (autograd) at the others."""
+    if args[0].shape[-1] in NARROW_WIDTHS:
+        return narrow_edge_trainable(*args, rev=rev)
+    return narrow_edge_plain(*args)
 
 
 class Records(trainer.MetricLogger):
